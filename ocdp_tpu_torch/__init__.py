@@ -1,0 +1,44 @@
+"""ocdp_tpu_torch — the PyTorch + CUDA port of ``ocdp_tpu``.
+
+Backward Bellman value iteration over discretized state x action grids, with
+the same grids, interpolation plans, backups and engines as the JAX package,
+on PyTorch tensors. The hot backup runs as a CUDA kernel written for Hopper
+(``ops/fused_backup2d.py``, ``csrc/``) on a CUDA device and as plain
+PyTorch on the CPU. This package imports torch and numpy, never jax; the
+JAX package stays the reference it is tested against.
+"""
+
+from . import convert, diagnostics, engine, grids, models
+from .engine import (
+    SolveResult,
+    value_iteration_converged,
+    value_iteration_finite,
+)
+from .grids import Grid, linspace_axis, sym_linspace_exact, sym_linspace_inclusive
+from .ops.backup import BackupResult, bellman_backup
+from .ops.fused_backup2d import FusedBackup2D
+from .ops.interp import (
+    InterpPlan,
+    axis_locate,
+    build_plan,
+    interp_apply,
+    interp_eval,
+)
+
+__all__ = [
+    "Grid",
+    "linspace_axis",
+    "sym_linspace_exact",
+    "sym_linspace_inclusive",
+    "InterpPlan",
+    "axis_locate",
+    "build_plan",
+    "interp_apply",
+    "interp_eval",
+    "BackupResult",
+    "bellman_backup",
+    "FusedBackup2D",
+    "SolveResult",
+    "value_iteration_finite",
+    "value_iteration_converged",
+]

@@ -1,0 +1,82 @@
+"""Carry plans and solve results across the two packages, through numpy.
+
+The JAX package (``ocdp_tpu``) and this port share no array type. These
+helpers turn the numpy form of an ``InterpPlan`` or ``SolveResult`` (what
+``np.asarray`` gives for either package's arrays) into this package's
+tensors on a chosen device, and back. The tests use them to feed one plan to
+both packages and to roll out a controller solved by one package with the
+other.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from .engine import SolveResult
+from .ops.interp import InterpPlan
+
+__all__ = ["plan_from_numpy", "result_from_numpy", "to_numpy"]
+
+
+def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
+    if a is None:
+        return None
+    return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+
+
+def plan_from_numpy(lo: Sequence, frac: Sequence, grid_shape, *,
+                    device) -> InterpPlan:
+    """An :class:`InterpPlan` from per-axis numpy ``lo`` (int32) and
+    ``frac`` (float32) arrays, on ``device``."""
+    if len(lo) != len(frac) or len(lo) != len(grid_shape):
+        raise ValueError("lo, frac and grid_shape need one entry per axis")
+    return InterpPlan(tuple(_tensor(x, torch.int32, device) for x in lo),
+                      tuple(_tensor(x, torch.float32, device) for x in frac),
+                      tuple(int(n) for n in grid_shape))
+
+
+def result_from_numpy(values, argmin, policies=None, *, num_sweeps=None,
+                      converged: bool = False, probes=None, checks=None,
+                      device) -> SolveResult:
+    """A :class:`SolveResult` from numpy arrays, on ``device``.
+
+    Integer arrays keep their dtype (policies may be uint8 or int16);
+    ``num_sweeps`` defaults to the number of stored policies."""
+    if num_sweeps is None:
+        if policies is None:
+            raise ValueError("give num_sweeps when there are no policies")
+        num_sweeps = len(policies)
+
+    def ints(a):
+        return None if a is None else torch.tensor(np.asarray(a),
+                                                   device=device)
+
+    return SolveResult(
+        values=_tensor(values, torch.float32, device),
+        argmin=ints(argmin),
+        policies=ints(policies),
+        num_sweeps=int(num_sweeps),
+        converged=bool(converged),
+        probes=_tensor(probes, torch.float32, device),
+        checks=_tensor(checks, torch.float32, device),
+    )
+
+
+def to_numpy(x):
+    """The inverse: a tensor to numpy; an :class:`InterpPlan` to
+    ``(lo, frac, grid_shape)`` (the arguments of :func:`plan_from_numpy`); a
+    :class:`SolveResult` to one whose tensors are numpy arrays (its
+    ``_asdict()`` is the keyword form of :func:`result_from_numpy`)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, InterpPlan):
+        return (tuple(to_numpy(t) for t in x.lo),
+                tuple(to_numpy(t) for t in x.frac), tuple(x.grid_shape))
+    if isinstance(x, SolveResult):
+        return SolveResult(*(to_numpy(v) if isinstance(v, torch.Tensor)
+                             else v for v in x))
+    raise TypeError(f"to_numpy takes a tensor, InterpPlan or SolveResult, "
+                    f"not {type(x).__name__}")

@@ -1,0 +1,238 @@
+"""Backward value-iteration engines (counterpart of ``ocdp_tpu/engine.py``).
+
+Two engines, mirroring the reference's two loop shapes:
+
+* :func:`value_iteration_finite` — fixed number of backward sweeps with an
+  optional per-sweep policy store; the Kirk finite-horizon loop
+  (test/Dynamic_Solver.m:86-102).
+* :func:`value_iteration_converged` — value iteration with the pos-att
+  early-stopping rule: every ``check_every`` sweeps compare the summed value
+  table against the previous checkpoint and stop per
+  :func:`convergence_stop` (pos-att/Solver_pos_att.m:268-286).
+
+Each is a Python loop over sweeps; the device work of a sweep is the
+backup's. Policies go into one preallocated tensor. The finite loop never
+waits for the device unless a per-sweep callback is given; the converged
+loop reads one checksum per check.
+
+Stage-loop semantics: sweep ``j=0`` is the backup from the terminal cost
+(the reference's ``k = 1`` / ``k_s = N-1``), so for a finite-horizon rollout
+at forward stage ``k`` (0-based) the policy to use is ``policies[N-2-k]``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from .ops.backup import bellman_backup
+from .ops.interp import InterpPlan
+
+__all__ = [
+    "SolveResult",
+    "value_iteration_finite",
+    "value_iteration_converged",
+    "policy_dtype_for",
+    "convergence_stop",
+]
+
+
+def convergence_stop(err_f: float, fsum: float, tol: float,
+                     tol_mode: str = "abs") -> bool:
+    """The early-stop predicate evaluated at each periodic checkpoint.
+
+    * ``'abs'`` — ``|Δ Σ V| < tol``: the reference's rule verbatim
+      (pos-att/Solver_pos_att.m:280).
+    * ``'rel'`` — ``|Δ Σ V| < tol * max(|Σ V|, 1)``: the scale-free stop,
+      beyond reference parity.
+    """
+    if tol_mode == "abs":
+        return abs(err_f) < tol
+    if tol_mode == "rel":
+        return abs(err_f) < tol * max(abs(fsum), 1.0)
+    raise ValueError(f"unknown tol_mode {tol_mode!r}; use 'abs' or 'rel'")
+
+
+class SolveResult(NamedTuple):
+    values: torch.Tensor           # final value table V, state-grid shape
+    # flat-action argmin of the LAST sweep: int32, or the narrow policy
+    # dtype with narrow_argmin_result=True
+    argmin: torch.Tensor
+    policies: Optional[torch.Tensor]  # (num_sweeps, *state_shape) or None
+    num_sweeps: int                # sweeps performed
+    converged: bool                # always False for the finite engine
+    probes: Optional[torch.Tensor] = None  # (num_sweeps, *window) or None
+    # converged-engine check log, (n_checks, 3) float32: [k_s, errorF,
+    # errorU] per check (Solver_pos_att.m:272-279); rows past the stop are 0
+    checks: Optional[torch.Tensor] = None
+
+
+def policy_dtype_for(n_actions: int) -> torch.dtype:
+    """Smallest integer dtype that can index ``n_actions`` actions.
+
+    The reference plans uint8 argmin storage for the same reason
+    (Solver_attitude.m:189-191).
+    """
+    if n_actions <= torch.iinfo(torch.uint8).max + 1:
+        return torch.uint8
+    if n_actions <= torch.iinfo(torch.int16).max + 1:
+        return torch.int16
+    return torch.int32
+
+
+def _initial_values(plan: InterpPlan, init_values) -> torch.Tensor:
+    if init_values is None:
+        return torch.zeros(plan.grid_shape, dtype=torch.float32,
+                           device=plan.device)
+    return torch.as_tensor(init_values, dtype=torch.float32,
+                           device=plan.device).contiguous()
+
+
+def _sync_for_callback(values: torch.Tensor) -> None:
+    # a host callback that times sweeps must see the sweep finished, not
+    # merely enqueued
+    if values.is_cuda:
+        torch.cuda.synchronize(values.device)
+
+
+def value_iteration_finite(
+    plan: InterpPlan,
+    stage_cost,
+    num_sweeps: int,
+    *,
+    init_values: Optional[torch.Tensor] = None,
+    store_policies: bool = False,
+    policy_dtype: Optional[torch.dtype] = None,
+    backup=None,
+    probe_window=None,
+    narrow_argmin_result: bool = False,
+    on_sweep=None,
+) -> SolveResult:
+    """Run exactly ``num_sweeps`` Bellman backups (finite-horizon DP).
+
+    ``num_sweeps`` is the reference's ``N-1`` (terminal cost J_N = 0 is the
+    initial table; each sweep produces the previous stage's value/policy).
+
+    ``backup``: optional callable ``values -> BackupResult`` replacing the
+    plain gather backup — e.g. a
+    :class:`~ocdp_tpu_torch.ops.fused_backup2d.FusedBackup2D`.
+
+    ``probe_window``: optional tuple of ``(start, size)`` per state dim; the
+    window of V after every sweep lands in ``SolveResult.probes`` (the
+    reference's ``checkstagesXJF`` probes, test/Dynamic_Solver.m:212-219).
+
+    ``narrow_argmin_result``: return ``argmin`` in the narrow policy dtype
+    (uint8 at <= 256 actions) instead of int32.
+
+    ``on_sweep(i)``: optional host callback after each sweep (the
+    reference's per-stage 'step %d - %f seconds' print). On a CUDA device
+    the engine synchronizes before each call, so the callback sees the
+    sweep completed; without a callback nothing synchronizes.
+    """
+    v = _initial_values(plan, init_values)
+    n_actions = plan.query_shape[-1]
+    pdt = policy_dtype or policy_dtype_for(n_actions)
+    if policy_dtype is not None and \
+            torch.iinfo(policy_dtype).max < n_actions - 1:
+        raise ValueError(
+            f"policy_dtype {policy_dtype} cannot hold {n_actions} actions")
+    if backup is None:
+        backup = lambda v: bellman_backup(v, plan, stage_cost)  # noqa: E731
+
+    window = None
+    probes = None
+    if probe_window is not None:
+        window = tuple(slice(s, s + n) for s, n in probe_window)
+        if any(w.start < 0 or w.stop > g
+               for w, g in zip(window, plan.grid_shape)):
+            raise ValueError(f"probe_window {probe_window} leaves the grid "
+                             f"{plan.grid_shape}")
+        probes = torch.empty((num_sweeps, *(n for _, n in probe_window)),
+                             dtype=torch.float32, device=v.device)
+    policies = (torch.empty((num_sweeps, *plan.grid_shape), dtype=pdt,
+                            device=v.device) if store_policies else None)
+
+    argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
+    for i in range(num_sweeps):
+        v, argmin = backup(v)
+        if policies is not None:
+            policies[i] = argmin
+        if probes is not None:
+            probes[i] = v[window]
+        if on_sweep is not None:
+            _sync_for_callback(v)
+            on_sweep(i)
+    argmin = argmin.to(pdt if narrow_argmin_result else torch.int32)
+    return SolveResult(
+        values=v,
+        argmin=argmin,
+        policies=policies,
+        num_sweeps=num_sweeps,
+        converged=False,
+        probes=probes,
+    )
+
+
+def value_iteration_converged(
+    plan: InterpPlan,
+    stage_cost,
+    max_sweeps: int,
+    *,
+    check_every: int = 50,
+    tol: float = 1e-2,
+    tol_mode: str = "abs",
+    init_values: Optional[torch.Tensor] = None,
+    backup=None,
+    on_check=None,
+    narrow_argmin_result: bool = False,
+) -> SolveResult:
+    """Value iteration with the reference's periodic-checksum early stop.
+
+    Mirrors pos-att/Solver_pos_att.m:268-286: iterate ``k_s`` from
+    ``max_sweeps`` down to 1; whenever ``k_s % check_every == 0`` (after the
+    sweep at that ``k_s``), compare ``errorF = Σ V - Σ V_prev_check`` and
+    stop per :func:`convergence_stop`. Each check also records
+    ``errorU = Σ argmin_ids - Σ argmin_ids_prev_check`` (the reference's
+    second diagnostic, :275-278); both land in ``SolveResult.checks`` as
+    rows ``[k_s, errorF, errorU]``, and ``on_check(k_s, errorF, errorU)`` is
+    called per check when given. The sums are float32, and both "previous"
+    sums start at 0.0.
+    """
+    convergence_stop(0.0, 0.0, tol, tol_mode)     # validate tol_mode early
+    v = _initial_values(plan, init_values)
+    if backup is None:
+        backup = lambda v: bellman_backup(v, plan, stage_cost)  # noqa: E731
+    pdt = (policy_dtype_for(plan.query_shape[-1]) if narrow_argmin_result
+           else torch.int32)
+
+    n_checks = max(max_sweeps // check_every, 1)
+    checks = torch.zeros((n_checks, 3), dtype=torch.float32)
+    argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
+    fsum_prev = usum_prev = torch.zeros((), dtype=torch.float32)
+    c_idx = 0
+    k_s = max_sweeps
+    converged = False
+    while k_s >= 1 and not converged:
+        v, argmin = backup(v)
+        if k_s % check_every == 0:
+            fsum = v.sum(dtype=torch.float32).cpu()
+            usum = argmin.sum(dtype=torch.float32).cpu()
+            err_f, err_u = fsum - fsum_prev, usum - usum_prev
+            converged = convergence_stop(float(err_f), float(fsum), tol,
+                                         tol_mode)
+            checks[c_idx] = torch.stack(
+                [torch.tensor(float(k_s)), err_f, err_u])
+            if on_check is not None:
+                on_check(k_s, float(err_f), float(err_u))
+            c_idx += 1
+            fsum_prev, usum_prev = fsum, usum
+        k_s -= 1
+    return SolveResult(
+        values=v,
+        argmin=argmin.to(pdt),
+        policies=None,
+        num_sweeps=max_sweeps - k_s,
+        converged=converged,
+        checks=checks.to(v.device),
+    )

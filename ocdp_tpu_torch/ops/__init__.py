@@ -1,0 +1,14 @@
+from .backup import BackupResult, bellman_backup
+from .fused_backup2d import FusedBackup2D
+from .interp import InterpPlan, axis_locate, build_plan, interp_apply, interp_eval
+
+__all__ = [
+    "BackupResult",
+    "bellman_backup",
+    "FusedBackup2D",
+    "InterpPlan",
+    "axis_locate",
+    "build_plan",
+    "interp_apply",
+    "interp_eval",
+]
