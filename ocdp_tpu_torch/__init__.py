@@ -2,13 +2,13 @@
 
 Backward Bellman value iteration over discretized state x action grids, with
 the same grids, interpolation plans, backups and engines as the JAX package,
-on PyTorch tensors. The hot backup runs as a CUDA kernel written for Hopper
-(``ops/fused_backup2d.py``, ``csrc/``) on a CUDA device and as plain
-PyTorch on the CPU. This package imports torch and numpy, never jax; the
+on PyTorch tensors. The hot backups run as CUDA kernels written for Hopper
+(``ops/fused_backup2d.py`` for Kirk, ``ops/rowlane.py`` for pos-att;
+sources in ``csrc/``) on a CUDA device and as plain PyTorch on the CPU. This package imports torch and numpy, never jax; the
 JAX package stays the reference it is tested against.
 """
 
-from . import convert, diagnostics, engine, grids, models
+from . import convert, diagnostics, dynamics, engine, grids, io, models, utils
 from .engine import (
     SolveResult,
     value_iteration_converged,
@@ -17,6 +17,7 @@ from .engine import (
 from .grids import Grid, linspace_axis, sym_linspace_exact, sym_linspace_inclusive
 from .ops.backup import BackupResult, bellman_backup
 from .ops.fused_backup2d import FusedBackup2D
+from .ops.rowlane import RowLaneBackup
 from .ops.interp import (
     InterpPlan,
     axis_locate,
@@ -38,6 +39,7 @@ __all__ = [
     "BackupResult",
     "bellman_backup",
     "FusedBackup2D",
+    "RowLaneBackup",
     "SolveResult",
     "value_iteration_finite",
     "value_iteration_converged",

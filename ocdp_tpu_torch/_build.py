@@ -1,7 +1,8 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into a shared library with
-a plain C interface, which :func:`load` opens with ``ctypes``. The library
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc`` process, all of
+them at once, and the objects are linked into one shared library with a
+plain C interface, which :func:`load` opens with ``ctypes``. The library
 goes to ``build/ocdp_tpu_torch/`` at the root of the checkout, named by a
 hash of the sources and flags, so a second run (or a second process) reuses
 it. Nothing is downloaded: only the sources in the repository are built.
@@ -16,6 +17,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "library_path", "load"]
@@ -23,8 +25,8 @@ __all__ = ["BUILD_DIR", "NVCC_FLAGS", "library_path", "load"]
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ocdp_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+_ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -32,6 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "fused_backup2d_f32": (_I, [_P] * 12 + [_I] * 4 + [_P]),
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
+    "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),
+    "rowlane_backup_error_string": (ctypes.c_char_p, [_I]),
 }
 
 
@@ -59,19 +63,28 @@ def _nvcc() -> str:
     return str(nvcc)
 
 
-def _compile(out: Path) -> None:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+def _run(cmd: list[str]) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
-        os.unlink(tmp)
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    # the compiler's report (-Xptxas -v: registers, shared memory, spills)
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)   # atomic: a concurrent process sees all or nothing
+    return proc.stdout + proc.stderr
+
+
+def _compile(out: Path) -> None:
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs = [str(Path(tmp, src.stem + ".o")) for src in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for obj, src in zip(objs, _sources())]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            logs = list(pool.map(_run, cmds))
+        lib = str(Path(tmp, out.name))
+        _run([nvcc, *_ARCH, "-shared", "-o", lib, *objs])
+        # the compiler's report (-Xptxas -v: registers, shared memory, spills)
+        out.with_suffix(".log").write_text("".join(logs))
+        os.replace(lib, out)   # atomic: a concurrent process sees all or nothing
 
 
 @functools.cache

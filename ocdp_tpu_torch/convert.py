@@ -1,24 +1,28 @@
-"""Carry plans and solve results across the two packages, through numpy.
+"""Carry plans, solve results and solutions across the two packages.
 
 The JAX package (``ocdp_tpu``) and this port share no array type. These
-helpers turn the numpy form of an ``InterpPlan`` or ``SolveResult`` (what
-``np.asarray`` gives for either package's arrays) into this package's
-tensors on a chosen device, and back. The tests use them to feed one plan to
-both packages and to roll out a controller solved by one package with the
-other.
+helpers turn the numpy form of an ``InterpPlan``, a ``SolveResult`` or a
+pos-att ``PosAttSolution`` (what ``np.asarray`` gives for either package's
+arrays) into this package's tensors on a chosen device, and back. The tests
+use them to feed one plan to both packages and to fly a controller solved by
+one package with the other.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from .engine import SolveResult
+from .io import ChannelController
+from .models.pos_att import PosAttConfig, PosAttSolution
 from .ops.interp import InterpPlan
 
-__all__ = ["plan_from_numpy", "result_from_numpy", "to_numpy"]
+__all__ = ["plan_from_numpy", "result_from_numpy", "solution_from_numpy",
+           "to_numpy"]
 
 
 def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
@@ -65,18 +69,42 @@ def result_from_numpy(values, argmin, policies=None, *, num_sweeps=None,
     )
 
 
+def solution_from_numpy(sol, *, device) -> PosAttSolution:
+    """A pos-att :class:`PosAttSolution` on ``device`` from one whose
+    controllers hold numpy arrays: the JAX package's ``PosAttSolution``, or
+    what :func:`to_numpy` gives. Each controller's ``axes``, ``values``,
+    ``argmin`` and ``forces`` are carried over; the configuration is rebuilt
+    from its fields."""
+    ctrls = {
+        name: ChannelController(
+            axes=tuple(np.asarray(a) for a in c.axes),
+            values=_tensor(c.values, torch.float32, device),
+            argmin=_tensor(c.argmin, torch.int32, device),
+            forces=np.asarray(c.forces, np.float32))
+        for name, c in sol.controllers.items()}
+    return PosAttSolution(PosAttConfig(**dataclasses.asdict(sol.config)),
+                          ctrls)
+
+
 def to_numpy(x):
     """The inverse: a tensor to numpy; an :class:`InterpPlan` to
     ``(lo, frac, grid_shape)`` (the arguments of :func:`plan_from_numpy`); a
     :class:`SolveResult` to one whose tensors are numpy arrays (its
-    ``_asdict()`` is the keyword form of :func:`result_from_numpy`)."""
+    ``_asdict()`` is the keyword form of :func:`result_from_numpy`); a
+    :class:`PosAttSolution` to one whose controllers hold numpy arrays (the
+    fields of the JAX package's ``ChannelController``), without results."""
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
+    if isinstance(x, PosAttSolution):
+        return PosAttSolution(x.config, {
+            name: ChannelController(c.axes, to_numpy(c.values),
+                                    to_numpy(c.argmin), c.forces)
+            for name, c in x.controllers.items()})
     if isinstance(x, InterpPlan):
         return (tuple(to_numpy(t) for t in x.lo),
                 tuple(to_numpy(t) for t in x.frac), tuple(x.grid_shape))
     if isinstance(x, SolveResult):
         return SolveResult(*(to_numpy(v) if isinstance(v, torch.Tensor)
                              else v for v in x))
-    raise TypeError(f"to_numpy takes a tensor, InterpPlan or SolveResult, "
-                    f"not {type(x).__name__}")
+    raise TypeError(f"to_numpy takes a tensor, InterpPlan, SolveResult or "
+                    f"PosAttSolution, not {type(x).__name__}")

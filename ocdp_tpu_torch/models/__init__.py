@@ -1,5 +1,5 @@
-"""Problem families. Ported so far: Kirk ch.3."""
+"""Problem families. Ported so far: Kirk ch.3 and coupled position+attitude."""
 
-from . import kirk
+from . import kirk, pos_att
 
-__all__ = ["kirk"]
+__all__ = ["kirk", "pos_att"]

@@ -1,6 +1,7 @@
 from .backup import BackupResult, bellman_backup
 from .fused_backup2d import FusedBackup2D
 from .interp import InterpPlan, axis_locate, build_plan, interp_apply, interp_eval
+from .rowlane import RowLaneBackup
 
 __all__ = [
     "BackupResult",
@@ -11,4 +12,5 @@ __all__ = [
     "build_plan",
     "interp_apply",
     "interp_eval",
+    "RowLaneBackup",
 ]

@@ -1,7 +1,9 @@
-"""The fused 2-D backup's CUDA kernel vs its plain PyTorch version, on a card.
+"""The CUDA kernels (fused 2-D backup, row/lane backup) vs their plain
+PyTorch versions, on a card.
 
-Both round every multiply and add separately and take the first minimum,
-so on one device they must agree bitwise: values and argmin. Every test
+Each kernel and its plain version round every multiply and add separately
+and take the first minimum, so on one device they must agree bitwise:
+values and argmin. Every test
 here needs a CUDA device and skips without one. This file imports no jax,
 so it also runs where only PyTorch is installed:
 
@@ -12,9 +14,10 @@ import numpy as np
 import pytest
 import torch
 
-from ocdp_tpu_torch.models import kirk
+from ocdp_tpu_torch.models import kirk, pos_att
 from ocdp_tpu_torch.ops import fused_backup2d as fb
-from ocdp_tpu_torch.ops.interp import build_plan
+from ocdp_tpu_torch.ops import rowlane as rl
+from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
 from ocdp_tpu_torch.profiling import cuda_time_ms
 
 pytestmark = pytest.mark.cuda
@@ -91,3 +94,93 @@ def test_cuda_time_ms(device):
     ms = cuda_time_ms(lambda: torch.ones(1 << 20, device=device).sum(),
                       inner=3, repeats=3)
     assert 0.0 < ms < 1000.0
+
+
+def _rowlane_vs_plain(bk, v):
+    before = rl.rowlane_backup_cuda.launches
+    got = bk(v)
+    torch.cuda.synchronize()
+    assert rl.rowlane_backup_cuda.launches == before + 1
+    _bitwise(got, bk.plain(v))
+    return got
+
+
+@pytest.mark.parametrize("channel,failure", [("x", False), ("y", False),
+                                             ("z", False), ("x", True)])
+@pytest.mark.parametrize("size", ["reference", "high_res"])
+def test_rowlane_one_sweep_bitwise(device, channel, failure, size):
+    cfg = pos_att.PosAttConfig() if size == "reference" \
+        else pos_att.PosAttConfig.high_res()
+    p = pos_att.build_channel(cfg, channel, failure=failure, with_cost=False,
+                              device=device)
+    bk = pos_att.build_channel_rowlane_backup(cfg, p)
+    rng = np.random.default_rng(7)
+    v = torch.from_numpy(rng.uniform(0, 50, p.plan.grid_shape)
+                         .astype(np.float32)).to(device)
+    _rowlane_vs_plain(bk, v)
+
+
+def _tied_backup(cfg, device):
+    """The x channel with every action listed twice (actions 9..17 repeat
+    0..8), so every minimum is an exact tie."""
+    p = pos_att.build_channel(cfg, "x", with_cost=False, device=device)
+
+    def twice(a):
+        return torch.cat([a, a], dim=-1) if a.shape[-1] > 1 else a
+
+    plan = InterpPlan(tuple(twice(a) for a in p.plan.lo),
+                      tuple(twice(a) for a in p.plan.frac),
+                      p.plan.grid_shape)
+    forces = np.concatenate([p.forces, p.forces])
+    return pos_att.build_channel_rowlane_backup(
+        cfg, p._replace(plan=plan, forces=forces))
+
+
+def test_rowlane_exact_ties_take_the_first_action(device):
+    cfg = pos_att.PosAttConfig()
+    bk = _tied_backup(cfg, device)
+    v = torch.from_numpy(np.random.default_rng(8).uniform(
+        0, 50, bk.state_shape).astype(np.float32)).to(device)
+    got = _rowlane_vs_plain(bk, v.permute(bk.inv).contiguous())
+    assert int(got.argmin.max()) < 9
+
+
+def test_channel_plan_on_card_equals_cpu(device):
+    cfg = pos_att.PosAttConfig()
+    for ch in pos_att.CHANNELS:
+        pc = pos_att.build_channel(cfg, ch, device="cpu")
+        pg = pos_att.build_channel(cfg, ch, device=device)
+        for a, b in zip(pc.plan.lo + pc.plan.frac, pg.plan.lo + pg.plan.frac):
+            assert torch.equal(a, b.cpu())
+        assert torch.equal(pc.stage_cost, pg.stage_cost.cpu())
+
+
+def test_pos_att_solve_launches_and_equals_plain(device):
+    cfg = pos_att.PosAttConfig(n_mesh_x=12, n_mesh_v=12, n_mesh_t=8,
+                               n_mesh_w=7, T_final=2.0)
+    before = rl.rowlane_backup_cuda.launches
+    sk = pos_att.solve(cfg, device=device, impl="kernel")
+    n = sum(r.num_sweeps for r in sk.results.values())
+    assert rl.rowlane_backup_cuda.launches == before + n
+    sp = pos_att.solve(cfg, device=device, impl="rowlane")
+    assert rl.rowlane_backup_cuda.launches == before + n
+    for name, ck in sk.controllers.items():
+        assert torch.equal(ck.values, sp.controllers[name].values)
+        assert torch.equal(ck.argmin, sp.controllers[name].argmin)
+        assert sk.results[name].num_sweeps == sp.results[name].num_sweeps
+
+
+def test_fleet_member_equals_single_flight(device):
+    cfg = pos_att.PosAttConfig(n_mesh_x=12, n_mesh_v=12, n_mesh_t=8,
+                               n_mesh_w=7, T_final=2.0)
+    sol = pos_att.solve(cfg, device=device, include_failure=False)
+    x0s = np.stack([pos_att.default_x0(p) for p in (2.0, -1.5)])
+    x0s[:, 0] = (-0.05, 0.08)
+    for integrator, t_final in (("rk4", 0.5), ("ode45", 0.1)):
+        _, Xb, Fb, _ = pos_att.rollout_batch(sol, x0s, t_final=t_final,
+                                             integrator=integrator)
+        for b in range(2):
+            _, X, F, _ = pos_att.get_optimal_path(
+                sol, x0s[b], t_final=t_final, integrator=integrator)
+            assert torch.equal(Xb[b], X)
+            assert torch.equal(Fb[b], F)

@@ -135,3 +135,64 @@ def test_interp_reproduces_affine_functions():
     got = ti.interp_eval(table, axes, (q0, q1))
     np.testing.assert_allclose(got.numpy(), (2 * q0 - 3 * q1 + 1).numpy(),
                                atol=1e-4)
+
+
+def _nearest_queries(ax, rng):
+    """Random, out-of-grid, on-grid and exact-midpoint coordinates."""
+    span = float(ax[-1] - ax[0])
+    mid = ((ax[:-1].astype(np.float64) + ax[1:]) / 2).astype(np.float32)
+    exact = mid[(mid - ax[:-1]) == (ax[1:] - mid)]   # f32-exact midpoints
+    return np.concatenate([rng.uniform(ax[0] - span, ax[-1] + span, 300),
+                           ax, exact]).astype(np.float32), len(exact)
+
+
+@pytest.mark.parametrize("name", sorted(AXES))
+def test_nearest_eval_bitwise(name):
+    ax = AXES[name]
+    rng = np.random.default_rng(9)
+    q, n_exact = _nearest_queries(ax, rng)
+    assert n_exact > 0
+    table = rng.uniform(-1, 1, ax.size).astype(np.float32)
+    want = np.asarray(ji.nearest_eval(jnp.asarray(table), [ax], (q,)))
+    got = ti.nearest_eval(torch.from_numpy(table), [ax], (torch.from_numpy(q),))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # exact midpoints snap to the LOWER neighbor
+    mids = q[-n_exact:]
+    low = np.searchsorted(ax, mids, side="right") - 1
+    np.testing.assert_array_equal(got.numpy()[-n_exact:], table[low])
+
+
+def test_nearest_cell_index_bitwise():
+    axes = (AXES["uniform"], AXES["rectilinear"],
+            sym_linspace_exact(-0.2, 0.2, 30), linspace_axis(-1.0, 1.0, 7))
+    rng = np.random.default_rng(10)
+    cols = [_nearest_queries(ax, rng)[0][:250] for ax in axes]
+    q = np.stack(cols, axis=-1)
+    aff_j = ji.affine_axes(axes)
+    aff_t = ti.affine_axes(axes, device="cpu")
+    for a, b in zip(aff_t, aff_j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    got = ti.nearest_cell_index(aff_t, torch.from_numpy(q))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        ji.nearest_cell_index(aff_j, jnp.asarray(q))))
+    # the same indices nearest_eval picks through searchsorted
+    for k, ax in enumerate(axes):
+        idx = ti.nearest_eval(torch.arange(ax.size, dtype=torch.float32),
+                              [ax], (torch.from_numpy(q[:, k]),))
+        np.testing.assert_array_equal(got.numpy()[:, k], idx.numpy())
+
+
+def test_affine_axes_rejects_drifting_axes():
+    """The reference checks only adjacent spacings (ocdp_tpu/ops/interp.py
+    :283), which a slow drift passes; the port checks each grid point's
+    distance from its piece's affine fit."""
+    d = 1.0 + 5e-5 * np.arange(40)           # adjacent ratios within 1e-4
+    drift = np.concatenate([[0.0], np.cumsum(d)]).astype(np.float32)
+    ji.affine_axes((drift,))                  # the reference accepts it
+    with pytest.raises(ValueError, match="drifts"):
+        ti.affine_axes((drift,), device="cpu")
+    with pytest.raises(ValueError, match="piecewise-uniform"):
+        ti.affine_axes((np.array([0.0, 1.0, 3.0, 7.0], np.float32),),
+                       device="cpu")
+    ti.affine_axes((sym_linspace_exact(-0.1, 0.1, 30),), device="cpu")
