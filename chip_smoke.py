@@ -43,24 +43,58 @@ Coupled position+attitude (kernel ``rowlane_backup``):
     of the plain version at both sizes, the full reference solve, a 1 s rk4
     flight and the fleet's flight-seconds per second.
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``. Without a CUDA device, or
-without the package beside this script, it exits non-zero and prints no
+Full 6-D attitude (kernel ``backup6d``), at the reference's historical
+``AttitudeConfig(n_mesh_w=11, n_mesh_q=10)`` (11^3 x 10^3 cells, 27
+torques, 5999 sweeps):
+
+12. one sweep of the 6-D kernel vs its plain version: a seeded random table
+    and the table after 50 sweeps at 11^3 x 10^3, 5^3 x 4^3, an exact-tie
+    case (h = 0, no cost), ``edge='clamp'``, and a permuted action order
+    (the generic action phase): values and argmin bitwise equal;
+13. the main path, ``attitude.solve_full(AttitudeConfig(n_mesh_w=11,
+    n_mesh_q=10))`` on the default device over the full 5999 sweeps: the
+    kernel's launch count goes up by exactly 5999, the values are finite;
+    a 50-sweep solve through the kernel equals ``impl='plain'`` bitwise;
+14. the segmented solve with the stop rule (``segment_size=50,
+    tol=1e-2``) against ``value_iteration_converged(check_every=50,
+    tol=1e-2)``: same sweep count and stop flag, bitwise values; a solve
+    killed after its checkpoint at sweep 100 and resumed from
+    ``load_values`` equals the uninterrupted one bitwise;
+15. serving: the 11^3 x 7^3 policy (1000 sweeps) damps the (5, 10, -9) deg
+    start over 4000 stages (mean |Euler angle| of the last 200 < 4 deg,
+    mean |omega| < 6 deg/s); the 5999-stage nearest rollout of the main
+    path's solution, timed; one 'interp' rollout;
+16. timing: the kernel and plain sweeps at 11^3 x 10^3 (CUDA events, warm,
+    median of 10), the solves' wall times, the rollout time per stage, peak
+    device memory, and the kernel's registers and spills from the build
+    log.
+
+The line before the last is a JSON object describing each kernel, with its
+time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
+and its bytes (each input read once, each output written once) over
+3.35 TB/s, the H100 SXM's published peaks, counted from this run's inputs.
+The last line is ``{"ok": true, "device": {...}}``. Without a CUDA device,
+or without the package beside this script, it exits non-zero and prints no
 result.
 """
 
 import json
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ocdp_tpu_torch import _build
-from ocdp_tpu_torch.engine import value_iteration_finite
-from ocdp_tpu_torch.models import kirk, pos_att
+from ocdp_tpu_torch import _build, io
+from ocdp_tpu_torch.engine import (value_iteration_converged,
+                                   value_iteration_finite,
+                                   value_iteration_segmented)
+from ocdp_tpu_torch.models import attitude, kirk, pos_att
+from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
 from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
@@ -69,6 +103,18 @@ from ocdp_tpu_torch.profiling import cuda_time_ms
 ROOT = Path(__file__).resolve().parent
 GOLDEN_DIR = ROOT / "tests" / "golden"
 SEED = 0
+# the H100 SXM's published peaks: FP32 outside the tensor cores, HBM3
+FP32_FLOP_PER_S = 67e12
+HBM_BYTES_PER_S = 3.35e12
+
+
+def bound(flops: float, nbytes: float) -> dict:
+    """The least time the card could take for the work: the larger of the
+    operations over the FP32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / FP32_FLOP_PER_S, nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes}
 
 
 def check(ok: bool, what: str) -> None:
@@ -76,8 +122,11 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"chip_smoke: {what}")
 
 
+_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    print(f"== {name} (at {time.perf_counter() - _START:.1f} s)", flush=True)
 
 
 def kernel_args(bk, v):
@@ -128,7 +177,15 @@ def main() -> None:
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s")
 
-    kernels = [kirk_phases(device), pos_att_phases(device)]
+    kernels = [kirk_phases(device), pos_att_phases(device),
+               attitude_phases(device)]
+    for k in kernels:
+        print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
+              f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
+              f"FP32 operations, {k.pop('bytes'):.4e} bytes), plain "
+              f"{k['plain_ms']:.4f} ms, {k['launches']} launches on the main "
+              "path")
+    print(f"chip_smoke: all phases in {time.perf_counter() - _START:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -138,6 +195,13 @@ def main() -> None:
 def reset_launch_counts() -> None:
     fb.fused_backup2d_cuda.launches = 0
     rl.rowlane_backup_cuda.launches = 0
+    b6.backup6d_cuda.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"fused_backup2d": fb.fused_backup2d_cuda.launches,
+            "rowlane_backup": rl.rowlane_backup_cuda.launches,
+            "backup6d": b6.backup6d_cuda.launches}
 
 
 def kirk_phases(device) -> dict:
@@ -256,6 +320,14 @@ def kirk_phases(device) -> dict:
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           " MiB")
 
+    # per eval: 4 corners, each weight (1 - f where needed: 4 subtractions
+    # in all) a product of 2 factors, times its corner value, summed (3
+    # adds); the state + action cost (2 adds) and one compare: 18
+    # operations. Bytes: the table, the action-major plan (2 int32 + 2 f32
+    # per eval), the two cost parts, the values and argmin written.
+    n_cells, n_act = bk.lo0.shape[1], bk.lo0.shape[0]
+    nbytes = 4 * n_cells + 16 * n_cells * n_act + 4 * (n_cells + n_act) \
+        + 8 * n_cells
     return {
         "name": "fused_backup2d",
         "route": "cuda",
@@ -265,6 +337,8 @@ def kirk_phases(device) -> dict:
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
+        **bound(18.0 * n_cells * n_act, nbytes),
+        "library_ms": None,
     }
 
 
@@ -485,6 +559,304 @@ def pos_att_phases(device) -> dict:
         "max_abs_err": max_err,
         "ms": ms["reference"][0],
         "plain_ms": ms["reference"][1],
+        **rowlane_bound(timed["reference"][0]),
+        "library_ms": None,
+    }
+
+
+def rowlane_bound(bk) -> dict:
+    """FP32 operations and bytes of one row/lane sweep, as its plain version
+    does them (``rowlane_backup_plain``), from this plan's tap structure."""
+    a = bk.args
+    nw, ne, n_act = bk.NW, bk.NE, a.n_actions
+    nc, nr = len(a.row_combos), len(a.row_shape)
+    n_taps = [len(t) for t in a.lane_taps]
+    per_cell = (2 * sum(n_taps)                    # lane tap weights
+                + nc * sum(2 * t - 1 for t in n_taps)   # lane lerps
+                + n_act * (2 * nc - 1)             # sum over row combos
+                + sum(1 for c in a.c_act if c)     # action costs
+                + (n_act if a.c_rowact is not None else 0)
+                + (n_act - 1)                      # compares
+                + 3)                               # row, lane, rowlane adds
+    w_taps = [len({c[k] for c in a.row_combos}) for k in range(nr)]
+    per_row = n_act * (2 * sum(w_taps) + (nr - 1) * nc)   # row weights
+    nbytes = (4 * nw * ne + 8 * nr * nw * n_act
+              + sum(8 * nw * n for n in a.lane_shape) + 4 * (nw + ne)
+              + (4 * nw * n_act if a.c_rowact is not None else 0)
+              + (4 * nw * ne if a.c_rowlane is not None else 0)
+              + 8 * nw * ne)
+    return bound(float(per_cell * nw * ne + per_row * nw), nbytes)
+
+
+ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
+ATT_SERVE = dict(n_mesh_w=11, n_mesh_q=7)
+DEG = np.pi / 180.0
+
+
+def attitude_backup(device, case="extrapolate", **kw):
+    """The 6-D backup of ``build_full``'s plan. ``case``: 'clamp' builds
+    with ``edge='clamp'``; 'tie' zeroes the cost (with ``h=0`` all actions
+    then tie exactly); 'permuted' reorders the actions, so that they no
+    longer factor digit by digit and the generic action phase runs."""
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(**kw), device=device,
+        edge="clamp" if case == "clamp" else "extrapolate")
+    cost = list(cost)
+    if case == "tie":
+        cost = [torch.zeros_like(t) for t in cost]
+    elif case == "permuted":
+        perm = torch.from_numpy(np.random.default_rng(SEED).permutation(27)) \
+            .to(device)
+        plan = InterpPlan(
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.lo),
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.frac),
+            plan.grid_shape)
+        cost[2] = cost[2][..., perm]
+    return plan, cost, b6.Backup6D(plan, cost)
+
+
+def backup6d_vs_plain(bk, v, label: str) -> float:
+    """One sweep through the 6-D kernel and through its plain version on the
+    same inputs; both must agree bitwise. Returns max |dV|."""
+    got = bk(v)
+    want = bk.plain(v)
+    torch.cuda.synchronize()
+    err = float((got.values - want.values).abs().max())
+    same_v = torch.equal(got.values, want.values)
+    same_a = torch.equal(got.argmin, want.argmin)
+    print(f"{label} ({bk.NW}x{bk.NE}, {len(bk.row_combos)} row x "
+          f"{len(bk.lane_combos)} lane combos, action digits "
+          f"{bk.action_digits}): values bitwise {same_v}, argmin identical "
+          f"{same_a}, max |dV| {err}")
+    check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
+    check(same_v and same_a, f"{label}: kernel != plain version")
+    return err
+
+
+def backup6d_bound(bk) -> dict:
+    """FP32 operations and bytes of one 6-D sweep, as its plain version does
+    them (``backup6d_plain``), from this plan's tap structure."""
+    a = bk.args
+    nw, ne, n_act = bk.NW, bk.NE, a.n_actions
+    n_row, n_lane = len(a.row_combos), len(a.lane_combos)
+    e_taps = [len({c[k] for c in a.lane_combos}) for k in range(3)]
+    per_cell = (2 * sum(e_taps)              # lane tap weights
+                + 2 * n_lane                 # joint lane-combo weights
+                + n_row * (2 * n_lane - 1))  # A_j
+    per_row = n_act * 2 * sum(len(t) for t in a.w_taps)   # row weights
+    if a.action_digits:
+        m = a.action_digits
+        combos = set(a.row_combos)
+        pairs = sorted({c[:2] for c in combos})
+        t0s = sorted({c[0] for c in combos})
+        per_cell += sum(m * (2 * sum((p + (t,)) in combos
+                                     for t in a.w_taps[2]) - 1)
+                        for p in pairs)                       # B
+        per_cell += sum(m * m * (2 * sum((t0, t) in pairs
+                                         for t in a.w_taps[1]) - 1)
+                        for t0 in t0s)                        # C
+        per_cell += n_act * (2 * len(t0s) - 1)                # totals
+    else:
+        per_cell += n_act * (2 * n_row - 1)
+        per_row += n_act * 2 * n_row            # row-combo weight products
+    per_cell += (sum(1 for c in a.c_act if c)
+                 + (n_act if a.c_rowact is not None else 0)
+                 + (n_act - 1) + 3)             # costs, compares, final adds
+    nbytes = (4 * nw * ne + 24 * nw * n_act + 24 * nw * ne
+              + 4 * (nw + ne)
+              + (4 * nw * n_act if a.c_rowact is not None else 0)
+              + (4 * nw * ne if a.c_rowlane is not None else 0)
+              + 8 * nw * ne)
+    return bound(float(per_cell * nw * ne + per_row * nw), nbytes)
+
+
+def kernel_registers(name: str) -> str:
+    """The ptxas line (registers, spills) of kernel ``name`` in the build
+    log that ``_build`` writes beside the library."""
+    log = _build.library_path().with_suffix(".log").read_text()
+    blocks = log.split("Compiling entry function")
+    for b in blocks:
+        if name in b.split("\n", 1)[0]:
+            spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", b)
+            regs = re.search(r"Used (\d+) registers", b)
+            return (f"{regs.group(1)} registers, {spill.group(1)} B spill "
+                    f"stores, {spill.group(2)} B spill loads")
+    raise RuntimeError(f"chip_smoke: {name} not in the build log")
+
+
+def attitude_phases(device) -> dict:
+    """Phases 12-16; returns the 6-D kernel's entry of the kernels line."""
+    rng = np.random.default_rng(SEED + 2)
+    full_cfg = attitude.AttitudeConfig(**ATT_FULL)
+
+    phase("12. 6-D kernel vs plain, one sweep")
+    plan, cost, bk = attitude_backup(device, **ATT_FULL)
+    v = torch.from_numpy(rng.uniform(0.0, 100.0, bk.state_shape)
+                         .astype(np.float32)).to(device)
+    max_err = backup6d_vs_plain(bk, v, "11^3x10^3 random table")
+    v50 = attitude.solve_full(full_cfg, num_sweeps=50).result.values
+    max_err = max(max_err, backup6d_vs_plain(bk, v50,
+                                             "11^3x10^3 after 50 sweeps"))
+    for label, case, kw in (
+            ("5^3x4^3", "extrapolate", dict(n_mesh_w=5, n_mesh_q=4)),
+            ("exact ties (h=0, no cost)", "tie",
+             dict(n_mesh_w=5, n_mesh_q=4, h=0.0)),
+            ("edge='clamp'", "clamp", ATT_FULL),
+            ("permuted actions (generic phase)", "permuted", ATT_FULL)):
+        _, _, cbk = attitude_backup(device, case, **kw)
+        cv = torch.from_numpy(rng.uniform(0.0, 100.0, cbk.state_shape)
+                              .astype(np.float32)).to(device)
+        max_err = max(max_err, backup6d_vs_plain(cbk, cv, label))
+        check((cbk.action_digits is None) == (case == "permuted"),
+              f"{label}: wrong action phase")
+        if case == "tie":
+            check(int(cbk(cv).argmin.max()) == 0,
+                  "exact ties: a later action won")
+
+    phase("13. main path: attitude.solve_full(AttitudeConfig(n_mesh_w=11, "
+          "n_mesh_q=10))")
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = attitude.solve_full(full_cfg)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts["backup6d"]
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    sweeps = full_cfg.n_stage - 1
+    print(f"attitude.solve_full(AttitudeConfig(n_mesh_w=11, n_mesh_q=10)): "
+          f"{solve_s:.3f} s for {sweeps} sweeps incl. the build; launches "
+          f"{counts}; peak device memory {peak_mib:.1f} MiB")
+    check(launches == sweeps,
+          f"backup6d launched {launches} times, want {sweeps}")
+    res = sol.result
+    check(res.values.is_cuda and tuple(res.values.shape) == bk.state_shape
+          and bool(torch.isfinite(res.values).all()),
+          "main path: wrong device, shape or non-finite values")
+    print(f"V range [{float(res.values.min())}, {float(res.values.max())}]")
+    k50 = attitude.solve_full(full_cfg, num_sweeps=50, impl="kernel")
+    p50 = attitude.solve_full(full_cfg, num_sweeps=50, impl="plain")
+    same_v = torch.equal(k50.result.values, p50.result.values)
+    same_a = torch.equal(k50.result.argmin, p50.result.argmin)
+    print(f"50 sweeps, kernel vs plain: values bitwise {same_v}, argmin "
+          f"identical {same_a}")
+    check(same_v and same_a, "50-sweep solve: kernel != plain")
+
+    phase("14. segmented with the stop rule vs the converged engine; kill "
+          "and resume")
+    t0 = time.perf_counter()
+    seg = attitude.solve_full(full_cfg, segment_size=50, tol=1e-2).result
+    torch.cuda.synchronize()
+    seg_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    conv = value_iteration_converged(plan, cost, sweeps, check_every=50,
+                                     tol=1e-2, backup=bk)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t0
+    print(f"segmented: {seg.num_sweeps} sweeps, converged {seg.converged}, "
+          f"{seg_s:.3f} s; converged engine: {conv.num_sweeps} sweeps, "
+          f"converged {conv.converged}, {conv_s:.3f} s")
+    check(seg.num_sweeps == conv.num_sweeps
+          and seg.converged == conv.converged,
+          "segmented and converged engines stopped differently")
+    check(torch.equal(seg.values, conv.values)
+          and torch.equal(seg.argmin, conv.argmin),
+          "segmented != converged engine")
+
+    class Killed(Exception):
+        pass
+
+    def kill_at_100(k, _v):
+        if k >= 100:
+            raise Killed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "attitude_6d.npz")
+        try:
+            value_iteration_segmented(plan, cost, sweeps, segment_size=50,
+                                      tol=1e-2, backup=bk,
+                                      checkpoint_path=ckpt,
+                                      on_segment=kill_at_100)
+        except Killed:
+            pass
+        ck = io.load_values(ckpt, device=device)
+    check(ck.sweep_index == 100 and ck.prev_f is not None,
+          f"checkpoint at sweep {ck.sweep_index}, prev_f {ck.prev_f}")
+    resumed = attitude.solve_full(
+        full_cfg, segment_size=50, tol=1e-2, init_values=ck.values,
+        start_sweep=ck.sweep_index, prev_f=ck.prev_f).result
+    same = (torch.equal(resumed.values, seg.values)
+            and torch.equal(resumed.argmin, seg.argmin)
+            and resumed.converged == seg.converged
+            and ck.sweep_index + resumed.num_sweeps == seg.num_sweeps)
+    print(f"killed at sweep {ck.sweep_index}, resumed for "
+          f"{resumed.num_sweeps} sweeps: equals the uninterrupted solve "
+          f"(values, argmin, stop) {same}")
+    check(same, "resumed solve != uninterrupted solve")
+
+    phase("15. serving: damping, the full-horizon rollout, an interp "
+          "rollout")
+    serve_cfg = attitude.AttitudeConfig(**ATT_SERVE)
+    ssol = attitude.solve_full(serve_cfg, num_sweeps=1000)
+    X, U, ang = attitude.rollout_full(ssol, num_stages=4000)
+    X, U, ang = X.cpu().numpy(), U.cpu().numpy(), ang.cpu().numpy()
+    a_end = np.abs(ang[-200:]).mean(axis=0) / DEG
+    w_end = np.abs(X[-200:, :3]).mean(axis=0) / DEG
+    print(f"11^3x7^3, 1000 sweeps, 4000-stage rollout from (5, 10, -9) deg: "
+          f"mean |Euler| of the last 200 stages {a_end.tolist()} deg, mean "
+          f"|omega| {w_end.tolist()} deg/s")
+    check(bool(np.isfinite(X).all()), "damping rollout: non-finite states")
+    check(bool((a_end < 4.0).all() and (w_end < 6.0).all()),
+          "the 11^3x7^3 policy does not damp the start")
+    check(bool(np.isin(np.round(U.astype(np.float64), 4),
+                       [-0.11, 0.0, 0.11]).all()), "torques off the set")
+    t0 = time.perf_counter()
+    Xf, _, _ = attitude.rollout_full(sol)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    n_roll = full_cfg.n_stage - 1
+    check(tuple(Xf.shape) == (full_cfg.n_stage, 7)
+          and bool(torch.isfinite(Xf).all()), "full rollout")
+    print(f"5999-stage nearest rollout of the main-path policy: "
+          f"{roll_s:.3f} s, {roll_s / n_roll * 1e3:.3f} ms per stage; final "
+          f"|q_vec| {float(Xf[-1, 3:6].norm())}")
+    t0 = time.perf_counter()
+    Xi, Ui, _ = attitude.rollout_full(sol, method="interp", num_stages=200)
+    torch.cuda.synchronize()
+    interp_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(Xi).all())
+          and float(Ui.abs().max()) <= full_cfg.u_max * (1 + 1e-6),
+          "interp rollout")
+    print(f"200-stage interp rollout: {interp_s:.3f} s, "
+          f"{interp_s / 199 * 1e3:.3f} ms per stage")
+
+    phase("16. timing (CUDA events, warm, median of 10)")
+    v2 = v.reshape(bk.NW, bk.NE).contiguous()
+    evals = bk.NW * bk.NE * bk.args.n_actions
+    k_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, bk.args), inner=5)
+    p_ms = cuda_time_ms(lambda: b6.backup6d_plain(v2, bk.args))
+    print(f"11^3x10^3 sweep, back to back: kernel {k_ms:.4f} ms "
+          f"({evals / k_ms * 1e3:.4e} evals/s), plain {p_ms:.4f} ms "
+          f"({evals / p_ms * 1e3:.4e} evals/s)")
+    print(f"full solve (5999 sweeps, incl. build) {solve_s:.3f} s, "
+          f"{solve_s / sweeps * 1e3:.4f} ms per sweep; segmented with the "
+          f"stop rule {seg_s:.3f} s; converged engine {conv_s:.3f} s; "
+          f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
+          f"memory of the main path {peak_mib:.1f} MiB")
+    print(f"backup6d_sweep: {kernel_registers('backup6d_sweep')}")
+    return {
+        "name": "backup6d",
+        "route": "cuda",
+        "source": "ocdp_tpu_torch/csrc/backup6d.cu",
+        "replaces": "ocdp_tpu/ops/pallas_backup6.py:973",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        **backup6d_bound(bk),
+        "library_ms": None,
     }
 
 

@@ -36,6 +36,8 @@ _SIGNATURES = {
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),
     "rowlane_backup_error_string": (ctypes.c_char_p, [_I]),
+    "backup6d_f32": (_I, [_P] * 20 + [_I] * 10 + [_P]),
+    "backup6d_error_string": (ctypes.c_char_p, [_I]),
 }
 
 

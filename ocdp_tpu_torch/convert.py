@@ -1,9 +1,10 @@
 """Carry plans, solve results and solutions across the two packages.
 
 The JAX package (``ocdp_tpu``) and this port share no array type. These
-helpers turn the numpy form of an ``InterpPlan``, a ``SolveResult`` or a
-pos-att ``PosAttSolution`` (what ``np.asarray`` gives for either package's
-arrays) into this package's tensors on a chosen device, and back. The tests
+helpers turn the numpy form of an ``InterpPlan``, a ``SolveResult``, a
+pos-att ``PosAttSolution`` or a 6-D attitude ``FullSolution`` (what
+``np.asarray`` gives for either package's arrays) into this package's
+tensors on a chosen device, and back. The tests
 use them to feed one plan to both packages and to fly a controller solved by
 one package with the other.
 """
@@ -17,12 +18,14 @@ import numpy as np
 import torch
 
 from .engine import SolveResult
+from .grids import Grid
 from .io import ChannelController
+from .models.attitude import AttitudeConfig, FullSolution
 from .models.pos_att import PosAttConfig, PosAttSolution
 from .ops.interp import InterpPlan
 
 __all__ = ["plan_from_numpy", "result_from_numpy", "solution_from_numpy",
-           "to_numpy"]
+           "full_solution_from_numpy", "to_numpy"]
 
 
 def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
@@ -84,6 +87,23 @@ def solution_from_numpy(sol, *, device) -> PosAttSolution:
         for name, c in sol.controllers.items()}
     return PosAttSolution(PosAttConfig(**dataclasses.asdict(sol.config)),
                           ctrls)
+
+
+def full_solution_from_numpy(sol, *, device) -> FullSolution:
+    """A 6-D attitude :class:`FullSolution` on ``device`` from one whose
+    result holds numpy-convertible arrays (the JAX package's
+    ``FullSolution``, in either of its layouts): the grid axes, the values
+    and the flat-action argmin (int32) in the state shape, the sweep count
+    and the stop flag; the configuration is rebuilt from its fields."""
+    grid = Grid(tuple(np.asarray(a) for a in sol.grid.axes))
+    res = sol.result
+    return FullSolution(
+        AttitudeConfig(**dataclasses.asdict(sol.config)), grid,
+        result_from_numpy(
+            np.asarray(res.values).reshape(grid.shape),
+            np.asarray(res.argmin).astype(np.int32).reshape(grid.shape),
+            num_sweeps=int(np.asarray(res.num_sweeps)),
+            converged=bool(np.asarray(res.converged)), device=device))
 
 
 def to_numpy(x):

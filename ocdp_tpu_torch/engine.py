@@ -1,6 +1,7 @@
 """Backward value-iteration engines (counterpart of ``ocdp_tpu/engine.py``).
 
-Two engines, mirroring the reference's two loop shapes:
+Two engines mirror the reference's two loop shapes, and a third runs the
+finite one in host-visible segments:
 
 * :func:`value_iteration_finite` — fixed number of backward sweeps with an
   optional per-sweep policy store; the Kirk finite-horizon loop
@@ -9,6 +10,9 @@ Two engines, mirroring the reference's two loop shapes:
   early-stopping rule: every ``check_every`` sweeps compare the summed value
   table against the previous checkpoint and stop per
   :func:`convergence_stop` (pos-att/Solver_pos_att.m:268-286).
+* :func:`value_iteration_segmented` — the finite engine in segments, with
+  host-streamed policies, a checkpoint per segment, resume, and the
+  converged engine's stop rule at its own check sweeps.
 
 Each is a Python loop over sweeps; the device work of a sweep is the
 backup's. Policies go into one preallocated tensor. The finite loop never
@@ -24,8 +28,10 @@ from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
+from .io import save_values
 from .ops.backup import bellman_backup
 from .ops.interp import InterpPlan
 
@@ -33,6 +39,7 @@ __all__ = [
     "SolveResult",
     "value_iteration_finite",
     "value_iteration_converged",
+    "value_iteration_segmented",
     "policy_dtype_for",
     "convergence_stop",
 ]
@@ -235,4 +242,104 @@ def value_iteration_converged(
         num_sweeps=max_sweeps - k_s,
         converged=converged,
         checks=checks.to(v.device),
+    )
+
+
+def _is_check_sweep(sweep: int, num_sweeps: int, check_every: int) -> bool:
+    """Whether :func:`value_iteration_converged` over ``num_sweeps`` checks
+    its stop rule right after its ``sweep``-th sweep (1-based): its
+    countdown ``k_s = num_sweeps - sweep + 1`` is then a multiple of
+    ``check_every``."""
+    return (num_sweeps - sweep + 1) % check_every == 0
+
+
+def value_iteration_segmented(
+    plan: InterpPlan,
+    stage_cost,
+    num_sweeps: int,
+    *,
+    segment_size: int = 100,
+    init_values: Optional[torch.Tensor] = None,
+    start_sweep: int = 0,
+    prev_f: Optional[float] = None,
+    backup=None,
+    store_policies: bool = False,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_axes=None,
+    on_segment=None,
+    tol: Optional[float] = None,
+    tol_mode: str = "abs",
+) -> SolveResult:
+    """The finite-horizon solve in segments of at most ``segment_size``
+    sweeps, each through :func:`value_iteration_finite`, with control back
+    on the host between segments:
+
+    * **policy streaming**: with ``store_policies``, each segment's per-sweep
+      policies (in the narrow policy dtype) go to HOST numpy at once, so the
+      device holds one segment of them; ``SolveResult.policies`` is then a
+      numpy array of shape ``(sweeps done, *state_shape)``;
+    * **checkpoints**: with ``checkpoint_path``, the value table, the sweep
+      index and the stop rule's last checksum ``prev_f`` are written
+      (:func:`~ocdp_tpu_torch.io.save_values`) after every segment;
+    * **resume**: pass ``init_values``, ``start_sweep`` and ``prev_f`` from
+      :func:`~ocdp_tpu_torch.io.load_values` to continue a solve; the result
+      is bitwise the uninterrupted one;
+    * **early stop**: with ``tol``, the stop rule of
+      :func:`value_iteration_converged` with ``check_every=segment_size``
+      over the same ``num_sweeps``. Segment ends are aligned to that
+      engine's check sweeps, and the rule is evaluated at a segment end only
+      when it is one, so the stop decision, the sweep count and the values
+      are the converged engine's. ``prev_f`` (None: no check yet, the
+      converged engine's 0.0) is the checksum of the last check.
+
+    ``on_segment(sweep_index, values)`` is an optional host callback after
+    each segment (e.g. :meth:`~ocdp_tpu_torch.profiling.SweepTimer.
+    on_segment`). ``SolveResult.num_sweeps`` counts the sweeps this call ran.
+    """
+    if segment_size < 1:
+        raise ValueError(f"segment_size must be >= 1, got {segment_size}")
+    if tol is not None:
+        convergence_stop(0.0, 0.0, tol, tol_mode)     # validate tol_mode
+    v = _initial_values(plan, init_values)
+    host_policies = [] if store_policies else None
+    sweep = start_sweep
+    argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
+    converged = False
+    while sweep < num_sweeps and not converged:
+        n = min(segment_size, num_sweeps - sweep)
+        if tol is not None:
+            # end the segment at the converged engine's next check sweep
+            # (it checks after sweep s when (num_sweeps - s + 1) is a
+            # multiple of segment_size)
+            r = (num_sweeps + 1) % segment_size
+            n = min(((r - sweep - 1) % segment_size) + 1, num_sweeps - sweep)
+        res = value_iteration_finite(
+            plan, stage_cost, n, init_values=v, store_policies=store_policies,
+            backup=backup)
+        v, argmin = res.values, res.argmin
+        if store_policies:
+            host_policies.append(res.policies.cpu().numpy())
+        sweep += n
+        if tol is not None and _is_check_sweep(sweep, num_sweeps,
+                                               segment_size):
+            fsum = v.sum(dtype=torch.float32).cpu()
+            err_f = fsum - torch.tensor(prev_f or 0.0, dtype=torch.float32)
+            converged = convergence_stop(float(err_f), float(fsum), tol,
+                                         tol_mode)
+            prev_f = float(fsum)
+        if checkpoint_path is not None:
+            save_values(checkpoint_path, v, sweep,
+                        checkpoint_axes if checkpoint_axes is not None
+                        else (), prev_f=prev_f)
+        if on_segment is not None:
+            on_segment(sweep, v)
+
+    policies = (np.concatenate(host_policies, axis=0) if host_policies
+                else None)
+    return SolveResult(
+        values=v,
+        argmin=argmin,
+        policies=policies,
+        num_sweeps=sweep - start_sweep,
+        converged=converged,
     )

@@ -1,4 +1,4 @@
-"""Channel-controller persistence (counterpart of ``ocdp_tpu/io.py``).
+"""Controller and mid-solve persistence (counterpart of ``ocdp_tpu/io.py``).
 
 The reference saves each channel controller to a ``.mat`` file
 (pos-att/Solver_pos_att.m:289) and reloads it with ``set_controller``
@@ -12,6 +12,7 @@ other.
 from __future__ import annotations
 
 import dataclasses
+from typing import NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -19,7 +20,8 @@ import torch
 from .ops.interp import nearest_eval
 
 __all__ = ["ChannelController", "save_channel_controller",
-           "load_channel_controller"]
+           "load_channel_controller", "Checkpoint", "save_values",
+           "load_values"]
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -73,3 +75,42 @@ def load_channel_controller(path: str, *, device) -> ChannelController:
             argmin=torch.tensor(z["argmin"], device=device),
             forces=z["forces"],
         )
+
+
+class Checkpoint(NamedTuple):
+    """A mid-solve checkpoint, as :func:`load_values` returns it."""
+
+    values: torch.Tensor
+    sweep_index: int
+    axes: tuple
+    prev_f: Optional[float]   # the last stop-rule checksum; None: no check
+
+
+def save_values(path: str, values, sweep_index: int,
+                axes: Sequence[np.ndarray], *,
+                prev_f: Optional[float] = None) -> None:
+    """Write a mid-solve checkpoint: value table, sweep count, grid axes and,
+    when given, the stop rule's last checksum ``prev_f``."""
+    if isinstance(values, torch.Tensor):
+        values = values.detach().cpu().numpy()
+    extra = {} if prev_f is None else {"prev_f": np.float64(prev_f)}
+    np.savez_compressed(
+        path,
+        values=np.asarray(values),
+        sweep_index=np.asarray(sweep_index),
+        n_axes=len(axes),
+        **{f"axis{i}": np.asarray(a) for i, a in enumerate(axes)},
+        **extra,
+    )
+
+
+def load_values(path: str, *, device="cpu") -> Checkpoint:
+    """Read a checkpoint written by :func:`save_values` (or by the JAX
+    package's), its values on ``device``."""
+    with np.load(path) as z:
+        n = int(z["n_axes"])
+        return Checkpoint(
+            values=torch.tensor(z["values"], device=device),
+            sweep_index=int(z["sweep_index"]),
+            axes=tuple(z[f"axis{i}"] for i in range(n)),
+            prev_f=float(z["prev_f"]) if "prev_f" in z.files else None)

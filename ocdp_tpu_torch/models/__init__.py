@@ -1,5 +1,6 @@
-"""Problem families. Ported so far: Kirk ch.3 and coupled position+attitude."""
+"""Problem families. Ported so far: Kirk ch.3, coupled position+attitude
+and the full 6-D attitude solve."""
 
-from . import kirk, pos_att
+from . import attitude, kirk, pos_att
 
-__all__ = ["kirk", "pos_att"]
+__all__ = ["attitude", "kirk", "pos_att"]

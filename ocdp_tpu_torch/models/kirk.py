@@ -25,6 +25,7 @@ from ..grids import Grid, linspace_axis
 from ..ops.fused_backup2d import FusedBackup2D
 from ..ops.interp import InterpPlan, build_plan, interp_eval
 from ..profiling import sweep_callback
+from ..utils.device import resolve_device
 
 __all__ = ["KirkConfig", "KirkProblem", "KirkSolution", "build", "solve",
            "optimal_path"]
@@ -76,8 +77,10 @@ class KirkSolution(NamedTuple):
         return u[policies.long()].flip(0)
 
 
-def build(config: KirkConfig = KirkConfig(), *, device) -> KirkProblem:
-    """Grid + next-state plan + stage cost, built once on ``device``.
+def build(config: KirkConfig = KirkConfig(), *,
+          device="cuda") -> KirkProblem:
+    """Grid + next-state plan + stage cost, built once on ``device`` (the
+    card unless the caller asks for ``"cpu"``; raises without a card).
 
     Next states mirror ``a_D_M`` (test/Dynamic_Solver.m:184-188):
     ``x' = A x + B u`` broadcast over the (x1, x2, u) grid, in the JAX
@@ -85,6 +88,7 @@ def build(config: KirkConfig = KirkConfig(), *, device) -> KirkProblem:
     is recomposed from :func:`_separable_cost_terms`, so the fused kernel's
     in-kernel state + action re-add is bitwise equal by construction.
     """
+    device = resolve_device(device)
     s_r = linspace_axis(config.x_min, config.x_max, config.dx)
     u_mesh = linspace_axis(config.u_min, config.u_max, config.du)
     grid = Grid((s_r, s_r))
@@ -122,12 +126,14 @@ def _separable_cost_terms(config: KirkConfig, *, device):
 def solve(
     config: KirkConfig = KirkConfig(),
     *,
-    device,
+    device="cuda",
     impl: str = "auto",
     store_policies: bool = True,
     verbose: bool = False,
 ) -> KirkSolution:
-    """Run the N-1 backward sweeps (test/Dynamic_Solver.m:86-102) on ``device``.
+    """Run the N-1 backward sweeps (test/Dynamic_Solver.m:86-102) on
+    ``device``: the card unless the caller asks for ``"cpu"``; raises
+    without a card.
 
     ``impl``: ``"kernel"`` (the fused CUDA backup,
     :class:`~ocdp_tpu_torch.ops.fused_backup2d.FusedBackup2D`, with the
@@ -138,7 +144,7 @@ def solve(
     ``verbose``: per-stage 'step %d - %f seconds' prints (the reference's
     default console output) via :class:`~ocdp_tpu_torch.profiling.SweepTimer`.
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     if impl == "auto":
         impl = "kernel" if device.type == "cuda" else "gather"
     if impl not in ("kernel", "gather"):

@@ -23,7 +23,8 @@ Reference parity:
 * the body-frame accelerations sum(f)/Mass (m/s^2) feed the km-based CW
   equations unscaled (:804-823 + :699-707): ``accel_scale=1.0``.
 
-Every entry point runs on an explicit device. The channel solves run one
+The builds and solves run on the card unless the caller asks for
+``device="cpu"``; without a card they raise. The channel solves run one
 after another, each with its own action set (6 actions for x_failure). The
 rollouts run on the solution's device, or on the device a caller names.
 """
@@ -48,6 +49,7 @@ from ..ops.interp import (AffineAxes, InterpPlan, affine_axes, build_plan,
 from ..ops.rowlane import RowLaneBackup
 from ..profiling import sweep_callback
 from ..utils.frames import cross, matvec, rsw_to_eci_matrix
+from ..utils.device import resolve_device
 from ..utils.integrators import integrator_kwargs
 from ..utils.quaternions import (euler_zyx_to_quat, quat_kinematics,
                                  quat_to_dcm, small_angles_from_quat)
@@ -178,7 +180,7 @@ def _channel_axes(cfg: PosAttConfig, channel: str):
 
 
 def build_channel(cfg: PosAttConfig, channel: str, *, failure: bool = False,
-                  with_cost: bool = True, device) -> ChannelProblem:
+                  with_cost: bool = True, device="cuda") -> ChannelProblem:
     """Grids, Euler-step next states and stage cost of one channel
     (:244-265), on ``device``.
 
@@ -189,6 +191,7 @@ def build_channel(cfg: PosAttConfig, channel: str, *, failure: bool = False,
     ``with_cost=False`` skips the dense (S, A) stage cost (``stage_cost``
     None), which only ``impl='gather'`` reads.
     """
+    device = resolve_device(device)
     s_x, s_v, s_t, s_w = _channel_axes(cfg, channel)
     grid = Grid((s_x, s_v, s_t, s_w))
     forces = thruster_combinations(*cfg.thruster_value_sets(channel, failure))
@@ -253,7 +256,7 @@ def solve_channel(
     cfg: PosAttConfig,
     channel: str,
     *,
-    device,
+    device="cuda",
     failure: bool = False,
     impl: str = "auto",
     max_sweeps: Optional[int] = None,
@@ -271,7 +274,7 @@ def solve_channel(
     ``verbose`` prints the reference's per-check 'stage %d ... errorF %f -
     errorU %f' lines (Solver_pos_att.m:272-279).
     """
-    device = torch.device(device)
+    device = resolve_device(device)
     impl = _resolve_impl(impl, device)
     sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
     problem = build_channel(cfg, channel, failure=failure,
@@ -305,7 +308,7 @@ class PosAttSolution(NamedTuple):
 def solve(
     cfg: PosAttConfig = PosAttConfig(),
     *,
-    device,
+    device="cuda",
     include_failure: bool = True,
     impl: str = "auto",
     save_dir: Optional[str] = None,
@@ -317,6 +320,7 @@ def solve(
     x, y, z and x_failure one after another (Solver_pos_att.m:217-240), each
     through :func:`solve_channel`. ``save_dir`` writes each controller as
     ``channel_<name>_controller_1.npz``."""
+    device = resolve_device(device)
     jobs = [(ch, ch, False) for ch in CHANNELS]
     if include_failure:
         jobs.append(("x_failure", "x", True))

@@ -308,6 +308,76 @@ def _as_numpy(a, dtype=None):
     return np.asarray(a, dtype)
 
 
+def _row_plan(lo, fr, shape, nr, n_act):
+    """Per-(row, action) offsets (lo minus the row's own index) and fracs of
+    the ``nr`` row axes, each ``(NW, n_act)``, from ``(d+1)``-dim broadcast
+    arrays ``lo``/``fr`` over ``(*shape, n_act)``. Raises for a row axis
+    whose query varies along the lanes."""
+    d = len(shape)
+    nw = int(np.prod(shape[:nr]))
+    target = shape[:nr] + (1,) * (d - nr) + (n_act,)
+    w_off, w_frac = [], []
+    for k in range(nr):
+        if any(s > 1 for s in lo[k].shape[nr:d]) or \
+           any(s > 1 for s in fr[k].shape[nr:d]):
+            raise ValueError(
+                f"row axis {k} query varies along lane axes — "
+                "not row/lane separable; use the gather backup")
+        idx = np.arange(shape[k], dtype=np.int32).reshape(
+            (1,) * k + (-1,) + (1,) * (d - k))
+        w_off.append(np.broadcast_to(lo[k] - idx, target).reshape(nw, n_act))
+        w_frac.append(np.broadcast_to(fr[k], target).reshape(nw, n_act))
+    return w_off, w_frac
+
+
+def _split_cost(terms, shape, nr, n_act):
+    """Split broadcast-shaped ``(d+1)``-dim cost terms (numpy, in the row/lane
+    axis order) into row ``(NW,)``, lane ``(NE,)``, action ``(A,)``, row x
+    action ``(NW, A)`` and row x lane ``(NW, NE)`` parts (the last two None
+    when no term has them), each accumulated in term order as
+    ``ocdp_tpu/ops/pallas_backup6.py:840-902`` does. Raises for a term that
+    couples lanes and actions."""
+    d = len(shape)
+    nc = d - nr
+    nw, ne = int(np.prod(shape[:nr])), int(np.prod(shape[nr:]))
+    c_row = np.zeros(nw, np.float32)
+    c_lane = np.zeros(ne, np.float32)
+    c_act = np.zeros(n_act, np.float32)
+    c_rowact = c_rowlane = None
+    for t in terms:
+        t = np.asarray(t, np.float32)
+        if t.ndim != d + 1:
+            t = t.reshape((1,) * (d + 1 - t.ndim) + t.shape)
+        row_dep = any(s > 1 for s in t.shape[:nr])
+        lane_dep = any(s > 1 for s in t.shape[nr:d])
+        act_dep = t.shape[-1] > 1
+        if lane_dep and act_dep:
+            raise ValueError(
+                "cost term couples the lane and action groups — "
+                "not factorizable for the row/lane kernels")
+        if act_dep and row_dep:
+            add = np.broadcast_to(
+                t, shape[:nr] + (1,) * nc + (n_act,)).reshape(nw, n_act)
+            c_rowact = add.copy() if c_rowact is None else c_rowact + add
+        elif row_dep and lane_dep:
+            add = np.broadcast_to(t[..., 0], shape).reshape(nw, ne)
+            c_rowlane = add.copy() if c_rowlane is None else c_rowlane + add
+        elif act_dep:
+            c_act += np.broadcast_to(t, (1,) * d + (n_act,)).reshape(n_act)
+        elif lane_dep:
+            c_lane += np.broadcast_to(
+                t, (1,) * nr + shape[nr:] + (1,)).reshape(ne)
+        else:
+            c_row += np.broadcast_to(
+                t, shape[:nr] + (1,) * (nc + 1)).reshape(nw)
+    return c_row, c_lane, c_act, c_rowact, c_rowlane
+
+
+def _upload(a, dtype, device):
+    return None if a is None else torch.tensor(
+        np.ascontiguousarray(a), dtype=dtype, device=device)
+
+
 class RowLaneBackup:
     """Callable ``values -> BackupResult`` over one plan and stage cost,
     computed on the state axes permuted by ``perm`` with the first
@@ -322,8 +392,8 @@ class RowLaneBackup:
 
     Raises ``ValueError`` for a row axis whose query varies along the
     lanes, a lane axis whose query varies with the action, lane axes whose
-    queries couple (the joint-combo mode of the TPU kernel, not ported), a
-    cost term coupling lanes and actions, and a tap structure beyond the
+    queries couple (the joint-combo mode: :class:`~ocdp_tpu_torch.ops.
+    backup6d.Backup6D`), a cost term coupling lanes and actions, and a tap structure beyond the
     kernel's capacities. Values come in and go out in the natural
     (unpermuted) state order.
     """
@@ -347,24 +417,11 @@ class RowLaneBackup:
         shape = tuple(plan.grid_shape[k] for k in self.perm)
         self.state_shape = shape
         n_act = plan.query_shape[-1]
-        nr, nc = row_axes, d - row_axes
+        nr = row_axes
         nw, ne = int(np.prod(shape[:nr])), int(np.prod(shape[nr:]))
         self.NW, self.NE = nw, ne
 
-        # row axes: per-(row, action) offsets and fracs
-        w_off, w_frac = [], []
-        for k in range(nr):
-            if any(s > 1 for s in lo[k].shape[nr:d]) or \
-               any(s > 1 for s in fr[k].shape[nr:d]):
-                raise ValueError(
-                    f"row axis {k} query varies along lane axes — "
-                    "not row/lane separable; use the gather backup")
-            idx = np.arange(shape[k], dtype=np.int32).reshape(
-                (1,) * k + (-1,) + (1,) * (d - k))
-            target = shape[:nr] + (1,) * nc + (n_act,)
-            w_off.append(np.broadcast_to(lo[k] - idx, target)
-                         .reshape(nw, n_act))
-            w_frac.append(np.broadcast_to(fr[k], target).reshape(nw, n_act))
+        w_off, w_frac = _row_plan(lo, fr, shape, nr, n_act)
 
         # lane axes: offsets and fracs as broadcast views over (rows, own
         # coordinate), and their (NW, n_k) form for the kernel
@@ -379,7 +436,8 @@ class RowLaneBackup:
                     raise ValueError(
                         f"lane axis {k} query varies with lane axis {j}: the "
                         "lanes couple, and the rowlane kernel takes "
-                        "separable lanes only; use the gather backup")
+                        "separable lanes only; use ops.backup6d.Backup6D or "
+                        "the gather backup")
             iota = np.arange(shape[k], dtype=np.int32).reshape(
                 (1,) * k + (-1,) + (1,) * (d - 1 - k))
             e_off.append(lo[k][..., 0] - iota)
@@ -406,45 +464,14 @@ class RowLaneBackup:
                 f" and {MAX_ACTIONS} actions")
 
         # the factorized stage cost
-        c_row = np.zeros(nw, np.float32)
-        c_lane = np.zeros(ne, np.float32)
-        c_act = np.zeros(n_act, np.float32)
-        c_rowact = c_rowlane = None
         terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
                  else [cost_terms])
-        for term in terms:
-            t = permuted(term).astype(np.float32)
-            row_dep = any(s > 1 for s in t.shape[:nr])
-            lane_dep = any(s > 1 for s in t.shape[nr:d])
-            act_dep = t.shape[-1] > 1
-            if lane_dep and act_dep:
-                raise ValueError(
-                    "cost term couples the lane and action groups — "
-                    "not factorizable for the rowlane kernel")
-            if act_dep and row_dep:
-                add = np.broadcast_to(
-                    t, shape[:nr] + (1,) * nc + (n_act,)).reshape(nw, n_act)
-                c_rowact = add.copy() if c_rowact is None else c_rowact + add
-            elif row_dep and lane_dep:
-                add = np.broadcast_to(t[..., 0], shape).reshape(nw, ne)
-                c_rowlane = add.copy() if c_rowlane is None \
-                    else c_rowlane + add
-            elif act_dep:
-                c_act += np.broadcast_to(t, (1,) * d + (n_act,)) \
-                    .reshape(n_act)
-            elif lane_dep:
-                c_lane += np.broadcast_to(
-                    t, (1,) * nr + shape[nr:] + (1,)).reshape(ne)
-            else:
-                c_row += np.broadcast_to(
-                    t, shape[:nr] + (1,) * (nc + 1)).reshape(nw)
+        c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
+            [permuted(t) for t in terms], shape, nr, n_act)
         self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
 
-        dev = plan.device
-
         def up(a, dtype):
-            return None if a is None else torch.tensor(
-                np.ascontiguousarray(a), dtype=dtype, device=dev)
+            return _upload(a, dtype, plan.device)
 
         self.args = RowLaneArgs(
             row_shape=shape[:nr], lane_shape=shape[nr:],

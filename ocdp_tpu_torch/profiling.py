@@ -30,7 +30,24 @@ class SweepTimer:
         self.verbose = verbose
         self.t0 = time.perf_counter()
         self.last_t = self.t0
+        self.last_sweep = 0
         self.total_sweeps = 0
+
+    def on_segment(self, sweep_index: int, values) -> None:
+        """Segmented-engine callback: 'sweep %d - %f seconds - %f sweeps/s'
+        per segment. It synchronizes a CUDA device first, so the time is
+        that of completed sweeps."""
+        if values.is_cuda:
+            torch.cuda.synchronize(values.device)
+        now = time.perf_counter()
+        done = sweep_index - self.last_sweep
+        if self.verbose and done:
+            rate = done / max(now - self.last_t, 1e-9)
+            print(f"sweep {sweep_index} - {now - self.last_t:.3f} seconds "
+                  f"- {rate:.1f} sweeps/s")
+        self.last_t = now
+        self.last_sweep = sweep_index
+        self.total_sweeps = sweep_index
 
     def on_check(self, k_s, err_f, err_u) -> None:
         """Converged-engine check callback: the reference's

@@ -1,5 +1,5 @@
-"""The CUDA kernels (fused 2-D backup, row/lane backup) vs their plain
-PyTorch versions, on a card.
+"""The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
+backup) vs their plain PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -14,7 +14,8 @@ import numpy as np
 import pytest
 import torch
 
-from ocdp_tpu_torch.models import kirk, pos_att
+from ocdp_tpu_torch.models import attitude, kirk, pos_att
+from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
 from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
@@ -184,3 +185,54 @@ def test_fleet_member_equals_single_flight(device):
                 sol, x0s[b], t_final=t_final, integrator=integrator)
             assert torch.equal(Xb[b], X)
             assert torch.equal(Fb[b], F)
+
+
+def _attitude_backup(device, case, **kw):
+    """The 6-D backup of ``build_full``'s plan; ``case`` 'tie' zeroes the
+    cost (with ``h=0`` every action ties), 'permuted' reorders the actions
+    so that the generic action phase runs."""
+    _, plan, cost = attitude.build_full(attitude.AttitudeConfig(**kw),
+                                        device=device)
+    cost = list(cost)
+    if case == "tie":
+        cost = [torch.zeros_like(t) for t in cost]
+    elif case == "permuted":
+        perm = torch.from_numpy(np.random.default_rng(3).permutation(27)) \
+            .to(device)
+        plan = InterpPlan(
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.lo),
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.frac),
+            plan.grid_shape)
+        cost[2] = cost[2][..., perm]
+    return b6.Backup6D(plan, cost)
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("extrapolate", dict(n_mesh_w=5, n_mesh_q=4)),
+    ("extrapolate", dict(n_mesh_w=11, n_mesh_q=10)),
+    ("tie", dict(n_mesh_w=5, n_mesh_q=4, h=0.0)),
+    ("permuted", dict(n_mesh_w=5, n_mesh_q=4)),
+], ids=["5x4", "11x10", "tie", "generic"])
+def test_backup6d_one_sweep_bitwise(device, case, kw):
+    bk = _attitude_backup(device, case, **kw)
+    assert (bk.action_digits is None) == (case == "permuted")
+    v = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 50, bk.state_shape).astype(np.float32)).to(device)
+    before = b6.backup6d_cuda.launches
+    got = bk(v)
+    torch.cuda.synchronize()
+    assert b6.backup6d_cuda.launches == before + 1
+    _bitwise(got, bk.plain(v))
+    if case == "tie":
+        assert int(got.argmin.max()) == 0
+
+
+def test_solve_full_kernel_equals_plain(device):
+    cfg = attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5)
+    before = b6.backup6d_cuda.launches
+    sk = attitude.solve_full(cfg, num_sweeps=20)      # the card, the kernel
+    assert b6.backup6d_cuda.launches == before + 20
+    sp = attitude.solve_full(cfg, num_sweeps=20, impl="plain", device=device)
+    assert b6.backup6d_cuda.launches == before + 20
+    assert sk.result.values.is_cuda
+    _bitwise(sk.result, sp.result)
