@@ -69,6 +69,35 @@ torques, 5999 sweeps):
     device memory, and the kernel's registers and spills from the build
     log.
 
+The 6-D envelope (kernels ``backup6d_flat``, B.4, and
+``backup6d_recompute``, B.5), past 8M cells:
+
+17. one sweep of B.4 and B.5 vs their plain versions at 19^3 x 14^3
+    (18.8M cells): int32 and uint8 argmin, min-only (values of the tracking
+    sweep, all-zero argmin), lane recompute, ``edge='clamp'``; six
+    carry-mode sweeps vs six allocating ones: bitwise; at 11^3 x 10^3 a
+    forced ``flat=True, carry_padded=True`` 50-sweep solve equals the
+    non-flat (B.3) solve bitwise;
+18. the main path, ``attitude.solve_full(AttitudeConfig(n_mesh_w=30,
+    n_mesh_q=16), num_sweeps=100, segment_size=50, checkpoint_path=...,
+    tol=1e-6, tol_mode='rel')`` (the README's envelope quick start, 110.6M
+    cells, 100 of its 5999 sweeps): auto picks the recompute plan, flat
+    carry-mode tables and a uint8 argmin, and B.5 launches 100 times; a solve
+    killed after its first checkpoint past sweep 50 and resumed equals it
+    bitwise; the same solve with ``lane_mode='plan'`` (the chunked build,
+    B.4, 100 launches) agrees to 1e-4 x max|V| with >= 99.9% equal argmins;
+    the chunked build equals the one-shot flat build bitwise; a lane plan
+    filled from the plain recompute, swept once by B.4, equals one B.5
+    sweep of the same table bitwise (the kernel's recomputed lanes are the
+    plain version's on every cell), and its live taps lie in B.5's
+    admitted ones;
+19. serving: a 1000-stage flat-argmin rollout of that solution;
+20. the H100's own envelope: ``solve_full(AttitudeConfig(n_mesh_w=50,
+    n_mesh_q=20), num_sweeps=2)``, 1.0B cells: build seconds, seconds per
+    sweep, peak device memory;
+21. timing with CUDA events, warm, median of 10: B.4 (uint8, tracking) and
+    B.5 at 30^3 x 16^3 beside their bounds and B.3's ns per cell.
+
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (each input read once, each output written once) over
@@ -78,6 +107,8 @@ or without the package beside this script, it exits non-zero and prints no
 result.
 """
 
+import contextlib
+import io as _io
 import json
 import re
 import subprocess
@@ -97,7 +128,7 @@ from ocdp_tpu_torch.models import attitude, kirk, pos_att
 from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
-from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
+from ocdp_tpu_torch.ops.interp import InterpPlan, PlanShape, build_plan
 from ocdp_tpu_torch.profiling import cuda_time_ms
 
 ROOT = Path(__file__).resolve().parent
@@ -177,8 +208,9 @@ def main() -> None:
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s")
 
-    kernels = [kirk_phases(device), pos_att_phases(device),
-               attitude_phases(device)]
+    kernels = [kirk_phases(device), pos_att_phases(device)]
+    b3 = attitude_phases(device)
+    kernels += [b3, *envelope_phases(device, b3)]
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
@@ -192,16 +224,20 @@ def main() -> None:
         "count": torch.cuda.device_count()}}))
 
 
+LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
+             "rowlane_backup": rl.rowlane_backup_cuda,
+             "backup6d": b6.backup6d_cuda,
+             "backup6d_flat": b6.backup6d_flat_cuda,
+             "backup6d_recompute": b6.backup6d_recompute_cuda}
+
+
 def reset_launch_counts() -> None:
-    fb.fused_backup2d_cuda.launches = 0
-    rl.rowlane_backup_cuda.launches = 0
-    b6.backup6d_cuda.launches = 0
+    for fn in LAUNCHERS.values():
+        fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {"fused_backup2d": fb.fused_backup2d_cuda.launches,
-            "rowlane_backup": rl.rowlane_backup_cuda.launches,
-            "backup6d": b6.backup6d_cuda.launches}
+    return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
 def kirk_phases(device) -> dict:
@@ -504,8 +540,9 @@ def pos_att_phases(device) -> dict:
                                             t_final=1.0)
     torch.cuda.synchronize()
     ode_s = time.perf_counter() - t0
-    print(f"ode45 flight, 1.0 s simulated: {ode_s:.3f} s; max |X_ode45 - "
-          f"X_rk4| over it {float((Xo - X[:len(Xo)]).abs().max())}")
+    print(f"ode45 flight, 1.0 s simulated: {ode_s:.3f} s; max "
+          f"|X_ode45 - X_rk4| over it "
+          f"{float((Xo - X[:len(Xo)]).abs().max())}")
     check_flights("ode45 flight", Xo, Fo)
 
     phase("10. high-resolution solve through the kernel")
@@ -589,6 +626,11 @@ def rowlane_bound(bk) -> dict:
 
 
 ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
+# the mangled names of the 6-D kernel's instantiations <ArgT, kTrack,
+# kRecompute>: B.3, B.4 with a uint8 argmin, B.5 with a uint8 argmin
+B3_KERNEL = "backup6d_sweepIiLb1ELb0E"
+B4_KERNEL = "backup6d_sweepIhLb1ELb0E"
+B5_KERNEL = "backup6d_sweepIhLb1ELb1E"
 ATT_SERVE = dict(n_mesh_w=11, n_mesh_q=7)
 DEG = np.pi / 180.0
 
@@ -662,17 +704,34 @@ def backup6d_bound(bk) -> dict:
     per_cell += (sum(1 for c in a.c_act if c)
                  + (n_act if a.c_rowact is not None else 0)
                  + (n_act - 1) + 3)             # costs, compares, final adds
-    nbytes = (4 * nw * ne + 24 * nw * n_act + 24 * nw * ne
+    # table in; the lane plan (24 B/cell) or, recomputed, the rows' omegas
+    # and the lanes' kirk-q; values and argmin out
+    lane_bytes = 24 * nw * ne if a.lanes is None else 12 * nw + 16 * ne
+    nbytes = (4 * nw * ne + 24 * nw * n_act + lane_bytes
               + 4 * (nw + ne)
               + (4 * nw * n_act if a.c_rowact is not None else 0)
               + (4 * nw * ne if a.c_rowlane is not None else 0)
-              + 8 * nw * ne)
+              + (4 + a.argmin_dtype.itemsize) * nw * ne)
+    if a.lanes is not None:
+        per_cell += RECOMPUTE_OPS_PER_CELL
     return bound(float(per_cell * nw * ne + per_row * nw), nbytes)
 
 
+# FP32 operations of one cell's lane recompute (B.5), counted from
+# ops/kernelmath.py: the quaternion step 28 (4 x (3 products, 2 sums, the
+# step product and sum)), the norm 8, 4 divisions, the readback arguments
+# 28 (yaw 11, roll 11, pitch 6 with its clamp), two atan2 at 25 each (the
+# division, |x|, 2 compares, the guard max, the reduction's 3 operations,
+# 9 of the polynomial, 3 of the sign and offset, 3 of the quadrant fix),
+# the asin's own 6 and its atan2 25, and 3 locates at 6 (2 with
+# edge='clamp')
+RECOMPUTE_OPS_PER_CELL = 28 + 8 + 4 + 28 + 2 * 25 + 6 + 25 + 3 * 6
+
+
 def kernel_registers(name: str) -> str:
-    """The ptxas line (registers, spills) of kernel ``name`` in the build
-    log that ``_build`` writes beside the library."""
+    """The ptxas line (registers, spills) of kernel ``name`` (a substring of
+    its mangled name) in the build log that ``_build`` writes beside the
+    library."""
     log = _build.library_path().with_suffix(".log").read_text()
     blocks = log.split("Compiling entry function")
     for b in blocks:
@@ -845,7 +904,8 @@ def attitude_phases(device) -> dict:
           f"stop rule {seg_s:.3f} s; converged engine {conv_s:.3f} s; "
           f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
           f"memory of the main path {peak_mib:.1f} MiB")
-    print(f"backup6d_sweep: {kernel_registers('backup6d_sweep')}")
+    print(f"backup6d_sweep<int32, tracking> (B.3): "
+          f"{kernel_registers(B3_KERNEL)}")
     return {
         "name": "backup6d",
         "route": "cuda",
@@ -858,6 +918,387 @@ def attitude_phases(device) -> dict:
         **backup6d_bound(bk),
         "library_ms": None,
     }
+
+
+ENV_CHECK = dict(n_mesh_w=19, n_mesh_q=14)   # 18.8M cells: the plain fits
+ENV_MAIN = dict(n_mesh_w=30, n_mesh_q=16)    # 110.6M cells (README)
+ENV_MAX = dict(n_mesh_w=50, n_mesh_q=20)     # 1.0B cells
+ENV_SWEEPS = 100                             # of the main path's 5999
+ENV_TOL = dict(tol=1e-6, tol_mode="rel")
+
+
+def seeded_table(rng, bk) -> torch.Tensor:
+    return torch.from_numpy(rng.uniform(0.0, 100.0, (bk.NW, bk.NE))
+                            .astype(np.float32)).to("cuda")
+
+
+def envelope_vs_plain(bk, v, label: str) -> float:
+    """One sweep of a flat or recompute backup through its kernel and
+    through the plain version; bitwise. Returns max |dV|."""
+    want = b6.backup6d_plain(v, bk.args)
+    got = bk._kernel()(v, bk.args)
+    torch.cuda.synchronize()
+    err = float((got.values - want.values).abs().max())
+    same_v = torch.equal(got.values, want.values)
+    same_a = torch.equal(got.argmin, want.argmin)
+    print(f"{label} ({bk.NW}x{bk.NE}, {len(bk.row_combos)} row x "
+          f"{len(bk.lane_combos)} lane combos, lane taps {bk.e_taps}, "
+          f"argmin {bk.argmin_dtype}, tracking {bk.track_argmin}): values "
+          f"bitwise {same_v}, argmin identical {same_a}, max |dV| {err}")
+    check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
+    check(same_v and same_a, f"{label}: kernel != plain version")
+    return err
+
+
+def carry_vs_allocating(plan, cost, label: str) -> None:
+    """Six carry-mode sweeps (two tables and one argmin buffer) against six
+    allocating sweeps of the same plan: bitwise."""
+    carry = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8,
+                        carry_padded=True)
+    alloc = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8)
+    rc = value_iteration_finite(PlanShape.of(plan), None, 6, backup=carry,
+                                narrow_argmin_result=True)
+    ra = value_iteration_finite(PlanShape.of(plan), None, 6, backup=alloc,
+                                narrow_argmin_result=True)
+    same = (torch.equal(rc.values, ra.values.reshape(rc.values.shape))
+            and torch.equal(rc.argmin, ra.argmin.reshape(rc.argmin.shape)))
+    print(f"{label}: 6 carry-mode sweeps ({tuple(rc.values.shape)} tables, "
+          f"{rc.argmin.dtype} argmin) vs 6 allocating: identical {same}")
+    check(same and rc.argmin.dtype == torch.uint8,
+          f"{label}: carry mode != allocating sweeps")
+
+
+def free_cuda() -> None:
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def recompute_vs_filled_plan(bk5, v) -> None:
+    """B.5's in-kernel lane (lo, frac) against the plain recompute's on
+    every cell of the grid: a stored ``(NW, NE)`` lane plan is filled from
+    :meth:`LaneRecompute.lane_block` in row blocks, B.4 sweeps ``v`` once on
+    it with B.5's tap structure, and B.5 sweeps the same table once; values
+    and argmin must be bitwise equal. The filled plan's live lane taps (the
+    stored-plan liveness pass) must lie in B.5's admitted combos."""
+    a5 = bk5.args
+    nw, ne = bk5.NW, bk5.NE
+    offs = [torch.empty((nw, ne), dtype=torch.int32, device=v.device)
+            for _ in range(3)]
+    fracs = [torch.empty((nw, ne), dtype=torch.float32, device=v.device)
+             for _ in range(3)]
+    rows = max(1, 50_000_000 // ne)
+    t0 = time.perf_counter()
+    for r0 in range(0, nw, rows):
+        n = min(rows, nw - r0)
+        o, f = a5.lanes.lane_block(r0, n)
+        for k in range(3):
+            offs[k][r0:r0 + n] = o[k]
+            fracs[k][r0:r0 + n] = f[k]
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    _, live = b6._lane_live_device(offs, fracs)
+    outside = sorted(set(live) - set(bk5.lane_combos))
+    a4 = a5._replace(lane_off=tuple(offs), lane_frac=tuple(fracs), lanes=None)
+    got4 = b6.backup6d_flat_cuda(v, a4)
+    got5 = b6.backup6d_recompute_cuda(v, a5)
+    torch.cuda.synchronize()
+    same_v = torch.equal(got4.values, got5.values)
+    same_a = torch.equal(got4.argmin, got5.argmin)
+    print(f"{nw}x{ne} lane plan filled from the plain recompute in "
+          f"{fill_s:.3f} s: its {len(live)} live lane combos outside B.5's "
+          f"{len(bk5.lane_combos)} admitted: {len(outside)}; one B.4 sweep "
+          f"on it vs one B.5 sweep: values bitwise {same_v}, argmin "
+          f"identical {same_a}")
+    check(not outside, f"plain recompute taps outside the admitted combos: "
+          f"{outside[:5]}")
+    check(same_v and same_a, "B.5's recomputed lanes != the plain "
+          "recompute's")
+
+
+def envelope_phases(device, b3) -> list:
+    """Phases 17-21; returns the entries of B.4 and B.5 in the kernels
+    line. ``b3``: B.3's entry (phase 16), for its ns per cell."""
+    rng = np.random.default_rng(SEED + 3)
+    chk_cfg = attitude.AttitudeConfig(**ENV_CHECK)
+
+    phase("17. B.4 and B.5 vs their plain versions, one sweep, bitwise")
+    _, plan, cost = attitude.build_full(chk_cfg)
+    _, rplan, rcost = attitude.build_full(chk_cfg, lane_mode="recompute")
+    check(attitude.plan_is_flat(plan)
+          and isinstance(rplan, b6.RecomputePlan),
+          "19^3x14^3: not a flat stored plan and a recompute plan")
+    err4 = err5 = 0.0
+    bk32 = b6.Backup6D(plan, cost)
+    v = seeded_table(rng, bk32)
+    err4 = max(err4, envelope_vs_plain(bk32, v, "B.4 int32"))
+    bk8 = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8)
+    err4 = max(err4, envelope_vs_plain(bk8, v, "B.4 uint8"))
+    same = torch.equal(bk8(v).argmin.int(), bk32(v).argmin)
+    print(f"B.4 uint8 argmin == int32 argmin: {same}")
+    check(same, "uint8 argmin != int32 argmin")
+    bkm = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8,
+                      track_argmin=False)
+    err4 = max(err4, envelope_vs_plain(bkm, v, "B.4 min-only"))
+    rm = bkm(v)
+    same = torch.equal(rm.values, bk8(v).values) and \
+        int(rm.argmin.max()) == 0
+    print(f"B.4 min-only: values == tracking values and argmin all zero "
+          f"{same}")
+    check(same, "min-only sweep")
+    bk5 = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8)
+    err5 = max(err5, envelope_vs_plain(bk5, v, "B.5 recompute"))
+    bk5m = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
+                       track_argmin=False)
+    err5 = max(err5, envelope_vs_plain(bk5m, v, "B.5 min-only"))
+    plain_ms4 = cuda_time_ms(lambda: b6.backup6d_plain(v, bk8.args),
+                             repeats=3)
+    plain_ms5 = cuda_time_ms(lambda: b6.backup6d_plain(v, bk5.args),
+                             repeats=3)
+    print(f"plain versions at 19^3x14^3 (CUDA events, warm, median of 3): "
+          f"B.4 {plain_ms4:.4f} ms, B.5 {plain_ms5:.4f} ms")
+    for edge_plan, label in (
+            (attitude.build_full(chk_cfg, edge="clamp"), "B.4 edge='clamp'"),
+            (attitude.build_full(chk_cfg, edge="clamp",
+                                 lane_mode="recompute"),
+             "B.5 edge='clamp'")):
+        _, p, c = edge_plan
+        cbk = b6.Backup6D(p, c, argmin_dtype=torch.uint8)
+        e = envelope_vs_plain(cbk, v, label)
+        if cbk.recompute:
+            err5 = max(err5, e)
+        else:
+            err4 = max(err4, e)
+    carry_vs_allocating(plan, cost, "B.4")
+    carry_vs_allocating(rplan, rcost, "B.5")
+    del plan, cost, rplan, rcost, bk32, bk8, bkm, bk5, bk5m, v, cbk
+    free_cuda()
+    full_cfg = attitude.AttitudeConfig(**ATT_FULL)
+    reset_launch_counts()
+    nf = attitude.solve_full(full_cfg, num_sweeps=50)
+    fl = attitude.solve_full(full_cfg, num_sweeps=50, flat=True,
+                             carry_padded=True)
+    counts = launch_counts()
+    same = (fl.is_flat and torch.equal(fl.result.values.reshape(
+        nf.result.values.shape), nf.result.values)
+        and torch.equal(fl.result.argmin.reshape(nf.result.argmin.shape),
+                        nf.result.argmin))
+    print(f"11^3x10^3, 50 sweeps: flat carry-mode solve (B.4) vs non-flat "
+          f"solve (B.3): values and argmin identical {same}; launches "
+          f"{counts}")
+    check(same and counts["backup6d"] == 50
+          and counts["backup6d_flat"] == 50, "forced flat solve != B.3 solve")
+
+    phase("18. main path: attitude.solve_full(AttitudeConfig(n_mesh_w=30, "
+          "n_mesh_q=16), num_sweeps=100, segment_size=50, tol=1e-6, "
+          "tol_mode='rel')")
+    main_cfg = attitude.AttitudeConfig(**ENV_MAIN)
+    cells = main_cfg.n_mesh_w**3 * main_cfg.n_mesh_q**3
+    tmp = tempfile.TemporaryDirectory()
+    ckpt = str(Path(tmp.name) / "envelope.npz")
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = attitude.solve_full(main_cfg, num_sweeps=ENV_SWEEPS,
+                              segment_size=50, checkpoint_path=ckpt,
+                              **ENV_TOL)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_main = torch.cuda.max_memory_allocated() / 2**30
+    res = sol.result
+    print(f"{cells} cells, {res.num_sweeps} of the horizon's "
+          f"{main_cfg.n_stage - 1} sweeps: {main_s:.3f} s incl. the build "
+          f"({main_s / ENV_SWEEPS * 1e3:.1f} ms a sweep; the 5999 sweeps "
+          f"would take about {main_s / ENV_SWEEPS * 5999 / 60:.1f} min); "
+          f"flat result {sol.is_flat} {tuple(res.values.shape)}, argmin "
+          f"{res.argmin.dtype}; launches {counts}; peak device memory "
+          f"{peak_main:.3f} GiB; converged {res.converged}")
+    check(sol.is_flat and res.argmin.dtype == torch.uint8
+          and res.num_sweeps == ENV_SWEEPS
+          and counts["backup6d_recompute"] == ENV_SWEEPS
+          and counts["backup6d_flat"] == 0 and counts["backup6d"] == 0,
+          "main path: not the recompute, flat, uint8, carry-mode envelope")
+    check(bool(torch.isfinite(res.values).all()), "main path: non-finite")
+    print(f"V range [{float(res.values.min())}, {float(res.values.max())}]")
+    main_launches = counts["backup6d_recompute"]
+
+    class Killed(Exception):
+        pass
+
+    def kill_past_50(k, _v):
+        if k >= 50:
+            raise Killed
+
+    t0 = time.perf_counter()
+    grid, rplan, rcost = attitude.build_full(main_cfg)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    rbk = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
+                      carry_padded=True)
+    torch.cuda.synchronize()
+    print(f"recompute plan build {t1 - t0:.3f} s, Backup6D (row plan, lane "
+          f"liveness, cost split) {time.perf_counter() - t1:.3f} s")
+    recompute_vs_filled_plan(rbk, res.values)
+    free_cuda()
+    ckpt2 = str(Path(tmp.name) / "killed.npz")
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        value_iteration_segmented(
+            PlanShape.of(rplan), None, ENV_SWEEPS, segment_size=50,
+            backup=rbk, checkpoint_path=ckpt2, checkpoint_axes=grid.axes,
+            narrow_argmin_result=True, on_segment=kill_past_50, **ENV_TOL)
+    except Killed:
+        pass
+    engine_b = torch.cuda.max_memory_allocated() - base
+    print(f"the segmented carry-mode engine's own peak over its first two "
+          f"segments and checkpoints: {engine_b / 2**30:.3f} GiB "
+          f"({engine_b / cells:.2f} B per cell)")
+    del rbk, rplan
+    ck = io.load_values(ckpt2, device=device)
+    resumed = attitude.solve_full(
+        main_cfg, num_sweeps=ENV_SWEEPS, segment_size=50,
+        init_values=ck.values, start_sweep=ck.sweep_index, prev_f=ck.prev_f,
+        **ENV_TOL).result
+    same = (torch.equal(resumed.values, res.values)
+            and torch.equal(resumed.argmin, res.argmin)
+            and ck.sweep_index + resumed.num_sweeps == res.num_sweeps)
+    print(f"killed after the checkpoint at sweep {ck.sweep_index} "
+          f"({tuple(ck.values.shape)} table), resumed for "
+          f"{resumed.num_sweeps} sweeps: equals the uninterrupted solve "
+          f"{same}")
+    check(ck.sweep_index >= 50 and same, "resumed != uninterrupted")
+    del resumed, ck
+    free_cuda()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    psol = attitude.solve_full(main_cfg, num_sweeps=ENV_SWEEPS,
+                               segment_size=50, lane_mode="plan", **ENV_TOL)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    counts = launch_counts()
+    plan_launches = counts["backup6d_flat"]
+    scale = float(res.values.abs().max())
+    dv = float((psol.result.values - res.values).abs().max())
+    agree = float((psol.result.argmin == res.argmin).float().mean())
+    print(f"lane_mode='plan' (chunked build, B.4): {plan_s:.3f} s; launches "
+          f"{counts}; vs recompute max |dV| {dv} ({dv / scale:.3e} of "
+          f"max|V| {scale}), argmin agreement {agree}")
+    check(plan_launches == ENV_SWEEPS and counts["backup6d_recompute"] == 0,
+          "lane_mode='plan' did not run B.4")
+    check(dv <= 1e-4 * scale and agree >= 0.999,
+          "stored plan and recompute disagree")
+    del psol
+    free_cuda()
+    t0 = time.perf_counter()
+    _, p1, c1 = attitude.build_full(main_cfg, lane_mode="plan")
+    torch.cuda.synchronize()
+    chunk_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, p2, c2 = attitude.build_full(main_cfg, lane_mode="plan",
+                                    chunked=False)
+    torch.cuda.synchronize()
+    oneshot_s = time.perf_counter() - t0
+    oneshot_gib = torch.cuda.max_memory_allocated() / 2**30
+    same = all(torch.equal(a, b) for a, b in
+               zip(p1.lo + p1.frac + c1, p2.lo + p2.frac + c2))
+    print(f"chunked build {chunk_s:.3f} s, one-shot flat build "
+          f"{oneshot_s:.3f} s (peak device memory with both plans "
+          f"{oneshot_gib:.3f} GiB): equal bitwise {same}")
+    check(same, "chunked build != one-shot build")
+    del p1, c1, p2, c2
+    free_cuda()
+
+    phase("19. serving: a 1000-stage flat-argmin rollout")
+    t0 = time.perf_counter()
+    X, U, _ = attitude.rollout_full(sol, num_stages=1000)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    Un = U.cpu().numpy()
+    check(bool(torch.isfinite(X).all()) and bool(np.isin(
+        np.round(Un.astype(np.float64), 4), [-0.11, 0.0, 0.11]).all()),
+        "flat rollout: non-finite states or torques off the set")
+    print(f"1000-stage rollout of the 30^3x16^3 policy: {roll_s:.3f} s, "
+          f"{roll_s / 999 * 1e3:.3f} ms per stage")
+
+    phase("20. the H100's own envelope: solve_full(AttitudeConfig("
+          "n_mesh_w=50, n_mesh_q=20), num_sweeps=2)")
+    v_main = res.values
+    del X, U, res
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    max_cfg = attitude.AttitudeConfig(**ENV_MAX)
+    log = _io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        big = attitude.solve_full(max_cfg, num_sweeps=2, verbose=True)
+    torch.cuda.synchronize()
+    big_s = time.perf_counter() - t0
+    print(log.getvalue(), end="")
+    sweep_s = [float(x) for x in re.findall(r"step \d+ - ([\d.]+) seconds",
+                                            log.getvalue())]
+    big_cells = max_cfg.n_mesh_w**3 * max_cfg.n_mesh_q**3
+    peak_big = torch.cuda.max_memory_allocated() / 2**30
+    check(len(sweep_s) == 2 and big.is_flat
+          and bool(torch.isfinite(big.result.values).all()),
+          "1.0B-cell solve")
+    print(f"{big_cells} cells: {big_s:.3f} s, of which the build "
+          f"{big_s - sum(sweep_s):.3f} s and sweeps {sweep_s} s "
+          f"({sweep_s[-1] / big_cells * 1e9:.3f} ns per cell); peak device "
+          f"memory {peak_big:.3f} GiB "
+          f"({peak_big * 2**30 / big_cells:.2f} B per cell); the kernel's "
+          f"int32 cell index caps a grid at 2^31 = {2**31} cells")
+    del big
+    free_cuda()
+
+    phase("21. timing (CUDA events, warm, median of 10)")
+    _, plan, cost = attitude.build_full(main_cfg, lane_mode="plan")
+    bk4 = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8,
+                      carry_padded=True, consume_plan=True)
+    del plan, cost
+    out_v = torch.empty_like(v_main)
+    out_a = torch.empty(v_main.shape, dtype=torch.uint8, device=device)
+    ms4 = cuda_time_ms(lambda: b6.backup6d_flat_cuda(
+        v_main, bk4.args, out_v=out_v, out_a=out_a))
+    bound4 = backup6d_bound(bk4)
+    del bk4
+    free_cuda()
+    _, rplan, rcost = attitude.build_full(main_cfg)
+    bk5 = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
+                      carry_padded=True)
+    ms5 = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+        v_main, bk5.args, out_v=out_v, out_a=out_a))
+    bound5 = backup6d_bound(bk5)
+    b3_ns = b3["ms"] * 1e6 / 1331000
+    print(f"30^3x16^3 sweep: B.4 (uint8, tracking) {ms4:.4f} ms "
+          f"({ms4 * 1e6 / cells:.3f} ns per cell, bound {bound4['bound_ms']:.4f}"
+          f" ms by {bound4['bound_by']}), B.5 {ms5:.4f} ms "
+          f"({ms5 * 1e6 / cells:.3f} ns per cell, bound "
+          f"{bound5['bound_ms']:.4f} ms by {bound5['bound_by']}); B.3 at "
+          f"11^3x10^3 {b3_ns:.3f} ns per cell")
+    print(f"registers: B.4 {kernel_registers(B4_KERNEL)}; B.5 "
+          f"{kernel_registers(B5_KERNEL)}")
+    print("plain_ms of B.4 and B.5 are at 19^3x14^3 (phase 17); ms and "
+          "bound_ms at 30^3x16^3")
+    tmp.cleanup()
+    common = {"route": "cuda", "source": "ocdp_tpu_torch/csrc/backup6d.cu",
+              "library_ms": None}
+    return [
+        {"name": "backup6d_flat",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:973 (flat plan, uint8 "
+                     "argmin, min-only, padded carry)",
+         "launches": plan_launches, "max_abs_err": err4, "ms": ms4,
+         "plain_ms": plain_ms4, **bound4, **common},
+        {"name": "backup6d_recompute",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:973 (lane recompute, "
+                     ":1003-1036)",
+         "launches": main_launches, "max_abs_err": err5, "ms": ms5,
+         "plain_ms": plain_ms5, **bound5, **common},
+    ]
 
 
 def state_shape(cfg) -> tuple:

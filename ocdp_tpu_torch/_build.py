@@ -37,6 +37,8 @@ _SIGNATURES = {
     "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),
     "rowlane_backup_error_string": (ctypes.c_char_p, [_I]),
     "backup6d_f32": (_I, [_P] * 20 + [_I] * 10 + [_P]),
+    "backup6d_flat_f32": (_I, [_P] * 20 + [_I] * 12 + [_P]),
+    "backup6d_recompute_f32": (_I, [_P] * 22 + [_I] * 13 + [_P]),
     "backup6d_error_string": (ctypes.c_char_p, [_I]),
 }
 

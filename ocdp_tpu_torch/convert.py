@@ -37,7 +37,9 @@ def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
 def plan_from_numpy(lo: Sequence, frac: Sequence, grid_shape, *,
                     device) -> InterpPlan:
     """An :class:`InterpPlan` from per-axis numpy ``lo`` (int32) and
-    ``frac`` (float32) arrays, on ``device``."""
+    ``frac`` (float32) arrays, on ``device``, in either layout: broadcast
+    to ``(*grid_shape, A)``, or flat (the 6-D envelope's ``(NW, 1, A)``
+    row and ``(NW, NE, 1)`` lane arrays)."""
     if len(lo) != len(frac) or len(lo) != len(grid_shape):
         raise ValueError("lo, frac and grid_shape need one entry per axis")
     return InterpPlan(tuple(_tensor(x, torch.int32, device) for x in lo),
@@ -93,16 +95,21 @@ def full_solution_from_numpy(sol, *, device) -> FullSolution:
     """A 6-D attitude :class:`FullSolution` on ``device`` from one whose
     result holds numpy-convertible arrays (the JAX package's
     ``FullSolution``, in either of its layouts): the grid axes, the values
-    and the flat-action argmin (int32) in the state shape, the sweep count
-    and the stop flag; the configuration is rebuilt from its fields."""
+    and the flat-action argmin, the sweep count and the stop flag; the
+    configuration is rebuilt from its fields. A state-shaped result gives
+    an int32 argmin in the state shape; a flat one (``(NW, NE)`` values
+    and, from an envelope solve, a uint8 argmin) keeps its layout and its
+    argmin dtype."""
     grid = Grid(tuple(np.asarray(a) for a in sol.grid.axes))
     res = sol.result
+    values, argmin = np.asarray(res.values), np.asarray(res.argmin)
+    if argmin.ndim == len(grid.shape):
+        values = values.reshape(grid.shape)
+        argmin = argmin.astype(np.int32).reshape(grid.shape)
     return FullSolution(
         AttitudeConfig(**dataclasses.asdict(sol.config)), grid,
         result_from_numpy(
-            np.asarray(res.values).reshape(grid.shape),
-            np.asarray(res.argmin).astype(np.int32).reshape(grid.shape),
-            num_sweeps=int(np.asarray(res.num_sweeps)),
+            values, argmin, num_sweeps=int(np.asarray(res.num_sweeps)),
             converged=bool(np.asarray(res.converged)), device=device))
 
 

@@ -56,6 +56,32 @@
 // by its load and instruction issue instead. Later work (ROADMAP B.3):
 // shared-memory tiles of the row window a block reads, and sharing the lane
 // phase across the row shifts.
+//
+// The envelope modes (B.4, B.5) are instantiations of the same kernel:
+//
+// * B.4 replaces the same _kernel in its envelope modes on flat plans
+//   (PallasBackup6D.flat, the uint8 argmin_dtype at :1195, track_argmin=
+//   False at :1235/:1324, padded carry at :914-947). The lane plan inputs
+//   are (NW, NE) views of the flat plan; the argmin is written as int32 or
+//   uint8 (ArgT); a min-only sweep (kTrack false) keeps the same strict-'<'
+//   running minimum and writes an all-zero argmin; the wrapper hands the
+//   kernel output buffers that the engine allocated once ("carry"). Reads
+//   outside the table are already 0.0 here, so nothing is padded or
+//   carried but the two tables. Bytes: 4 (table) + 24 (lane plan) + 4 + 1
+//   (outputs) per cell; past the 50 MB L2 the table's row windows come from
+//   device memory, as the TPU kernel's table_hbm/win_dma windows did.
+// * B.5 replaces the lane-recompute mode (LaneRecompute :102,
+//   RecomputePlan :158, _affine_locate :78, the recompute branch
+//   :1003-1036, ops/kernelmath.py): no lane plan exists; each thread reads
+//   the three omegas of its row and the four kirk-q components of its lane,
+//   runs the quaternion Euler step, renormalization and Euler readback
+//   (ocdp_tpu_torch/ops/kernelmath.py::quat_step_readback with atan2_f32 /
+//   asin_f32) and the affine locate of each Euler axis once, before the
+//   lane phase. Every operation is an explicitly rounded intrinsic
+//   (__fdiv_rn and __fsqrt_rn included) in the plain version's order, with
+//   floorf and fminf/fmaxf clamps and float32-rounded constants, so the
+//   recomputed (off, frac) equal the plain version's bit for bit. Bytes:
+//   9 per cell; the recompute adds about 200 FP32 operations per cell.
 
 #include <cuda_runtime.h>
 
@@ -90,6 +116,127 @@ __device__ __forceinline__ bool live(const Taps6& tp, int p) {
   return (tp.row_live >> p) & 1;
 }
 
+// B.5's lane generators (ops/backup6d.py::LaneRecompute): per-row omegas,
+// per-lane kirk-q components, and each Euler axis's affine locate.
+struct LaneRec {
+  const float* w[3];      // (NW,) omega1..3 of each row
+  const float* q[4];      // (NE,) kirk q1..q4 of each lane
+  float start[3];         // float32 first grid point of each Euler axis
+  float inv_step[3];      // float32 1 / spacing
+  float top[3];           // n_k - 2, the last cell
+  int size[3];            // n_k
+  int stride[3];          // flat lane stride of axis k
+  float half_h;           // float32(h * 0.5)
+  int clamp;              // edge='clamp': fracs clipped to [0, 1]
+};
+
+// ops/kernelmath.py, op by op (Cephes atanf); constants are the float32
+// roundings of the same double values the plain version rounds.
+constexpr float kPi = static_cast<float>(3.14159265358979323846);
+constexpr float kPi2 = static_cast<float>(3.14159265358979323846 / 2.0);
+constexpr float kPi4 = static_cast<float>(3.14159265358979323846 / 4.0);
+constexpr float kTan3Pi8 = static_cast<float>(2.414213562373095);
+constexpr float kTanPi8 = static_cast<float>(0.4142135623730950);
+constexpr float kTiny = static_cast<float>(1e-30);
+constexpr float kP0 = static_cast<float>(8.05374449538e-2);
+constexpr float kP1 = static_cast<float>(1.38776856032e-1);
+constexpr float kP2 = static_cast<float>(1.99777106478e-1);
+constexpr float kP3 = static_cast<float>(3.33329491539e-1);
+
+__device__ __forceinline__ float sq(float x) { return __fmul_rn(x, x); }
+
+__device__ __forceinline__ float atan_f32(float x) {
+  const float sign = x < 0.0f ? -1.0f : 1.0f;
+  const float ax = fabsf(x);
+  const bool big = ax > kTan3Pi8;
+  const bool mid = ax > kTanPi8;
+  const float safe = fmaxf(ax, kTiny);
+  const float z = big ? __fdiv_rn(-1.0f, safe)
+                      : (mid ? __fdiv_rn(__fsub_rn(ax, 1.0f),
+                                         __fadd_rn(ax, 1.0f))
+                             : ax);
+  const float y0 = big ? kPi2 : (mid ? kPi4 : 0.0f);
+  const float z2 = sq(z);
+  const float p = __fsub_rn(
+      __fmul_rn(__fadd_rn(__fmul_rn(__fsub_rn(__fmul_rn(z2, kP0), kP1), z2),
+                          kP2),
+                z2),
+      kP3);
+  const float core = __fadd_rn(__fmul_rn(__fmul_rn(p, z2), z), z);
+  return __fmul_rn(sign, __fadd_rn(y0, core));
+}
+
+__device__ __forceinline__ float atan2_f32(float y, float x) {
+  const float safe_x = x == 0.0f ? 1.0f : x;
+  const float base = atan_f32(__fdiv_rn(y, safe_x));
+  const float ysign = y < 0.0f ? -1.0f : 1.0f;
+  const float out = x > 0.0f ? base : __fadd_rn(base, __fmul_rn(ysign, kPi));
+  const float out_x0 = y == 0.0f ? 0.0f : __fmul_rn(ysign, kPi2);
+  return x == 0.0f ? out_x0 : out;
+}
+
+__device__ __forceinline__ float asin_f32(float x) {
+  x = fminf(fmaxf(x, -1.0f), 1.0f);
+  return atan2_f32(x, __fsqrt_rn(fmaxf(__fsub_rn(1.0f, sq(x)), 0.0f)));
+}
+
+// _affine_locate: t = (coord - start) * (1 / step), lo = clip(floor(t)),
+// frac = t - lo; then the offset from the lane's own index on the axis
+__device__ __forceinline__ void locate(const LaneRec& rec, int k, float coord,
+                                       int c, int& off, float& frac) {
+  const float t = __fmul_rn(__fsub_rn(coord, rec.start[k]), rec.inv_step[k]);
+  const float lo = fminf(fmaxf(floorf(t), 0.0f), rec.top[k]);
+  frac = __fsub_rn(t, lo);
+  if (rec.clamp) frac = fminf(fmaxf(frac, 0.0f), 1.0f);
+  off = static_cast<int>(lo) - (c / rec.stride[k]) % rec.size[k];
+}
+
+// kernelmath.quat_step_readback(h, q, w1, w2, w3, atan2_f32, asin_f32)
+// followed by the locate of each Euler axis, for cell (r, c)
+__device__ __forceinline__ void recompute_lanes(const LaneRec& rec, int r,
+                                                int c, int& o0, int& o1,
+                                                int& o2, float& f0,
+                                                float& f1, float& f2) {
+  const float w1 = rec.w[0][r], w2 = rec.w[1][r], w3 = rec.w[2][r];
+  const float q1 = rec.q[0][c], q2 = rec.q[1][c], q3 = rec.q[2][c],
+              q4 = rec.q[3][c];
+  const float h2 = rec.half_h;
+  const float a1 = __fadd_rn(
+      q1, __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(w3, q2), __fmul_rn(w2, q3)),
+                              __fmul_rn(w1, q4)),
+                    h2));
+  const float a2 = __fadd_rn(
+      q2, __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(-w3, q1), __fmul_rn(w1, q3)),
+                              __fmul_rn(w2, q4)),
+                    h2));
+  const float a3 = __fadd_rn(
+      q3, __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(w2, q1), __fmul_rn(w1, q2)),
+                              __fmul_rn(w3, q4)),
+                    h2));
+  const float a4 = __fadd_rn(
+      q4, __fmul_rn(__fsub_rn(__fsub_rn(__fmul_rn(-w1, q1), __fmul_rn(w2, q2)),
+                              __fmul_rn(w3, q3)),
+                    h2));
+  const float norm =
+      __fsqrt_rn(__fadd_rn(__fadd_rn(__fadd_rn(sq(a1), sq(a2)), sq(a3)), sq(a4)));
+  const float n1 = __fdiv_rn(a1, norm), n2 = __fdiv_rn(a2, norm),
+              n3 = __fdiv_rn(a3, norm), n4 = __fdiv_rn(a4, norm);
+  const float yaw = atan2_f32(
+      __fmul_rn(__fadd_rn(__fmul_rn(n3, n2), __fmul_rn(n4, n1)), 2.0f),
+      __fsub_rn(__fsub_rn(__fadd_rn(sq(n4), sq(n3)), sq(n2)), sq(n1)));
+  const float pitch = asin_f32(fminf(
+      fmaxf(__fmul_rn(__fsub_rn(__fmul_rn(n3, n1), __fmul_rn(n4, n2)), -2.0f),
+            -1.0f),
+      1.0f));
+  const float roll = atan2_f32(
+      __fmul_rn(__fadd_rn(__fmul_rn(n2, n1), __fmul_rn(n4, n3)), 2.0f),
+      __fadd_rn(__fsub_rn(__fsub_rn(sq(n4), sq(n3)), sq(n2)), sq(n1)));
+  locate(rec, 0, yaw, c, o0, f0);
+  locate(rec, 1, pitch, c, o1, f1);
+  locate(rec, 2, roll, c, o2, f2);
+}
+
+template <typename ArgT, bool kTrack, bool kRecompute>
 __global__ void __launch_bounds__(kThreads)
 backup6d_sweep(const float* __restrict__ values,
                const int* __restrict__ row_off,
@@ -104,16 +251,22 @@ backup6d_sweep(const float* __restrict__ values,
                const float* __restrict__ c_lane,
                const float* __restrict__ c_rowact,
                const float* __restrict__ c_rowlane,
-               float* __restrict__ out_v, int* __restrict__ out_a,
+               float* __restrict__ out_v, ArgT* __restrict__ out_a,
                int n_rows, int n_lanes, int n_actions,
-               const __grid_constant__ Taps6 tp) {
+               const __grid_constant__ Taps6 tp,
+               const __grid_constant__ LaneRec rec) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= n_rows * n_lanes) return;
   const int r = cell / n_lanes;
   const int c = cell - r * n_lanes;
-  const int o0 = lane_off0[cell], o1 = lane_off1[cell], o2 = lane_off2[cell];
-  const float f0 = lane_frac0[cell], f1 = lane_frac1[cell],
-              f2 = lane_frac2[cell];
+  int o0, o1, o2;
+  float f0, f1, f2;
+  if constexpr (kRecompute) {
+    recompute_lanes(rec, r, c, o0, o1, o2, f0, f1, f2);
+  } else {
+    o0 = lane_off0[cell], o1 = lane_off1[cell], o2 = lane_off2[cell];
+    f0 = lane_frac0[cell], f1 = lane_frac1[cell], f2 = lane_frac2[cell];
+  }
 
   // lane phase: A[p] for each live row combo (cube slot p), summed over the
   // lane combos in order; each joint weight is formed once for all p
@@ -240,7 +393,7 @@ backup6d_sweep(const float* __restrict__ values,
             if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
             if (a == 0 || t < best) {  // strict: the first minimum wins
               best = t;
-              best_a = a;
+              if (kTrack) best_a = a;
             }
           }
         }
@@ -276,14 +429,14 @@ backup6d_sweep(const float* __restrict__ values,
       if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
       if (a == 0 || t < best) {  // strict: the first minimum wins
         best = t;
-        best_a = a;
+        if (kTrack) best_a = a;
       }
     }
   }
   float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
   out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
   out_v[cell] = out;
-  out_a[cell] = best_a;
+  out_a[cell] = static_cast<ArgT>(best_a);   // 0 in a min-only sweep
 }
 
 int tap_index(const int* taps, int n, int t) {
@@ -293,9 +446,100 @@ int tap_index(const int* taps, int n, int t) {
   return -1;
 }
 
+// The tap structure of one plan into tp; false when it exceeds the kernel's
+// capacities.
+bool fill_taps(Taps6& tp, const int* w_taps, const int* n_taps,
+               const int* row_combos, const int* lane_combos,
+               const float* c_act, int n_r1, int n_r2, int n_l1, int n_l2,
+               int n_actions, int n_row_combos, int n_lane_combos,
+               int digits) {
+  if (n_actions < 1 || n_actions > kMaxActions || n_row_combos < 1 ||
+      n_lane_combos < 1 || n_lane_combos > kMaxLaneCombos || digits < 0 ||
+      digits > kMaxDigits ||
+      (digits > 0 && digits * digits * digits != n_actions)) {
+    return false;
+  }
+  tp = Taps6{};
+  for (int k = 0; k < 3; ++k) {
+    if (n_taps[k] < 1 || n_taps[k] > kMaxTaps) return false;
+    tp.n_row_taps[k] = n_taps[k];
+    for (int i = 0; i < n_taps[k]; ++i) tp.row_taps[k][i] = w_taps[3 * k + i];
+  }
+  for (int j = 0; j < n_row_combos; ++j) {
+    const int* t = row_combos + 3 * j;
+    int p = 0;
+    for (int k = 0; k < 3; ++k) {
+      const int i = tap_index(tp.row_taps[k], tp.n_row_taps[k], t[k]);
+      if (i < 0) return false;
+      p = p * 3 + i;
+    }
+    tp.row_live |= 1 << p;
+    tp.row_delta[p] = (t[0] * n_r1 + t[1]) * n_r2 + t[2];
+  }
+  tp.n_lane_combos = n_lane_combos;
+  for (int e = 0; e < n_lane_combos; ++e) {
+    const int* t = lane_combos + 3 * e;
+    for (int k = 0; k < 3; ++k) tp.lane_tap[e][k] = t[k];
+    tp.lane_delta[e] = (t[0] * n_l1 + t[1]) * n_l2 + t[2];
+  }
+  tp.digits = digits;
+  for (int a = 0; a < n_actions; ++a) tp.c_act[a] = c_act[a];
+  return true;
+}
+
+struct SweepIo {
+  const float* values;
+  const int* row_off;
+  const float* row_frac;
+  const int* lane_off[3];
+  const float* lane_frac[3];
+  const float* c_row;
+  const float* c_lane;
+  const float* c_rowact;
+  const float* c_rowlane;
+  float* out_v;
+  void* out_a;
+};
+
+template <typename ArgT, bool kTrack, bool kRecompute>
+int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
+           int n_rows, int n_lanes, int n_actions, void* stream) {
+  const long long n_cells = static_cast<long long>(n_rows) * n_lanes;
+  backup6d_sweep<ArgT, kTrack, kRecompute>
+      <<<static_cast<unsigned>((n_cells + kThreads - 1) / kThreads), kThreads,
+         0, static_cast<cudaStream_t>(stream)>>>(
+          io.values, io.row_off, io.row_frac, io.lane_off[0],
+          io.lane_frac[0], io.lane_off[1], io.lane_frac[1], io.lane_off[2],
+          io.lane_frac[2], io.c_row, io.c_lane, io.c_rowact, io.c_rowlane,
+          io.out_v, static_cast<ArgT*>(io.out_a), n_rows, n_lanes,
+          n_actions, tp, rec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The envelope instantiations: argmin_bytes 4 (int32) or 1 (uint8), track
+// 1 (argmin) or 0 (min-only, all-zero argmin).
+template <bool kRecompute>
+int launch_mode(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
+                int n_rows, int n_lanes, int n_actions, int argmin_bytes,
+                int track, void* stream) {
+  if (argmin_bytes == 4) {
+    return track ? launch<int, true, kRecompute>(io, tp, rec, n_rows, n_lanes,
+                                                 n_actions, stream)
+                 : launch<int, false, kRecompute>(io, tp, rec, n_rows,
+                                                  n_lanes, n_actions, stream);
+  }
+  if (argmin_bytes == 1) {
+    return track ? launch<unsigned char, true, kRecompute>(
+                       io, tp, rec, n_rows, n_lanes, n_actions, stream)
+                 : launch<unsigned char, false, kRecompute>(
+                       io, tp, rec, n_rows, n_lanes, n_actions, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// One sweep. Device pointers: values (NW, NE); row_off/row_frac (3, NW, A);
+// One sweep (B.3). Device pointers: values (NW, NE); row_off/row_frac (3, NW, A);
 // lane_off{k}/lane_frac{k} (NW, NE); c_row (NW,); c_lane (NE,); c_rowact
 // (NW, A) and c_rowlane (NW, NE) may be null; out_v/out_a (NW, NE). Host
 // pointers: w_taps (3, 3) live row taps per axis, ascending, n_taps (3,)
@@ -315,48 +559,93 @@ extern "C" int backup6d_f32(
     const float* c_act, int n_r0, int n_r1, int n_r2, int n_l0, int n_l1,
     int n_l2, int n_actions, int n_row_combos, int n_lane_combos, int digits,
     void* stream) {
-  if (n_actions < 1 || n_actions > kMaxActions || n_row_combos < 1 ||
-      n_lane_combos < 1 || n_lane_combos > kMaxLaneCombos || digits < 0 ||
-      digits > kMaxDigits ||
-      (digits > 0 && digits * digits * digits != n_actions)) {
+  Taps6 tp;
+  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
+                 digits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Taps6 tp = {};
+  const SweepIo io = {values, row_off, row_frac,
+                      {lane_off0, lane_off1, lane_off2},
+                      {lane_frac0, lane_frac1, lane_frac2},
+                      c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
+  return launch<int, true, false>(io, tp, LaneRec{}, n_r0 * n_r1 * n_r2,
+                                  n_l0 * n_l1 * n_l2, n_actions, stream);
+}
+
+// One sweep on a flat plan (B.4): the arguments of backup6d_f32, with out_a
+// int32 (argmin_bytes 4) or uint8 (argmin_bytes 1) and track 0 for a
+// min-only sweep. out_v and out_a may be buffers the caller reuses.
+extern "C" int backup6d_flat_f32(
+    const float* values, const int* row_off, const float* row_frac,
+    const int* lane_off0, const float* lane_frac0, const int* lane_off1,
+    const float* lane_frac1, const int* lane_off2, const float* lane_frac2,
+    const float* c_row, const float* c_lane, const float* c_rowact,
+    const float* c_rowlane, float* out_v, void* out_a, const int* w_taps,
+    const int* n_taps, const int* row_combos, const int* lane_combos,
+    const float* c_act, int n_r0, int n_r1, int n_r2, int n_l0, int n_l1,
+    int n_l2, int n_actions, int n_row_combos, int n_lane_combos, int digits,
+    int argmin_bytes, int track, void* stream) {
+  Taps6 tp;
+  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
+                 digits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SweepIo io = {values, row_off, row_frac,
+                      {lane_off0, lane_off1, lane_off2},
+                      {lane_frac0, lane_frac1, lane_frac2},
+                      c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
+  return launch_mode<false>(io, tp, LaneRec{}, n_r0 * n_r1 * n_r2,
+                            n_l0 * n_l1 * n_l2, n_actions, argmin_bytes,
+                            track, stream);
+}
+
+// One sweep with the Euler lanes recomputed per cell (B.5). Device
+// pointers: w1..w3 (NW,) the rows' omegas, q1..q4 (NE,) the lanes' kirk-q
+// components; the rest as backup6d_flat_f32, without lane plan arrays.
+// Host pointer rec_consts: start[3], inv_step[3] and half_h, float32.
+// clamp: edge='clamp'.
+extern "C" int backup6d_recompute_f32(
+    const float* values, const int* row_off, const float* row_frac,
+    const float* w1, const float* w2, const float* w3, const float* q1,
+    const float* q2, const float* q3, const float* q4,
+    const float* rec_consts, const float* c_row, const float* c_lane,
+    const float* c_rowact, const float* c_rowlane, float* out_v, void* out_a,
+    const int* w_taps, const int* n_taps, const int* row_combos,
+    const int* lane_combos, const float* c_act, int n_r0, int n_r1, int n_r2,
+    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
+    int n_lane_combos, int digits, int argmin_bytes, int track, int clamp,
+    void* stream) {
+  Taps6 tp;
+  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
+                 digits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  LaneRec rec = {};
+  const int sizes[3] = {n_l0, n_l1, n_l2};
+  const int strides[3] = {n_l1 * n_l2, n_l2, 1};
+  const float* w[3] = {w1, w2, w3};
+  const float* q[4] = {q1, q2, q3, q4};
   for (int k = 0; k < 3; ++k) {
-    if (n_taps[k] < 1 || n_taps[k] > kMaxTaps) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    tp.n_row_taps[k] = n_taps[k];
-    for (int i = 0; i < n_taps[k]; ++i) tp.row_taps[k][i] = w_taps[3 * k + i];
+    if (sizes[k] < 2) return static_cast<int>(cudaErrorInvalidValue);
+    rec.w[k] = w[k];
+    rec.start[k] = rec_consts[k];
+    rec.inv_step[k] = rec_consts[3 + k];
+    rec.top[k] = static_cast<float>(sizes[k] - 2);
+    rec.size[k] = sizes[k];
+    rec.stride[k] = strides[k];
   }
-  for (int j = 0; j < n_row_combos; ++j) {
-    const int* t = row_combos + 3 * j;
-    int p = 0;
-    for (int k = 0; k < 3; ++k) {
-      const int i = tap_index(tp.row_taps[k], tp.n_row_taps[k], t[k]);
-      if (i < 0) return static_cast<int>(cudaErrorInvalidValue);
-      p = p * 3 + i;
-    }
-    tp.row_live |= 1 << p;
-    tp.row_delta[p] = (t[0] * n_r1 + t[1]) * n_r2 + t[2];
-  }
-  tp.n_lane_combos = n_lane_combos;
-  for (int e = 0; e < n_lane_combos; ++e) {
-    const int* t = lane_combos + 3 * e;
-    for (int k = 0; k < 3; ++k) tp.lane_tap[e][k] = t[k];
-    tp.lane_delta[e] = (t[0] * n_l1 + t[1]) * n_l2 + t[2];
-  }
-  tp.digits = digits;
-  for (int a = 0; a < n_actions; ++a) tp.c_act[a] = c_act[a];
-  const int n_rows = n_r0 * n_r1 * n_r2;
-  const int n_lanes = n_l0 * n_l1 * n_l2;
-  const long long n_cells = static_cast<long long>(n_rows) * n_lanes;
-  backup6d_sweep<<<static_cast<unsigned>((n_cells + kThreads - 1) / kThreads),
-                   kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      values, row_off, row_frac, lane_off0, lane_frac0, lane_off1,
-      lane_frac1, lane_off2, lane_frac2, c_row, c_lane, c_rowact, c_rowlane,
-      out_v, out_a, n_rows, n_lanes, n_actions, tp);
-  return static_cast<int>(cudaGetLastError());
+  for (int k = 0; k < 4; ++k) rec.q[k] = q[k];
+  rec.half_h = rec_consts[6];
+  rec.clamp = clamp;
+  const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
+                      {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
+                      c_rowlane, out_v, out_a};
+  return launch_mode<true>(io, tp, rec, n_r0 * n_r1 * n_r2,
+                           n_l0 * n_l1 * n_l2, n_actions, argmin_bytes, track,
+                           stream);
 }
 
 extern "C" const char* backup6d_error_string(int err) {

@@ -136,7 +136,17 @@ def value_iteration_finite(
     reference's per-stage 'step %d - %f seconds' print). On a CUDA device
     the engine synchronizes before each call, so the callback sees the
     sweep completed; without a callback nothing synchronizes.
+
+    A backup built with ``carry_padded=True`` (:class:`~ocdp_tpu_torch.ops.
+    backup6d.Backup6D`'s carry mode, ``ocdp_tpu/engine.py:166-205``) runs,
+    when no policies are stored, through :func:`_finite_carry`: two
+    ``(NW, NE)`` tables and one argmin buffer in the backup's narrow dtype,
+    allocated once. Flat-plan results then stay ``(NW, NE)``;
+    ``probe_window`` is refused there.
     """
+    if not store_policies and getattr(backup, "carry_padded", False):
+        return _finite_carry(plan, backup, num_sweeps, init_values,
+                             probe_window, narrow_argmin_result, on_sweep)
     v = _initial_values(plan, init_values)
     n_actions = plan.query_shape[-1]
     pdt = policy_dtype or policy_dtype_for(n_actions)
@@ -179,6 +189,65 @@ def value_iteration_finite(
         converged=False,
         probes=probes,
     )
+
+
+def _finite_carry(plan, backup, num_sweeps, init_values, probe_window,
+                  narrow_argmin_result, on_sweep) -> SolveResult:
+    """The finite engine in carry mode: each sweep writes the next table
+    into the other of two buffers (ping-pong) and the argmin into one
+    buffer of the backup's dtype; nothing is allocated per sweep."""
+    if probe_window is not None:
+        raise ValueError("probe_window is unsupported with a carry-mode "
+                         "backup (the carry is the flat (NW, NE) table)")
+    cur, nxt, argmin = _carry_buffers(plan, backup, init_values)
+    cur, nxt = _carry_sweeps(backup, cur, nxt, argmin, num_sweeps, on_sweep)
+    del nxt
+    return _carry_result(plan, cur, argmin, narrow_argmin_result,
+                         num_sweeps, False)
+
+
+def _carry_buffers(plan, backup, init_values):
+    """Carry mode's buffers, allocated once per solve: the current and the
+    next ``(NW, NE)`` table (the current one a copy of ``init_values``, so
+    the ping-pong never writes the caller's) and one argmin buffer in the
+    backup's narrow dtype."""
+    nw, ne = backup.NW, backup.NE
+    dev = plan.device
+    cur = torch.zeros((nw, ne), dtype=torch.float32, device=dev)
+    if init_values is not None:
+        cur.copy_(torch.as_tensor(init_values, dtype=torch.float32,
+                                  device=dev).reshape(nw, ne))
+    argmin = torch.zeros((nw, ne), dtype=backup.argmin_dtype, device=dev)
+    return cur, torch.empty_like(cur), argmin
+
+
+def _carry_sweeps(backup, cur, nxt, argmin, n, on_sweep=None):
+    """``n`` carry-mode sweeps; returns ``(cur, nxt)`` swapped as many
+    times."""
+    for i in range(n):
+        backup.sweep_into(cur, nxt, argmin)
+        cur, nxt = nxt, cur
+        if on_sweep is not None:
+            _sync_for_callback(cur)
+            on_sweep(i)
+    return cur, nxt
+
+
+def _carry_view(plan, t: torch.Tensor) -> torch.Tensor:
+    """A carry buffer as the plan's result table: ``(NW, NE)`` for a flat
+    plan, a view in the state grid's shape otherwise."""
+    if len(plan.query_shape) == plan.ndim + 1:     # not a flat plan
+        return t.reshape(plan.grid_shape)
+    return t
+
+
+def _carry_result(plan, cur, argmin, narrow_argmin_result, num_sweeps,
+                  converged) -> SolveResult:
+    if not narrow_argmin_result:
+        argmin = argmin.to(torch.int32)
+    return SolveResult(values=_carry_view(plan, cur),
+                       argmin=_carry_view(plan, argmin), policies=None,
+                       num_sweeps=num_sweeps, converged=converged)
 
 
 def value_iteration_converged(
@@ -269,6 +338,7 @@ def value_iteration_segmented(
     on_segment=None,
     tol: Optional[float] = None,
     tol_mode: str = "abs",
+    narrow_argmin_result: bool = False,
 ) -> SolveResult:
     """The finite-horizon solve in segments of at most ``segment_size``
     sweeps, each through :func:`value_iteration_finite`, with control back
@@ -295,15 +365,36 @@ def value_iteration_segmented(
     ``on_segment(sweep_index, values)`` is an optional host callback after
     each segment (e.g. :meth:`~ocdp_tpu_torch.profiling.SweepTimer.
     on_segment`). ``SolveResult.num_sweeps`` counts the sweeps this call ran.
+
+    With a carry-mode backup the engine allocates the carry's two tables
+    and its argmin buffer (in the backup's narrow dtype) once and hands
+    them from segment to segment, so nothing table-sized is copied or
+    allocated per segment; a flat plan's checkpoints and results then hold
+    the ``(NW, NE)`` table, which ``init_values`` takes back; the table
+    ``on_segment`` gets is the engine's buffer, which later segments
+    overwrite. ``narrow_argmin_result`` governs only the result's argmin.
+    ``store_policies`` is refused with such a backup, as in the JAX
+    package.
     """
     if segment_size < 1:
         raise ValueError(f"segment_size must be >= 1, got {segment_size}")
+    carry = getattr(backup, "carry_padded", False)
+    if carry and store_policies:
+        raise ValueError(
+            "store_policies is unsupported with a carry-mode backup "
+            "(per-sweep policy stacks defeat the envelope memory budget)")
     if tol is not None:
         convergence_stop(0.0, 0.0, tol, tol_mode)     # validate tol_mode
-    v = _initial_values(plan, init_values)
+    if carry:
+        # the solve's only table-sized buffers: two tables and the narrow
+        # argmin, handed from segment to segment
+        v, spare, argmin = _carry_buffers(plan, backup, init_values)
+    else:
+        v = _initial_values(plan, init_values)
+        argmin = torch.zeros(plan.grid_shape, dtype=torch.int32,
+                             device=v.device)
     host_policies = [] if store_policies else None
     sweep = start_sweep
-    argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
     converged = False
     while sweep < num_sweeps and not converged:
         n = min(segment_size, num_sweeps - sweep)
@@ -313,12 +404,16 @@ def value_iteration_segmented(
             # multiple of segment_size)
             r = (num_sweeps + 1) % segment_size
             n = min(((r - sweep - 1) % segment_size) + 1, num_sweeps - sweep)
-        res = value_iteration_finite(
-            plan, stage_cost, n, init_values=v, store_policies=store_policies,
-            backup=backup)
-        v, argmin = res.values, res.argmin
-        if store_policies:
-            host_policies.append(res.policies.cpu().numpy())
+        if carry:
+            v, spare = _carry_sweeps(backup, v, spare, argmin, n)
+        else:
+            res = value_iteration_finite(
+                plan, stage_cost, n, init_values=v,
+                store_policies=store_policies, backup=backup,
+                narrow_argmin_result=narrow_argmin_result)
+            v, argmin = res.values, res.argmin
+            if store_policies:
+                host_policies.append(res.policies.cpu().numpy())
         sweep += n
         if tol is not None and _is_check_sweep(sweep, num_sweeps,
                                                segment_size):
@@ -327,18 +422,23 @@ def value_iteration_segmented(
             converged = convergence_stop(float(err_f), float(fsum), tol,
                                          tol_mode)
             prev_f = float(fsum)
+        table = _carry_view(plan, v) if carry else v
         if checkpoint_path is not None:
-            save_values(checkpoint_path, v, sweep,
+            save_values(checkpoint_path, table, sweep,
                         checkpoint_axes if checkpoint_axes is not None
                         else (), prev_f=prev_f)
         if on_segment is not None:
-            on_segment(sweep, v)
+            on_segment(sweep, table)
 
+    if carry:
+        del spare
+        return _carry_result(plan, v, argmin, narrow_argmin_result,
+                             sweep - start_sweep, converged)
     policies = (np.concatenate(host_policies, axis=0) if host_policies
                 else None)
     return SolveResult(
         values=v,
-        argmin=argmin,
+        argmin=argmin if narrow_argmin_result else argmin.to(torch.int32),
         policies=policies,
         num_sweeps=sweep - start_sweep,
         converged=converged,

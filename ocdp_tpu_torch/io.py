@@ -90,11 +90,14 @@ def save_values(path: str, values, sweep_index: int,
                 axes: Sequence[np.ndarray], *,
                 prev_f: Optional[float] = None) -> None:
     """Write a mid-solve checkpoint: value table, sweep count, grid axes and,
-    when given, the stop rule's last checksum ``prev_f``."""
+    when given, the stop rule's last checksum ``prev_f``. The npz is not
+    compressed (the JAX package's is; ``np.load`` reads both): zlib over a
+    table of the 6-D envelope's size takes longer than the sweeps of a
+    segment (``scripts/torch_attitude_profile.py`` times both)."""
     if isinstance(values, torch.Tensor):
         values = values.detach().cpu().numpy()
     extra = {} if prev_f is None else {"prev_f": np.float64(prev_f)}
-    np.savez_compressed(
+    np.savez(
         path,
         values=np.asarray(values),
         sweep_index=np.asarray(sweep_index),

@@ -24,6 +24,15 @@ cells over a 5999-sweep horizon. The builds and solves run on the card
 unless the caller asks for ``device="cpu"``; without a card they raise.
 The rollout runs on the solution's device.
 
+Past ``FLAT_MIN_CELLS`` cells the solve takes the envelope path
+(``ocdp_tpu/models/attitude.py:379-419, 840-895``): a flat ``(rows, lanes)``
+plan, the engines' carry mode and a uint8 argmin, with flat ``(NW, NE)``
+result tables; past ``RECOMPUTE_MIN_CELLS`` the Euler lanes are recomputed
+inside the kernel (B.5) instead of stored (24 B/cell), and a flat stored
+plan past ``CHUNKED_MIN_CELLS`` is built in row blocks. The rules read the
+cell count only; ``flat``, ``lane_mode``, ``chunked`` and ``carry_padded``
+force each mode at any size.
+
 The simplified per-axis solver's configuration fields are kept in
 :class:`AttitudeConfig`; its solver is not in this module.
 """
@@ -40,9 +49,11 @@ import torch
 from ..engine import (SolveResult, value_iteration_finite,
                       value_iteration_segmented)
 from ..grids import Grid, linspace_axis
-from ..ops.backup6d import Backup6D
-from ..ops.interp import (affine_axes, build_plan, interp_apply,
-                          nearest_cell_index)
+from ..ops.backup6d import (Backup6D, LaneRecompute, RecomputePlan,
+                            plan_is_flat)
+from ..ops.interp import (InterpPlan, PlanShape, affine_axes, axis_locate,
+                          build_plan, interp_apply, nearest_cell_index)
+from ..ops.kernelmath import quat_step_readback
 from ..profiling import SweepTimer, sweep_callback
 from ..utils.device import resolve_device
 from ..utils.frames import cross, matvec
@@ -53,6 +64,7 @@ __all__ = [
     "FullSolution",
     "decode_torque_digits",
     "build_full",
+    "plan_is_flat",
     "solve_full",
     "attitude_rates_kirk",
     "euler_from_kirk_quat",
@@ -60,7 +72,17 @@ __all__ = [
 ]
 
 IMPLS = ("auto", "kernel", "plain", "gather")
+LANE_MODES = ("auto", "plan", "recompute")
 _DEG = np.pi / 180.0
+
+# the envelope path's auto rules, by cell count (ocdp_tpu/models/
+# attitude.py:379-400, 867-884): past FLAT_MIN_CELLS a flat plan, the
+# engines' carry mode and a uint8 argmin; past RECOMPUTE_MIN_CELLS the
+# Euler lanes recomputed in the kernel; a flat stored plan past
+# CHUNKED_MIN_CELLS built in row blocks
+FLAT_MIN_CELLS = 8_000_000
+RECOMPUTE_MIN_CELLS = 60_000_000
+CHUNKED_MIN_CELLS = 60_000_000
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,9 +172,21 @@ class FullSolution(NamedTuple):
     result: SolveResult
 
     @property
-    def u_tables(self) -> torch.Tensor:
-        """(3, *state_shape) optimal torque per axis from the flat argmin,
-        on the solution's device."""
+    def is_flat(self) -> bool:
+        """True when the result tables are in the flat ``(NW, NE)`` layout
+        (envelope solves: flat plan and carry mode)."""
+        return self.result.argmin.ndim != self.grid.ndim
+
+    @property
+    def u_tables(self):
+        """(3, *state_shape) optimal torque per axis from the flat argmin:
+        on the solution's device, or, for a flat solution, as host numpy
+        (three float32 tables are 12 B/cell; :func:`rollout_full` reads a
+        flat argmin directly)."""
+        if self.is_flat:
+            return np.stack(decode_torque_digits(
+                self.argmin_6d().astype(np.int64),
+                np.asarray(self.config.u_vector)))
         a = self.result.argmin.reshape(self.grid.shape).long()
         u = torch.as_tensor(self.config.u_vector, device=a.device)
         return torch.stack(decode_torque_digits(a, u))
@@ -166,19 +200,37 @@ class FullSolution(NamedTuple):
         return self.result.argmin.cpu().numpy().reshape(self.grid.shape)
 
 
-def build_full(cfg: AttitudeConfig, *, edge: str = "extrapolate",
+def build_full(cfg: AttitudeConfig, *, flat: Optional[bool] = None,
+               edge: str = "extrapolate", chunked: Optional[bool] = None,
+               block_rows: Optional[int] = None, lane_mode: str = "auto",
                device="cuda"):
     """6-D grid, Euler-step next states and factorized quaternion cost
-    (:261-506), on ``device``. Returns ``(grid, plan, cost_terms)``: the plan
-    in the broadcast layout, queries ``(*state_shape, 27)`` for the omega
-    axes and ``(*state_shape, 1)`` for the Euler axes, and the stage cost as
-    its row, lane and action terms.
+    (:261-506), on ``device``. Returns ``(grid, plan, cost_terms)``.
+
+    The plan's layout:
+
+    * broadcast (``flat=False``): queries ``(*state_shape, 27)`` for the
+      omega axes and ``(*state_shape, 1)`` for the Euler axes, the cost as
+      its row, lane and action terms;
+    * flat (``flat=True``; auto past ``FLAT_MIN_CELLS`` cells):
+      ``(NW, 1, 27)`` omega and ``(NW, NE, 1)`` Euler arrays, costs
+      ``(NW, 1, 1)``, ``(1, NE, 1)``, ``(1, 1, 27)``; ``chunked`` (auto on
+      a flat stored plan past ``CHUNKED_MIN_CELLS``) fills the Euler arrays
+      in row blocks of ``block_rows`` rows, bitwise the one-shot build;
+    * ``lane_mode='recompute'`` (auto past ``RECOMPUTE_MIN_CELLS``): a
+      :class:`~ocdp_tpu_torch.ops.backup6d.RecomputePlan`, flat omega
+      arrays and the Euler lanes' generators; ``'plan'`` stores them.
 
     ``edge``: 'extrapolate' (strict reference parity, the default) or
     'clamp' (boundary projection); see
     :func:`~ocdp_tpu_torch.ops.interp.build_plan`.
     """
     device = resolve_device(device)
+    if edge not in ("extrapolate", "clamp"):
+        raise ValueError(f"unknown edge policy {edge!r}")
+    if lane_mode not in LANE_MODES:
+        raise ValueError(f"unknown lane_mode {lane_mode!r}; use one of "
+                         f"{LANE_MODES}")
     s_w = linspace_axis(cfg.w_min_deg * _DEG, cfg.w_max_deg * _DEG,
                         cfg.n_mesh_w)
     (y_lo, y_hi), (p_lo, p_hi), (r_lo, r_hi) = cfg.euler_ranges
@@ -186,14 +238,35 @@ def build_full(cfg: AttitudeConfig, *, edge: str = "extrapolate",
     s_pitch = linspace_axis(p_lo, p_hi, cfg.n_mesh_q)
     s_roll = linspace_axis(r_lo, r_hi, cfg.n_mesh_q)
     grid = Grid((s_w, s_w, s_w, s_yaw, s_pitch, s_roll))
-    plan, cost_terms = _plan_and_cost(cfg, grid, s_w, s_yaw, s_pitch, s_roll,
-                                      edge=edge, device=device)
+    cells = int(np.prod(grid.shape))
+    if lane_mode == "auto":
+        lane_mode = "recompute" if cells > RECOMPUTE_MIN_CELLS else "plan"
+    if lane_mode == "recompute":
+        if flat is False:
+            raise ValueError("lane_mode='recompute' builds a flat plan")
+        plan, cost_terms = _plan_and_cost_flat_recompute(
+            cfg, grid, edge=edge, device=device)
+        return grid, plan, cost_terms
+    if flat is None:
+        flat = cells > FLAT_MIN_CELLS
+    if chunked is None:
+        chunked = flat and cells > CHUNKED_MIN_CELLS
+    if chunked:
+        if not flat:
+            raise ValueError("the chunked build makes the flat layout")
+        plan, cost_terms = _plan_and_cost_flat_chunked(
+            cfg, grid, edge=edge, block_rows=block_rows, device=device)
+    else:
+        plan, cost_terms = _plan_and_cost(cfg, grid, s_w, s_yaw, s_pitch,
+                                          s_roll, edge=edge, device=device,
+                                          flat=flat)
     return grid, plan, cost_terms
 
 
 def _kirk_q_from_half_angles(cy, sy, cp, sp, cr, sr):
     """kirk-q components from Euler half-angle cos/sin (:449-467);
-    broadcast-shaped."""
+    broadcast-shaped. Shared by every plan build: the chunked build's bit
+    identity with the one-shot build rests on it."""
     q1 = sy * cp * cr - cy * sp * sr
     q2 = cy * sp * cr + sy * cp * sr
     q3 = cy * cp * sr - sy * sp * cr
@@ -218,25 +291,21 @@ def _omega_euler_step(cfg, w1, w2, w3, u1, u2, u3):
 
 def _quat_step_readback(cfg, q, w1, w2, w3):
     """Euler-step kirk-q kinematics (:525-556), renormalize (:477-483),
-    Euler-angle readback (:485-489); broadcast-shaped."""
-    q1, q2, q3, q4 = q
-    h = cfg.h
-    q1n = q1 + h * 0.5 * (w3 * q2 - w2 * q3 + w1 * q4)
-    q2n = q2 + h * 0.5 * (-w3 * q1 + w1 * q3 + w2 * q4)
-    q3n = q3 + h * 0.5 * (w2 * q1 - w1 * q2 + w3 * q4)
-    q4n = q4 + h * 0.5 * (-w1 * q1 - w2 * q2 - w3 * q3)
-    norm = torch.sqrt(q1n**2 + q2n**2 + q3n**2 + q4n**2)
-    q1n, q2n, q3n, q4n = q1n / norm, q2n / norm, q3n / norm, q4n / norm
-    yaw_n = torch.atan2(2 * (q3n * q2n + q4n * q1n),
-                        q4n**2 + q3n**2 - q2n**2 - q1n**2)
-    pitch_n = torch.asin(torch.clamp(-2 * (q3n * q1n - q4n * q2n), -1.0, 1.0))
-    roll_n = torch.atan2(2 * (q2n * q1n + q4n * q3n),
-                         q4n**2 - q3n**2 - q2n**2 + q1n**2)
-    return yaw_n, pitch_n, roll_n
+    Euler-angle readback (:485-489) with ``torch.atan2``/``torch.asin``;
+    broadcast-shaped (:func:`~ocdp_tpu_torch.ops.kernelmath.
+    quat_step_readback`)."""
+    return quat_step_readback(cfg.h, q, w1, w2, w3)
+
+
+def _half_angles(s, shape, device):
+    """cos and sin of half the angles of axis ``s`` (float32 numpy, as the
+    one-shot build computes them), as tensors of ``shape``."""
+    return (torch.as_tensor(np.cos(s / 2), device=device).reshape(shape),
+            torch.as_tensor(np.sin(s / 2), device=device).reshape(shape))
 
 
 def _plan_and_cost(cfg: AttitudeConfig, grid, s_w, s_yaw, s_pitch, s_roll,
-                   *, edge, device):
+                   *, edge, device, flat: bool = False):
     nu = len(cfg.u_vector)
 
     # broadcast layout: (w1, w2, w3, yaw, pitch, roll, u1, u2, u3)
@@ -246,9 +315,9 @@ def _plan_and_cost(cfg: AttitudeConfig, grid, s_w, s_yaw, s_pitch, s_roll,
         return torch.as_tensor(np.asarray(arr), device=device).reshape(sh)
 
     w1, w2, w3 = (bshape(s_w, i) for i in range(3))
-    cy, sy = bshape(np.cos(s_yaw / 2), 3), bshape(np.sin(s_yaw / 2), 3)
-    cp, sp = bshape(np.cos(s_pitch / 2), 4), bshape(np.sin(s_pitch / 2), 4)
-    cr, sr = bshape(np.cos(s_roll / 2), 5), bshape(np.sin(s_roll / 2), 5)
+    cy, sy = _half_angles(s_yaw, (1, 1, 1, -1, 1, 1, 1, 1, 1), device)
+    cp, sp = _half_angles(s_pitch, (1, 1, 1, 1, -1, 1, 1, 1, 1), device)
+    cr, sr = _half_angles(s_roll, (1, 1, 1, 1, 1, -1, 1, 1, 1), device)
     u1, u2, u3 = (bshape(cfg.u_vector, 6 + i) for i in range(3))
 
     q1, q2, q3, q4 = _kirk_q_from_half_angles(cy, sy, cp, sp, cr, sr)
@@ -264,6 +333,29 @@ def _plan_and_cost(cfg: AttitudeConfig, grid, s_w, s_yaw, s_pitch, s_roll,
         cfg.R[0] * u1**2 + cfg.R[1] * u2**2 + cfg.R[2] * u3**2,
     )
 
+    if flat:
+        # (rows, lanes, actions): rows the flat omega cells, lanes the flat
+        # Euler cells, actions the flat C-order torque index
+        nmw, nmq = cfg.n_mesh_w, cfg.n_mesh_q
+        nw, ne, n_act = nmw**3, nmq**3, nu**3
+
+        def flat_shape(arr, full, out):
+            return arr.expand(full).reshape(out)
+
+        w_full, e_full = (nmw,) * 3 + (1,) * 3 + (nu,) * 3, \
+            (nmw,) * 3 + (nmq,) * 3 + (1,) * 3
+        queries = tuple(flat_shape(q, w_full, (nw, 1, n_act))
+                        for q in (w1n, w2n, w3n)) + \
+            tuple(flat_shape(q, e_full, (nw, ne, 1))
+                  for q in (yaw_n, pitch_n, roll_n))
+        plan = build_plan(grid.axes, queries, edge=edge)
+        cost_flat = (
+            flat_shape(cost_terms[0], (nmw,) * 3 + (1,) * 6, (nw, 1, 1)),
+            flat_shape(cost_terms[1], (1,) * 3 + (nmq,) * 3 + (1,) * 3,
+                       (1, ne, 1)),
+            flat_shape(cost_terms[2], (1,) * 6 + (nu,) * 3, (1, 1, n_act)))
+        return plan, cost_flat
+
     def flat_actions(arr):
         """The 3 trailing action axes as one (C order: u1 slowest, u3
         fastest, the reference's chained-min order)."""
@@ -278,6 +370,129 @@ def _plan_and_cost(cfg: AttitudeConfig, grid, s_w, s_yaw, s_pitch, s_roll,
     return plan, tuple(flat_actions(t) for t in cost_terms)
 
 
+class _FlatParts(NamedTuple):
+    """What the chunked and the recompute builds share: the omega next
+    states ``(NW, 1, A)``, the lanes' kirk-q ``(NE,)``, the rows' omegas
+    ``(NW,)`` and the flat cost terms."""
+
+    w_next: tuple
+    q_lane: tuple
+    w_rows: tuple
+    cost: tuple
+
+
+def _flat_parts(cfg: AttitudeConfig, grid, device) -> _FlatParts:
+    """The small pieces of a flat plan (``ocdp_tpu/models/attitude.py:
+    603-634, 733-780``), with the one-shot build's arithmetic."""
+    s_w, s_yaw, s_pitch, s_roll = (grid.axes[k] for k in (0, 3, 4, 5))
+    nu = len(cfg.u_vector)
+    nmw = cfg.n_mesh_w
+    nw, ne, n_act = nmw**3, cfg.n_mesh_q**3, nu**3
+
+    def axis6(arr, axis):
+        sh = [1] * 6
+        sh[axis] = -1
+        return torch.as_tensor(np.asarray(arr), device=device).reshape(sh)
+
+    w1, w2, w3 = (axis6(s_w, i) for i in range(3))
+    u1, u2, u3 = (axis6(cfg.u_vector, 3 + i) for i in range(3))
+    w_next = tuple(q.expand((nmw,) * 3 + (nu,) * 3).reshape(nw, 1, n_act)
+                   for q in _omega_euler_step(cfg, w1, w2, w3, u1, u2, u3))
+    cy, sy = _half_angles(s_yaw, (-1, 1, 1), device)
+    cp, sp = _half_angles(s_pitch, (1, -1, 1), device)
+    cr, sr = _half_angles(s_roll, (1, 1, -1), device)
+    q1, q2, q3, q4 = (q.reshape(ne) for q in
+                      _kirk_q_from_half_angles(cy, sy, cp, sp, cr, sr))
+    sw = torch.as_tensor(np.asarray(s_w, np.float32), device=device)
+    rows = torch.arange(nw, device=device)
+    w_rows = (sw[rows // (nmw * nmw)], sw[(rows // nmw) % nmw],
+              sw[rows % nmw])
+    c_row = cfg.Qw[0] * w1**2 + cfg.Qw[1] * w2**2 + cfg.Qw[2] * w3**2
+    c_lane = cfg.Qq[0] * q1**2 + cfg.Qq[1] * q2**2 + cfg.Qq[2] * q3**2
+    c_act = cfg.R[0] * u1**2 + cfg.R[1] * u2**2 + cfg.R[2] * u3**2
+    cost = (c_row.expand((nmw,) * 3 + (1,) * 3).reshape(nw, 1, 1),
+            c_lane.reshape(1, ne, 1),
+            c_act.expand((1,) * 3 + (nu,) * 3).reshape(1, 1, n_act))
+    return _FlatParts(w_next, (q1, q2, q3, q4), w_rows, cost)
+
+
+def _row_plan_arrays(grid, w_next, edge):
+    """Locate the omega next states on the omega axes: the row axes' flat
+    ``(NW, 1, A)`` lo/frac arrays."""
+    los, frs = [], []
+    for k, wn in enumerate(w_next):
+        lo, fr = axis_locate(grid.axes[k], wn)
+        if edge == "clamp":
+            fr = fr.clamp(0.0, 1.0)
+        los.append(lo)
+        frs.append(fr)
+    return los, frs
+
+
+def _plan_and_cost_flat_chunked(cfg: AttitudeConfig, grid, *, edge,
+                                block_rows: Optional[int], device):
+    """Flat stored plan built in row blocks (``ocdp_tpu/models/
+    attitude.py:574-702``): the Euler lo/frac arrays are allocated once in
+    their final ``(NW, NE, 1)`` shape and filled ``block_rows`` rows at a
+    time (default: a multiple of n_mesh_w^2 rows with about 0.5 GB of
+    transients), the last block overlapping backward (an idempotent
+    rewrite) when it does not divide NW. The arithmetic is the one-shot
+    flat build's, op by op, so the two are equal bitwise."""
+    parts = _flat_parts(cfg, grid, device)
+    nmw = cfg.n_mesh_w
+    nw, ne = nmw**3, cfg.n_mesh_q**3
+    if block_rows is None:
+        per_row = ne * 4 * 12
+        g = max(1, min(nmw, int(500e6 / (nmw**2 * per_row)) or 1))
+        block_rows = g * nmw**2
+    rows = min(int(block_rows), nw)
+    r0s = list(range(0, nw - rows + 1, rows))
+    if r0s[-1] + rows < nw:
+        r0s.append(nw - rows)           # overlapping idempotent tail block
+    lo_bufs = [torch.empty((nw, ne, 1), dtype=torch.int32, device=device)
+               for _ in range(3)]
+    fr_bufs = [torch.empty((nw, ne, 1), dtype=torch.float32, device=device)
+               for _ in range(3)]
+    q = tuple(x[None, :] for x in parts.q_lane)
+    for r0 in r0s:
+        w = [x[r0:r0 + rows, None] for x in parts.w_rows]
+        for k, coord in enumerate(_quat_step_readback(cfg, q, *w)):
+            lo, fr = axis_locate(grid.axes[3 + k], coord)
+            if edge == "clamp":
+                fr = fr.clamp(0.0, 1.0)
+            lo_bufs[k][r0:r0 + rows, :, 0] = lo
+            fr_bufs[k][r0:r0 + rows, :, 0] = fr
+    los, frs = _row_plan_arrays(grid, parts.w_next, edge)
+    plan = InterpPlan(tuple(los + lo_bufs), tuple(frs + fr_bufs),
+                      tuple(grid.shape))
+    return plan, parts.cost
+
+
+def _plan_and_cost_flat_recompute(cfg: AttitudeConfig, grid, *, edge,
+                                  device):
+    """The envelope plan with the Euler lanes as generators
+    (``ocdp_tpu/models/attitude.py:705-791``): the rows' omegas (12 B/row)
+    and the lanes' kirk-q (16 B/lane) in a
+    :class:`~ocdp_tpu_torch.ops.backup6d.LaneRecompute`, which the B.5
+    kernel turns into each cell's (lo, frac) with the kernelmath trig and
+    the affine locate. Values agree with the stored plan to float32
+    transcendental tolerance, not bitwise."""
+    parts = _flat_parts(cfg, grid, device)
+    axes = [grid.axes[k] for k in (3, 4, 5)]
+    starts = [float(np.float32(a[0])) for a in axes]
+    # the JAX package's float32 spacing, then 1/step rounded to float32
+    steps = [float(np.float32(np.float32(a[-1]) - np.float32(a[0]))
+                   / np.float32(len(a) - 1)) for a in axes]
+    spec = LaneRecompute(
+        h=cfg.h, row_feats=parts.w_rows, lane_feats=parts.q_lane,
+        axis_starts=tuple(starts),
+        axis_inv_steps=tuple(float(np.float32(1.0 / s)) for s in steps),
+        axis_sizes=tuple(len(a) for a in axes), edge=edge)
+    los, frs = _row_plan_arrays(grid, parts.w_next, edge)
+    plan = RecomputePlan(tuple(los), tuple(frs), spec, tuple(grid.shape))
+    return plan, parts.cost
+
+
 def solve_full(
     cfg: AttitudeConfig,
     *,
@@ -285,6 +500,9 @@ def solve_full(
     num_sweeps: Optional[int] = None,
     impl: str = "auto",
     edge: str = "extrapolate",
+    lane_mode: str = "auto",
+    flat: Optional[bool] = None,
+    carry_padded: Optional[bool] = None,
     verbose: bool = False,
     segment_size: Optional[int] = None,
     checkpoint_path: Optional[str] = None,
@@ -298,40 +516,62 @@ def solve_full(
     unless the caller asks for ``"cpu"``; raises without a card.
     ``num_sweeps`` defaults to the reference's ``n_stage - 1``.
 
-    ``impl``: ``'kernel'`` (the 6-D CUDA kernel through
-    :class:`~ocdp_tpu_torch.ops.backup6d.Backup6D`; CUDA devices only),
-    ``'plain'`` (its plain PyTorch version, any device), ``'gather'`` (the
-    gather oracle over the cost terms), or ``'auto'``: the kernel on a CUDA
-    device, the plain version on the CPU.
+    ``impl``: ``'auto'`` (the 6-D backup of
+    :class:`~ocdp_tpu_torch.ops.backup6d.Backup6D`: its CUDA kernel on a
+    CUDA device, its plain version on the CPU), ``'kernel'`` (the same, CUDA
+    devices only), ``'plain'`` (the plain version through the allocating
+    engine path, any device) or ``'gather'`` (the gather oracle over the
+    cost terms; broadcast plans only).
+
+    The envelope path (:func:`build_full`'s ``flat`` and ``lane_mode``):
+    past ``FLAT_MIN_CELLS`` cells the plan is flat, the backup's argmin
+    uint8 and the engines run in carry mode (``carry_padded``, default on
+    there), so the result tables stay flat ``(NW, NE)``
+    (:attr:`FullSolution.is_flat`; :meth:`FullSolution.values_6d` and
+    :meth:`FullSolution.argmin_6d` give host 6-D views). A flat plan's
+    arrays go to the backup, and the engines see only its shape.
 
     ``segment_size``: run through
     :func:`~ocdp_tpu_torch.engine.value_iteration_segmented`, with a
-    checkpoint per segment at ``checkpoint_path``, resume from
+    checkpoint per segment at ``checkpoint_path`` (a flat solve's holds the
+    flat table and the 1-D axes), resume from
     ``init_values``/``start_sweep``/``prev_f`` (what
     :func:`~ocdp_tpu_torch.io.load_values` returns), and the converged
     engine's stop rule with ``check_every=segment_size`` when ``tol`` is
-    given. ``verbose`` prints the reference's per-stage timing lines, per
-    sweep, or per segment when segmented.
+    given; a flat solve's argmin stays uint8. ``verbose`` prints the
+    reference's per-stage timing lines, per sweep, or per segment when
+    segmented.
     """
     device = resolve_device(device)
     if impl not in IMPLS:
         raise ValueError(f"unknown impl {impl!r}; use one of {IMPLS}")
-    if impl == "auto":
-        impl = "kernel" if device.type == "cuda" else "plain"
     if impl == "kernel" and device.type != "cuda":
         raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
-    grid, plan, cost = build_full(cfg, edge=edge, device=device)
+    grid, plan, cost = build_full(cfg, flat=flat, edge=edge,
+                                  lane_mode=lane_mode, device=device)
+    flat_solve = plan_is_flat(plan)
+    if flat_solve and impl == "gather":
+        raise ValueError("flat plans are consumed by the 6-D backup only; "
+                         "use impl='auto', 'kernel' or 'plain'")
     sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
+    big = int(np.prod(grid.shape)) > FLAT_MIN_CELLS
     backup = None
     if impl != "gather":
-        bk = Backup6D(plan, cost)
-        backup = bk if impl == "kernel" else bk.plain
+        bk = Backup6D(plan, cost,
+                      argmin_dtype=torch.uint8 if big else torch.int32,
+                      carry_padded=big if carry_padded is None
+                      else carry_padded,
+                      consume_plan=flat_solve)
+        backup = bk.plain if impl == "plain" else bk
+    if flat_solve:
+        # the backup holds what it needs of the plan: drop the rest
+        plan, cost = PlanShape.of(plan), None
     if segment_size is not None:
         res = value_iteration_segmented(
             plan, cost, sweeps, segment_size=segment_size, backup=backup,
             checkpoint_path=checkpoint_path, checkpoint_axes=grid.axes,
             init_values=init_values, start_sweep=start_sweep, prev_f=prev_f,
-            tol=tol, tol_mode=tol_mode,
+            tol=tol, tol_mode=tol_mode, narrow_argmin_result=flat_solve,
             on_segment=SweepTimer(verbose=True).on_segment if verbose
             else None)
         return FullSolution(cfg, grid, res)
@@ -383,26 +623,48 @@ def rollout_full(sol: FullSolution, x0=None, *, method: str = "nearest",
     the lower-snap midpoint rule) or multilinear (``'interp'``) — then one
     Euler step of the rates and a quaternion renormalization.
 
+    A flat solution (:attr:`FullSolution.is_flat`) flies without torque
+    tables (``ocdp_tpu/models/attitude.py:993-1014``): the affine nearest
+    locate, the row and lane index composed from its digits, one scalar
+    gather from the flat argmin, then the torque decode; ``'nearest'``
+    only.
+
     Returns (X, U, ANGLES): states (N, 7), torques (N-1, 3), Euler angles
     (N-1, 3).
     """
     if method not in ("nearest", "interp"):
         raise ValueError(f"unknown method {method!r}; use 'nearest' or "
                          "'interp'")
+    if sol.is_flat and method != "nearest":
+        raise ValueError("flat-layout solutions support method='nearest' "
+                         "only (6-D torque tables would have to be built)")
     cfg = sol.config
     n = num_stages or cfg.n_stage
     axes = sol.grid.axes
-    tables = sol.u_tables                                  # (3, *shape)
-    dev = tables.device
+    dev = sol.result.argmin.device
 
     def mat(a):
         return torch.tensor(np.asarray(a, np.float32), device=dev)
 
     inertia = mat(np.diag(cfg.inertia_diag))
     inertia_inv = mat(np.diag(1.0 / np.asarray(cfg.inertia_diag)))
-    if method == "nearest":
+    shape = sol.grid.shape
+    if sol.is_flat:
         aff = affine_axes(axes, device=dev)
-        shape = sol.grid.shape
+        argmin = sol.result.argmin
+        u = torch.as_tensor(cfg.u_vector, device=dev)
+        row_mul = torch.tensor([shape[1] * shape[2], shape[2], 1, 0, 0, 0],
+                               dtype=torch.int64, device=dev)
+        lane_mul = torch.tensor([0, 0, 0, shape[4] * shape[5], shape[5], 1],
+                                dtype=torch.int64, device=dev)
+
+        def lookup(pt):
+            idx = nearest_cell_index(aff, pt).long()
+            a = argmin[(idx * row_mul).sum(), (idx * lane_mul).sum()].long()
+            return torch.stack(decode_torque_digits(a, u))
+    elif method == "nearest":
+        tables = sol.u_tables                              # (3, *shape)
+        aff = affine_axes(axes, device=dev)
         strides = torch.tensor([int(np.prod(shape[k + 1:]))
                                 for k in range(len(shape))],
                                dtype=torch.int64, device=dev)
@@ -412,6 +674,8 @@ def rollout_full(sol: FullSolution, x0=None, *, method: str = "nearest",
             idx = nearest_cell_index(aff, pt)
             return flat[:, (idx.long() * strides).sum()]
     else:
+        tables = sol.u_tables
+
         def lookup(pt):
             plan = build_plan(axes, pt.unbind(0))
             return torch.stack([interp_apply(tables[i], plan)

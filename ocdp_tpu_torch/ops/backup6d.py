@@ -1,11 +1,21 @@
 """6-D coupled-lane Bellman backup: the CUDA kernel, its plain version, its
-wrapper.
+wrapper, in three modes.
 
 Replaces the TPU kernel ``ocdp_tpu/ops/pallas_backup6.py::PallasBackup6D``
-in its coupled-lane mode on non-flat plans (``_kernel``'s joint lane-combo
-branch, then ``_action_phase_factorized`` or ``_action_phase_generic``), on
-the full 6-D attitude path. The kernel source, with the note on its
-arithmetic, tie order and what bounds it, is ``csrc/backup6d.cu``.
+in its coupled-lane mode (``_kernel``'s joint lane-combo branch, then
+``_action_phase_factorized`` or ``_action_phase_generic``) on the full 6-D
+attitude path:
+
+* B.3, non-flat plans (the broadcast layout): :func:`backup6d_cuda`;
+* B.4, flat plans and the envelope modes (``(NW, 1, A)`` row and
+  ``(NW, NE, 1)`` lane plan arrays, uint8 or int32 argmin, min-only sweeps,
+  sweeps into buffers the engine allocated once): :func:`backup6d_flat_cuda`;
+* B.5, lane recompute (:class:`RecomputePlan`: no lane plan exists; the
+  kernel regenerates each cell's Euler (lo, frac) from per-row omegas and
+  per-lane kirk-q components): :func:`backup6d_recompute_cuda`.
+
+The kernel source, with the note on its arithmetic, tie order and what
+bounds it, is ``csrc/backup6d.cu``.
 
 The state axes split into 3 ROW axes, whose next states depend on the action
 (attitude: omega1..3), and 3 LANE axes, whose next states do not but may
@@ -23,25 +33,31 @@ matrix, and one sweep is, per cell (row r, lane c):
    digit k of the C-order action index (``action_digits``; the attitude
    torques), else per action over every row combo; then ``+ c_act[a]``
    where it is not 0 and ``+ c_rowact[r, a]``, with the strict-``<`` first
-   minimum from action 0;
+   minimum from action 0 (a min-only sweep keeps the same running minimum
+   and an all-zero argmin);
 4. ``best + c_row[r] + c_lane[c] (+ c_rowlane[r, c])``.
 
 A read that leaves the table (a row outside ``[0, NW)`` or a lane outside
 ``[0, NE)``) reads 0.0 and always carries an exactly zero weight; it is
 summed all the same.
 
-* :func:`backup6d_cuda` launches the kernel; ``backup6d_cuda.launches``
-  counts its launches.
+* ``backup6d_cuda``, ``backup6d_flat_cuda`` and ``backup6d_recompute_cuda``
+  launch the kernel; each counts its launches in ``.launches``.
 * :func:`backup6d_plain` is the same function in plain PyTorch on the same
-  inputs, in the same order of operations. On a CUDA device the two agree
+  inputs, in the same order of operations (the recompute through
+  :meth:`LaneRecompute.lane_block`). On a CUDA device the two agree
   bitwise.
-* :class:`Backup6D` analyses a plan once on the host (live taps, action
-  digits, the cost split) and is the engines' ``values -> BackupResult``
-  callable: the kernel on a CUDA tensor, the plain version on a CPU tensor.
+* :class:`Backup6D` analyses a plan once (live taps, action digits, the
+  cost split) and is the engines' ``values -> BackupResult`` callable, with
+  :meth:`Backup6D.sweep_into` for the engines' carry mode: the kernel on a
+  CUDA tensor, the plain version on a CPU tensor. Non-flat plans are
+  analysed on the host, flat and recompute plans where they lie: only bin
+  counts of the lane taps, a few KB, come to the host.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -49,10 +65,13 @@ import torch
 
 from .backup import BackupResult
 from .interp import InterpPlan
-from .rowlane import (_as_numpy, _corner_live_sets, _row_plan, _shift_lanes,
-                      _split_cost, _tap_weight, _upload)
+from .kernelmath import asin_f32, atan2_f32, quat_step_readback
+from .rowlane import (_as_numpy, _corner_live_sets, _decode_live, _row_plan,
+                      _shift_lanes, _split_cost, _tap_weight, _upload)
 
-__all__ = ["Backup6DArgs", "Backup6D", "backup6d_cuda", "backup6d_plain"]
+__all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
+           "affine_locate", "plan_is_flat", "backup6d_cuda",
+           "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain"]
 
 # the kernel's fixed capacities (kMaxTaps, kMaxActions, kMaxDigits in
 # csrc/backup6d.cu): live taps per row or lane axis (so at most 27 row and
@@ -60,6 +79,113 @@ __all__ = ["Backup6DArgs", "Backup6D", "backup6d_cuda", "backup6d_plain"]
 MAX_TAPS = 3
 MAX_ACTIONS = 64
 MAX_DIGITS = 3
+# past this many (row, lane) elements the tap-liveness encode runs over row
+# blocks of about half of it (ocdp_tpu/ops/pallas_backup6.py:320-350)
+_LIVE_BLOCK_ELEMS = 200_000_000
+
+
+def affine_locate(coord: torch.Tensor, start: float, inv_step: float, n: int,
+                  edge: str):
+    """Uniform-axis locate (``pallas_backup6.py:78``): ``t = (coord -
+    start) * inv_step``, ``lo = clip(floor(t), 0, n - 2)``, ``frac = t -
+    lo`` (clipped to [0, 1] under ``edge='clamp'``). ``start`` and
+    ``inv_step`` are float32 values, the ones the kernel is given. Returns
+    ``(lo, frac)``, int32 and float32."""
+    t = (coord - start) * inv_step
+    lo = torch.clamp(torch.floor(t), 0.0, float(n - 2))
+    frac = t - lo
+    if edge == "clamp":
+        frac = torch.clamp(frac, 0.0, 1.0)
+    return lo.to(torch.int32), frac
+
+
+class LaneRecompute(NamedTuple):
+    """Generators of the attitude Euler lanes, in place of a stored lane
+    plan (``pallas_backup6.py:102``; 24 B/cell of plan becomes 12 B/row +
+    16 B/lane).
+
+    ``row_feats``: the rows' omegas ``(w1, w2, w3)``, each ``(NW,)``
+    float32; ``lane_feats``: the lanes' kirk-q components ``(q1, q2, q3,
+    q4)``, each ``(NE,)``; ``h`` the time step. A cell's Euler next state is
+    :func:`~ocdp_tpu_torch.ops.kernelmath.quat_step_readback` with the
+    kernelmath ``atan2_f32``/``asin_f32``, located on each uniform Euler
+    axis by :func:`affine_locate` with ``axis_starts``/``axis_inv_steps``
+    (float32 values, computed once on the host) over ``axis_sizes`` points.
+    The B.5 kernel runs this function op by op.
+    """
+
+    h: float
+    row_feats: tuple
+    lane_feats: tuple
+    axis_starts: tuple
+    axis_inv_steps: tuple
+    axis_sizes: tuple
+    edge: str
+
+    def lane_block(self, r0: int, rows: int):
+        """``(offs, fracs)`` of the three lane axes for rows ``r0 ..
+        r0 + rows``, each ``(rows, NE)``: the located cell minus the lane's
+        own index on the axis (int32), and the frac."""
+        w = [x[r0:r0 + rows, None] for x in self.row_feats]
+        q = [x[None, :] for x in self.lane_feats]
+        coords = quat_step_readback(self.h, q, *w, atan2=atan2_f32,
+                                    asin=asin_f32)
+        own = _lane_own_index(self.axis_sizes, q[0].device)
+        offs, fracs = [], []
+        for k, coord in enumerate(coords):
+            lo, fr = affine_locate(coord, self.axis_starts[k],
+                                   self.axis_inv_steps[k], self.axis_sizes[k],
+                                   self.edge)
+            offs.append(lo - own[k])
+            fracs.append(fr)
+        return offs, fracs
+
+
+def _lane_own_index(sizes, device) -> list:
+    """Each lane axis's own index as a function of the flat lane, (NE,)
+    int32 each."""
+    lane = torch.arange(int(np.prod(sizes)), dtype=torch.int32, device=device)
+    return [(lane // int(np.prod(sizes[k + 1:]))) % sizes[k]
+            for k in range(len(sizes))]
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RecomputePlan:
+    """Flat plan whose lane queries live as a :class:`LaneRecompute` spec
+    (``pallas_backup6.py:158``): ``lo``/``frac`` carry only the 3 row axes,
+    ``(NW, 1, A)`` each; ``spec`` generates the lane axes. Has the
+    ``InterpPlan`` surface the engines read."""
+
+    lo: tuple
+    frac: tuple
+    spec: LaneRecompute
+    grid_shape: tuple
+
+    def __post_init__(self):
+        if len(self.lo) != 3 or len(self.frac) != 3 or \
+                len(self.spec.axis_sizes) != len(self.grid_shape) - 3:
+            raise ValueError("a RecomputePlan carries the 3 row axes of a "
+                             "6-D grid and a spec of its 3 lane axes")
+
+    @property
+    def ndim(self) -> int:
+        return len(self.grid_shape)
+
+    @property
+    def query_shape(self) -> tuple:
+        nw = int(np.prod(self.grid_shape[:3]))
+        ne = int(np.prod(self.grid_shape[3:]))
+        return (nw, ne, self.lo[0].shape[-1])
+
+    @property
+    def device(self) -> torch.device:
+        return self.lo[0].device
+
+
+def plan_is_flat(plan) -> bool:
+    """True for plans in the flat (rows, lanes, actions) layout (and
+    :class:`RecomputePlan`s) rather than the d-D broadcast layout."""
+    return len(plan.query_shape) != plan.ndim + 1
 
 
 class Backup6DArgs(NamedTuple):
@@ -73,7 +199,10 @@ class Backup6DArgs(NamedTuple):
     structure; ``action_digits`` the digit base m when the actions factor
     as ``A = m**3`` digit by digit, else None. Costs: ``c_row`` (NW,),
     ``c_lane`` (NE,), ``c_act`` (host floats, one per action), optional
-    ``c_rowact`` (NW, A) and ``c_rowlane`` (NW, NE).
+    ``c_rowact`` (NW, A) and ``c_rowlane`` (NW, NE). ``argmin_dtype``:
+    torch.int32 or torch.uint8; ``track_argmin`` False: a min-only sweep.
+    ``lanes``: a :class:`LaneRecompute` (then ``lane_off``/``lane_frac``
+    are empty), else None.
     """
 
     row_shape: tuple
@@ -91,6 +220,9 @@ class Backup6DArgs(NamedTuple):
     c_act: tuple
     c_rowact: Optional[torch.Tensor]
     c_rowlane: Optional[torch.Tensor]
+    argmin_dtype: torch.dtype = torch.int32
+    track_argmin: bool = True
+    lanes: Optional[LaneRecompute] = None
 
     @property
     def n_actions(self) -> int:
@@ -199,9 +331,14 @@ def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     """The kernel's function in plain PyTorch, on the kernel's inputs.
 
     ``values``: the ``(NW, NE)`` table. Every product and sum is one
-    separately rounded PyTorch op, in the kernel's order.
+    separately rounded PyTorch op, in the kernel's order. With
+    ``args.lanes`` the lane (off, frac) are recomputed first
+    (:meth:`LaneRecompute.lane_block`), as the B.5 kernel does per cell.
     """
     nw, ne = values.shape
+    if args.lanes is not None:
+        offs, fracs = args.lanes.lane_block(0, nw)
+        args = args._replace(lane_off=tuple(offs), lane_frac=tuple(fracs))
     A = _lane_phase(values, args)
     ww = [{t: _tap_weight(args.row_off[k], args.row_frac[k], t)
            for t in args.w_taps[k]} for k in range(3)]
@@ -217,13 +354,17 @@ def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
             best = tot
             arg = torch.zeros((nw, ne), dtype=torch.int32,
                               device=values.device)
+        elif not args.track_argmin:
+            # min-only: the same where-min, not torch.minimum (which would
+            # let a NaN win)
+            best = torch.where(tot < best, tot, best)
         else:
             better = tot < best            # strict: the first minimum wins
             best = torch.where(better, tot, best)
             arg = torch.where(better, a, arg)
     out = best + args.c_row[:, None] + args.c_lane[None, :]
     out = out + (args.c_rowlane if args.c_rowlane is not None else 0.0)
-    return BackupResult(out, arg)
+    return BackupResult(out, arg.to(args.argmin_dtype))
 
 
 def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
@@ -236,10 +377,17 @@ def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
             "row_frac": ((3, nw, n_act), torch.float32, args.row_frac),
             "c_row": ((nw,), torch.float32, args.c_row),
             "c_lane": ((ne,), torch.float32, args.c_lane)}
-    for k in range(3):
-        want[f"lane_off[{k}]"] = ((nw, ne), torch.int32, args.lane_off[k])
-        want[f"lane_frac[{k}]"] = ((nw, ne), torch.float32,
-                                   args.lane_frac[k])
+    if args.lanes is None:
+        for k in range(3):
+            want[f"lane_off[{k}]"] = ((nw, ne), torch.int32,
+                                      args.lane_off[k])
+            want[f"lane_frac[{k}]"] = ((nw, ne), torch.float32,
+                                       args.lane_frac[k])
+    else:
+        for k, t in enumerate(args.lanes.row_feats):
+            want[f"lanes.row_feats[{k}]"] = ((nw,), torch.float32, t)
+        for k, t in enumerate(args.lanes.lane_feats):
+            want[f"lanes.lane_feats[{k}]"] = ((ne,), torch.float32, t)
     if args.c_rowact is not None:
         want["c_rowact"] = ((nw, n_act), torch.float32, args.c_rowact)
     if args.c_rowlane is not None:
@@ -255,49 +403,168 @@ def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
-    """Launch the CUDA kernel for one sweep of the ``(NW, NE)`` table on
-    PyTorch's current stream. Raises on inputs it does not take and on a
-    launch the device refuses. The tap structure must fit the kernel's
-    capacities, which :class:`Backup6D` checks when it is built."""
-    from .. import _build
-
-    _check_cuda_inputs(values, args)
-    lib = _build.load()
+def _outputs(values, args: Backup6DArgs, out_v, out_a):
+    """The sweep's output buffers: new ones, or the caller's, checked."""
     nw, ne = values.shape
-    out_v = torch.empty((nw, ne), dtype=torch.float32, device=values.device)
-    out_a = torch.empty((nw, ne), dtype=torch.int32, device=values.device)
+    if out_v is None:
+        out_v = torch.empty((nw, ne), dtype=torch.float32,
+                            device=values.device)
+    if out_a is None:
+        out_a = torch.empty((nw, ne), dtype=args.argmin_dtype,
+                            device=values.device)
+    for name, t, dtype in (("out_v", out_v, torch.float32),
+                           ("out_a", out_a, args.argmin_dtype)):
+        if tuple(t.shape) != (nw, ne) or t.dtype != dtype or \
+                t.device != values.device or not t.is_contiguous():
+            raise ValueError(f"{name}: want a contiguous {dtype} {(nw, ne)} "
+                             f"tensor on {values.device}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
+    if out_v.data_ptr() == values.data_ptr():
+        raise ValueError("out_v must not be the input table (a sweep reads "
+                         "every row window of it)")
+    return out_v, out_a
+
+
+def _tap_arrays(args: Backup6DArgs):
+    """The host arrays of the tap structure the C entries take."""
     w_taps = np.zeros((3, MAX_TAPS), np.int32)
     n_taps = np.zeros(3, np.int32)
     for k, taps in enumerate(args.w_taps):
         w_taps[k, :len(taps)] = taps
         n_taps[k] = len(taps)
-    row_combos = np.ascontiguousarray(args.row_combos, dtype=np.int32)
-    lane_combos = np.ascontiguousarray(args.lane_combos, dtype=np.int32)
-    c_act = np.ascontiguousarray(args.c_act, dtype=np.float32)
+    return (w_taps, n_taps,
+            np.ascontiguousarray(args.row_combos, dtype=np.int32),
+            np.ascontiguousarray(args.lane_combos, dtype=np.int32),
+            np.ascontiguousarray(args.c_act, dtype=np.float32))
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.backup6d_error_string(err).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
+
+
+def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
+    """Launch the CUDA kernel (B.3) for one sweep of the ``(NW, NE)`` table
+    on PyTorch's current stream, with a new int32 argmin. Raises on inputs
+    it does not take and on a launch the device refuses. The tap structure
+    must fit the kernel's capacities, which :class:`Backup6D` checks when it
+    is built. The envelope modes are :func:`backup6d_flat_cuda` and
+    :func:`backup6d_recompute_cuda`."""
+    from .. import _build
+
+    if args.lanes is not None or args.argmin_dtype != torch.int32 or \
+            not args.track_argmin:
+        raise ValueError("backup6d_cuda runs the int32 tracking sweep of a "
+                         "stored plan; use backup6d_flat_cuda or "
+                         "backup6d_recompute_cuda")
+    _check_cuda_inputs(values, args)
+    lib = _build.load()
+    out_v, out_a = _outputs(values, args, None, None)
+    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.backup6d_f32(
-        ptr(values), ptr(args.row_off), ptr(args.row_frac),
-        *(ptr(t) for pair in zip(args.lane_off, args.lane_frac)
+        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
+        *(_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
           for t in pair),
-        ptr(args.c_row), ptr(args.c_lane), ptr(args.c_rowact),
-        ptr(args.c_rowlane), ptr(out_v), ptr(out_a),
+        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
+        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, stream)
-    if err != 0:
-        msg = lib.backup6d_error_string(err).decode()
-        raise RuntimeError(f"backup6d launch failed: CUDA error {err} ({msg})")
+    _raise_on(lib, err, "backup6d")
     backup6d_cuda.launches += 1
     return BackupResult(out_v, out_a)
 
 
 backup6d_cuda.launches = 0
+
+
+def _mode_ints(args: Backup6DArgs) -> tuple:
+    return (1 if args.argmin_dtype == torch.uint8 else 4,
+            int(bool(args.track_argmin)))
+
+
+def backup6d_flat_cuda(values: torch.Tensor, args: Backup6DArgs,
+                       out_v: Optional[torch.Tensor] = None,
+                       out_a: Optional[torch.Tensor] = None) -> BackupResult:
+    """Launch the kernel in its envelope modes on a stored lane plan (B.4):
+    ``args.argmin_dtype`` int32 or uint8, ``args.track_argmin`` False for a
+    min-only sweep (all-zero argmin). ``out_v``/``out_a``: buffers to write
+    (the engines' carry mode), else new ones. Raises as
+    :func:`backup6d_cuda`."""
+    from .. import _build
+
+    if args.lanes is not None:
+        raise ValueError("a recompute plan runs backup6d_recompute_cuda")
+    _check_cuda_inputs(values, args)
+    lib = _build.load()
+    out_v, out_a = _outputs(values, args, out_v, out_a)
+    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = lib.backup6d_flat_f32(
+        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
+        *(_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
+          for t in pair),
+        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
+        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
+        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
+        lane_combos.ctypes.data, c_act.ctypes.data,
+        *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
+        len(lane_combos), args.action_digits or 0, *_mode_ints(args),
+        stream)
+    _raise_on(lib, err, "backup6d_flat")
+    backup6d_flat_cuda.launches += 1
+    return BackupResult(out_v, out_a)
+
+
+backup6d_flat_cuda.launches = 0
+
+
+def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
+                            out_v: Optional[torch.Tensor] = None,
+                            out_a: Optional[torch.Tensor] = None
+                            ) -> BackupResult:
+    """Launch the kernel with the Euler lanes recomputed per cell from
+    ``args.lanes`` (B.5); the modes and buffers of
+    :func:`backup6d_flat_cuda`."""
+    from .. import _build
+
+    rec = args.lanes
+    if rec is None:
+        raise ValueError("backup6d_recompute_cuda needs args.lanes")
+    if tuple(rec.axis_sizes) != tuple(args.lane_shape):
+        raise ValueError(f"lane axes {rec.axis_sizes} != lane shape "
+                         f"{args.lane_shape}")
+    _check_cuda_inputs(values, args)
+    lib = _build.load()
+    out_v, out_a = _outputs(values, args, out_v, out_a)
+    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
+    consts = np.asarray([*rec.axis_starts, *rec.axis_inv_steps,
+                         rec.h * 0.5], np.float32)
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = lib.backup6d_recompute_f32(
+        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
+        *(_ptr(t) for t in rec.row_feats), *(_ptr(t) for t in rec.lane_feats),
+        consts.ctypes.data,
+        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
+        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
+        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
+        lane_combos.ctypes.data, c_act.ctypes.data,
+        *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
+        len(lane_combos), args.action_digits or 0, *_mode_ints(args),
+        int(rec.edge == "clamp"), stream)
+    _raise_on(lib, err, "backup6d_recompute")
+    backup6d_recompute_cuda.launches += 1
+    return BackupResult(out_v, out_a)
+
+
+backup6d_recompute_cuda.launches = 0
 
 
 def _detect_action_digits(w_off, w_frac, nr: int) -> Optional[int]:
@@ -318,27 +585,176 @@ def _detect_action_digits(w_off, w_frac, nr: int) -> Optional[int]:
     return m
 
 
-class Backup6D:
-    """Callable ``values -> BackupResult`` over one non-flat 6-D plan and
-    stage cost: the first 3 state axes are the rows, the last 3 the lanes.
+def _encode_count(offs, fracs, base, span, both_corners: bool):
+    """Bin counts of the per-element tap encode (``pallas_backup6.py:
+    307-318``): the offsets in mixed radix ``span`` from ``base``, then 2
+    liveness bits per axis (bit 0: the lo corner has weight, bit 1: the hi
+    corner), or both bits set under ``both_corners``."""
+    k = len(offs)
+    enc = None
+    for o, b, s in zip(offs, base, span):
+        t = o.to(torch.int64) - b
+        enc = t if enc is None else enc * s + t
+    if both_corners:
+        enc = (enc << (2 * k)) | ((1 << (2 * k)) - 1)
+    else:
+        for fr in fracs:
+            bits = (fr != 1.0).to(torch.int64) | ((fr != 0.0).to(torch.int64)
+                                                  << 1)
+            enc = (enc << 2) | bits
+    nbins = int(np.prod(span)) << (2 * k)
+    return torch.bincount(enc.reshape(-1), minlength=nbins)
 
-    ``plan``: an :class:`InterpPlan` whose queries broadcast to
-    ``(*state_shape, n_actions)``. ``cost_terms``: broadcast-shaped terms
-    (tensors or arrays) summing to the stage cost, split once into row,
+
+def _encode_layout(mins, maxs, k: int):
+    base = [int(v) for v in mins]
+    span = [int(hi) - b + 1 for hi, b in zip(maxs, base)]
+    bits = int(np.sum(np.ceil(np.log2(np.maximum(span, 2))))) + 2 * k
+    nbins = int(np.prod(span)) << (2 * k)
+    if bits >= 31 or nbins > (1 << 24):
+        raise ValueError(
+            f"lane tap encode needs {bits} bits / {nbins} bins: offsets reach "
+            "too far for the 6-D kernel; use the gather backup")
+    return base, span
+
+
+def _row_blocks(nw: int, ne: int) -> tuple:
+    """Row blocks of the liveness passes: one block up to
+    ``_LIVE_BLOCK_ELEMS`` elements, else blocks of about half of it, the
+    last one overlapping backward (counted twice: only which bins are
+    nonzero is decoded)."""
+    if nw * ne <= _LIVE_BLOCK_ELEMS:
+        return nw, [0]
+    rows = max(1, (_LIVE_BLOCK_ELEMS // 2) // ne)
+    r0s = list(range(0, nw - rows + 1, rows))
+    if r0s[-1] + rows < nw:
+        r0s.append(nw - rows)
+    return rows, r0s
+
+
+def _lane_live_device(offs, fracs):
+    """Live lane taps of a stored flat lane plan, ``(NW, NE)`` offsets and
+    fracs on their device (``pallas_backup6.py:286``): the encode and its
+    bincount run there, and only the bin counts come to the host."""
+    k = len(offs)
+    mins = torch.stack([o.min() for o in offs]).cpu().tolist()
+    maxs = torch.stack([o.max() for o in offs]).cpu().tolist()
+    base, span = _encode_layout(mins, maxs, k)
+    nw, ne = offs[0].shape
+    rows, r0s = _row_blocks(nw, ne)
+    counts = None
+    for r0 in r0s:
+        c = _encode_count([o[r0:r0 + rows] for o in offs],
+                          [f[r0:r0 + rows] for f in fracs], base, span,
+                          both_corners=False)
+        counts = c if counts is None else counts + c
+    vals = torch.nonzero(counts).flatten().cpu().tolist()
+    return _decode_live(vals, base, span, k)
+
+
+def _lane_live_recompute(rec: LaneRecompute, nw: int, ne: int):
+    """Live lane taps of a recompute plan (``pallas_backup6.py:355``): the
+    encode of :func:`_lane_live_device`, with the lanes regenerated one row
+    block at a time by :meth:`LaneRecompute.lane_block` (the function the
+    plain B.5 version calls) and both corners of every touched cell
+    admitted, so nothing table-sized is kept."""
+    k = len(rec.axis_sizes)
+    rows = max(1, min(nw, (_LIVE_BLOCK_ELEMS // 2) // max(ne, 1)))
+    r0s = [min(r0, nw - rows) for r0 in range(0, nw, rows)]
+    mins = maxs = None
+    for r0 in r0s:
+        offs, _ = rec.lane_block(r0, rows)
+        lo_ = torch.stack([o.min() for o in offs])
+        hi_ = torch.stack([o.max() for o in offs])
+        mins = lo_ if mins is None else torch.minimum(mins, lo_)
+        maxs = hi_ if maxs is None else torch.maximum(maxs, hi_)
+    base, span = _encode_layout(mins.cpu().tolist(), maxs.cpu().tolist(), k)
+    counts = None
+    for r0 in r0s:
+        offs, _ = rec.lane_block(r0, rows)
+        c = _encode_count(offs, None, base, span, both_corners=True)
+        counts = c if counts is None else counts + c
+    vals = torch.nonzero(counts).flatten().cpu().tolist()
+    return _decode_live(vals, base, span, k)
+
+
+def _broadcast_term(t, shape, nr: int) -> np.ndarray:
+    """A flat cost term ``(NW|1, NE|1, A|1)`` in the broadcast layout
+    ``(*row_shape|1s, *lane_shape|1s, A|1)`` that ``_split_cost`` takes."""
+    t = _as_numpy(t).astype(np.float32, copy=False)
+    t = t.reshape((1,) * (3 - t.ndim) + t.shape)
+    rows = shape[:nr] if t.shape[0] > 1 else (1,) * nr
+    lanes = shape[nr:] if t.shape[1] > 1 else (1,) * (len(shape) - nr)
+    return t.reshape(rows + lanes + t.shape[2:])
+
+
+ARGMIN_DTYPES = (torch.int32, torch.uint8)
+
+
+class Backup6D:
+    """Callable ``values -> BackupResult`` over one 6-D plan and stage cost:
+    the first 3 state axes are the rows, the last 3 the lanes.
+
+    ``plan``: an :class:`InterpPlan` in the broadcast layout (queries
+    ``(*state_shape, n_actions)``), a flat one (``(NW, 1, A)`` row and
+    ``(NW, NE, 1)`` lane arrays), or a :class:`RecomputePlan`.
+    ``cost_terms``: broadcast-shaped terms (tensors or arrays; flat plans:
+    ``(NW|1, NE|1, A|1)``) summing to the stage cost, split once into row,
     lane, action, row x action and row x lane parts.
 
-    Raises ``ValueError`` for a plan that is not 6-D or not in the broadcast
-    layout, a row axis whose query varies along the lanes, a lane axis whose
-    query varies with the action, a cost term coupling lanes and actions,
-    and a tap structure beyond the kernel's capacities (3 live taps per row
-    or lane axis, 64 actions, digit base 3). The kernel runs on a CUDA
-    tensor, the plain version on a CPU tensor; there is no other device and
-    no fallback from one to the other.
+    ``argmin_dtype``: torch.int32 or torch.uint8 (the envelope's narrow
+    argmin). ``track_argmin=False``: min-only sweeps (the values of a
+    tracking sweep, an all-zero argmin); the engines do not use them.
+    ``carry_padded``: the engines' carry mode (the JAX package's name;
+    nothing is padded here): they call :meth:`sweep_into` with two ``(NW,
+    NE)`` tables and one argmin buffer allocated once, and keep flat
+    results flat. ``consume_plan``: a flat plan's lane ``lo`` arrays become
+    the kernel's offsets in place (the plan's own buffers; the caller's
+    plan is invalid afterwards) and its fracs are used as views, so no
+    second copy of the 24 B/cell lane plan exists.
+
+    Non-flat plans are analysed on the host, flat and recompute plans on
+    their device. Raises ``ValueError`` for a
+    plan that is not 6-D or in neither layout, a row axis whose query
+    varies along the lanes, a lane axis whose query varies with the action,
+    a cost term coupling lanes and actions, and a tap structure beyond the
+    kernel's capacities (3 live taps per row or lane axis, 64 actions,
+    digit base 3). The kernel runs on a CUDA tensor, the plain version on a
+    CPU tensor; there is no other device and no fallback from one to the
+    other.
     """
 
     ROW_AXES = 3
 
-    def __init__(self, plan: InterpPlan, cost_terms):
+    def __init__(self, plan, cost_terms, *, argmin_dtype=torch.int32,
+                 track_argmin: bool = True, carry_padded: bool = False,
+                 consume_plan: bool = False):
+        if argmin_dtype not in ARGMIN_DTYPES:
+            raise ValueError(f"argmin_dtype {argmin_dtype}: use one of "
+                             f"{ARGMIN_DTYPES}")
+        if plan.query_shape[-1] > torch.iinfo(argmin_dtype).max + 1:
+            raise ValueError(f"argmin_dtype {argmin_dtype} cannot index "
+                             f"{plan.query_shape[-1]} actions")
+        self.argmin_dtype = argmin_dtype
+        self.track_argmin = bool(track_argmin)
+        self.carry_padded = bool(carry_padded)
+        self.flat = plan_is_flat(plan)
+        self.recompute = isinstance(plan, RecomputePlan)
+        if self.flat:
+            self.args = self._analyse_flat(plan, cost_terms, consume_plan)
+        else:
+            self.args = self._analyse(plan, cost_terms)
+        n_act = self.args.n_actions
+        if max(len(t) for t in self.w_taps + self.e_taps) > MAX_TAPS or \
+                n_act > MAX_ACTIONS or (self.action_digits or 0) > MAX_DIGITS:
+            raise ValueError(
+                f"row taps {self.w_taps}, lane taps {self.e_taps}, {n_act} "
+                f"actions and digit base {self.action_digits} exceed the "
+                f"kernel's {MAX_TAPS} taps per axis, {MAX_ACTIONS} actions "
+                f"and digit base {MAX_DIGITS}")
+
+    def _analyse(self, plan: InterpPlan, cost_terms) -> Backup6DArgs:
+        """A non-flat plan, analysed on the host."""
         d, nr = plan.ndim, self.ROW_AXES
         q_shape = plan.query_shape
         if d != 6 or len(q_shape) != d + 1:
@@ -374,18 +790,8 @@ class Backup6D:
 
         w_taps, row_combos = _corner_live_sets(w_off, w_frac)
         e_taps, lane_combos = _corner_live_sets(e_off, e_frac)
-        self.w_taps = tuple(tuple(t) for t in w_taps)
-        self.e_taps = tuple(tuple(t) for t in e_taps)
-        self.row_combos = tuple(row_combos)
-        self.lane_combos = tuple(lane_combos)
-        self.action_digits = _detect_action_digits(w_off, w_frac, nr)
-        if max(len(t) for t in self.w_taps + self.e_taps) > MAX_TAPS or \
-                n_act > MAX_ACTIONS or (self.action_digits or 0) > MAX_DIGITS:
-            raise ValueError(
-                f"row taps {self.w_taps}, lane taps {self.e_taps}, {n_act} "
-                f"actions and digit base {self.action_digits} exceed the "
-                f"kernel's {MAX_TAPS} taps per axis, {MAX_ACTIONS} actions "
-                f"and digit base {MAX_DIGITS}")
+        self._set_taps(w_taps, row_combos, e_taps, lane_combos,
+                       _detect_action_digits(w_off, w_frac, nr))
 
         terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
                  else [cost_terms])
@@ -400,7 +806,7 @@ class Backup6D:
             return up(np.broadcast_to(a, shape).reshape(self.NW, self.NE),
                       dtype)
 
-        self.args = Backup6DArgs(
+        return Backup6DArgs(
             row_shape=shape[:nr], lane_shape=shape[nr:],
             row_off=up(np.stack(w_off), torch.int32),
             row_frac=up(np.stack(w_frac), torch.float32),
@@ -411,7 +817,112 @@ class Backup6D:
             c_row=up(c_row, torch.float32), c_lane=up(c_lane, torch.float32),
             c_act=tuple(float(x) for x in c_act),
             c_rowact=up(c_rowact, torch.float32),
-            c_rowlane=up(c_rowlane, torch.float32))
+            c_rowlane=up(c_rowlane, torch.float32),
+            argmin_dtype=self.argmin_dtype, track_argmin=self.track_argmin)
+
+    def _analyse_flat(self, plan, cost_terms, consume: bool) -> Backup6DArgs:
+        """A flat or recompute plan, analysed on its device
+        (``pallas_backup6.py:488-531, 564-646, 797-819, 856-894``)."""
+        nr = self.ROW_AXES
+        shape = tuple(plan.grid_shape)
+        q_shape = tuple(plan.query_shape)
+        if len(shape) != 6 or len(q_shape) != 3:
+            raise ValueError(
+                f"flat plans are 6-D with (rows, lanes, actions) arrays; got "
+                f"grid {shape}, queries {q_shape}")
+        self.state_shape = shape
+        nw = self.NW = int(np.prod(shape[:nr]))
+        ne = self.NE = int(np.prod(shape[nr:]))
+        n_act = q_shape[-1]
+        if q_shape[:2] != (nw, ne):
+            raise ValueError(f"flat plan rows/lanes {q_shape[:2]} do not "
+                             f"match the 3 + 3 split of grid {shape}")
+        dev = plan.device
+
+        # row plan: (NW, 1, A) arrays, minus each row's own index
+        row_own = _lane_own_index(shape[:nr], dev)
+        w_off, w_frac = [], []
+        for k in range(nr):
+            lo, fr = plan.lo[k], plan.frac[k]
+            if lo.shape[1] > 1 or fr.shape[1] > 1:
+                raise ValueError(
+                    f"row axis {k} query varies along lane axes — "
+                    "not row/lane separable; use the gather backup")
+            w_off.append((lo[:, 0, :].to(torch.int32) - row_own[k][:, None])
+                         .expand(nw, n_act))
+            w_frac.append(fr[:, 0, :].to(torch.float32).expand(nw, n_act))
+        row_off = torch.stack(w_off).contiguous()
+        row_frac = torch.stack(w_frac).contiguous()
+        # the row analysis is (3, NW, A): small, on the host
+        w_off_h, w_frac_h = list(row_off.cpu().numpy()), \
+            list(row_frac.cpu().numpy())
+        w_taps, row_combos = _corner_live_sets(w_off_h, w_frac_h)
+        digits = _detect_action_digits(w_off_h, w_frac_h, nr)
+
+        lanes = None
+        lane_off, lane_frac = (), ()
+        if self.recompute:
+            lanes = plan.spec
+            if tuple(lanes.axis_sizes) != shape[nr:] or \
+                    len(lanes.row_feats) != 3 or len(lanes.lane_feats) != 4:
+                raise ValueError("the lane recompute spec does not match the "
+                                 f"grid {shape}")
+            e_taps, lane_combos = _lane_live_recompute(lanes, nw, ne)
+        else:
+            own = _lane_own_index(shape[nr:], dev)
+            for k in range(nr, 6):
+                lo, fr = plan.lo[k], plan.frac[k]
+                if lo.shape[-1] > 1 or fr.shape[-1] > 1:
+                    raise ValueError(
+                        f"lane axis {k} query varies with the action — "
+                        "not row/lane separable; use the gather backup")
+                if consume and lo.dtype == torch.int32 and \
+                        tuple(lo.shape) == (nw, ne, 1) and lo.is_contiguous():
+                    off = lo.view(nw, ne)
+                    off.sub_(own[k - nr])       # in place: the plan's buffer
+                else:
+                    off = (lo[..., 0].to(torch.int32) - own[k - nr]) \
+                        .expand(nw, ne).contiguous()
+                lane_off += (off,)
+                lane_frac += (fr[..., 0].to(torch.float32).expand(nw, ne)
+                              .contiguous(),)
+            e_taps, lane_combos = _lane_live_device(lane_off, lane_frac)
+        self._set_taps(w_taps, row_combos, e_taps, lane_combos, digits)
+
+        terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
+                 else [cost_terms])
+        c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
+            [_broadcast_term(t, shape, nr) for t in terms], shape, nr, n_act)
+        self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
+        return Backup6DArgs(
+            row_shape=shape[:nr], lane_shape=shape[nr:], row_off=row_off,
+            row_frac=row_frac, lane_off=lane_off, lane_frac=lane_frac,
+            row_combos=self.row_combos, lane_combos=self.lane_combos,
+            w_taps=self.w_taps, action_digits=self.action_digits,
+            c_row=_upload(c_row, torch.float32, dev),
+            c_lane=_upload(c_lane, torch.float32, dev),
+            c_act=tuple(float(x) for x in c_act),
+            c_rowact=_upload(c_rowact, torch.float32, dev),
+            c_rowlane=_upload(c_rowlane, torch.float32, dev),
+            argmin_dtype=self.argmin_dtype, track_argmin=self.track_argmin,
+            lanes=lanes)
+
+    def _set_taps(self, w_taps, row_combos, e_taps, lane_combos, digits):
+        self.w_taps = tuple(tuple(t) for t in w_taps)
+        self.e_taps = tuple(tuple(t) for t in e_taps)
+        self.row_combos = tuple(row_combos)
+        self.lane_combos = tuple(lane_combos)
+        self.action_digits = digits
+
+    def _kernel(self):
+        """The CUDA wrapper of this backup's mode: B.5 for a recompute plan,
+        B.3 for a non-flat plan in the default mode, else B.4."""
+        if self.recompute:
+            return backup6d_recompute_cuda
+        if self.flat or self.argmin_dtype != torch.int32 or \
+                not self.track_argmin:
+            return backup6d_flat_cuda
+        return backup6d_cuda
 
     def _run(self, fn, values: torch.Tensor) -> BackupResult:
         res = fn(values.reshape(self.NW, self.NE).contiguous(), self.args)
@@ -420,7 +931,7 @@ class Backup6D:
 
     def __call__(self, values: torch.Tensor) -> BackupResult:
         if values.is_cuda:
-            return self._run(backup6d_cuda, values)
+            return self._run(self._kernel(), values)
         if values.device.type == "cpu":
             return self._run(backup6d_plain, values)
         raise ValueError(f"no 6-D backup for device {values.device}")
@@ -429,3 +940,23 @@ class Backup6D:
         """The plain PyTorch version on any device (the ``'plain'`` impl of
         the attitude solves)."""
         return self._run(backup6d_plain, values)
+
+    def sweep_into(self, v_in: torch.Tensor, v_out: torch.Tensor,
+                   a_out: torch.Tensor) -> None:
+        """Carry mode: one sweep of the ``(NW, NE)`` table ``v_in`` into
+        ``v_out`` (float32) and ``a_out`` (``argmin_dtype``), buffers the
+        caller allocated once (the counterpart of ``sweep_carry``,
+        ``pallas_backup6.py:1475``). The kernel on CUDA tensors, the plain
+        version on CPU tensors."""
+        if not self.carry_padded:
+            raise ValueError("backup was not built with carry_padded=True")
+        if v_in.is_cuda:
+            fn = (backup6d_recompute_cuda if self.recompute
+                  else backup6d_flat_cuda)
+            fn(v_in, self.args, out_v=v_out, out_a=a_out)
+        elif v_in.device.type == "cpu":
+            res = backup6d_plain(v_in, self.args)
+            v_out.copy_(res.values)
+            a_out.copy_(res.argmin)
+        else:
+            raise ValueError(f"no 6-D backup for device {v_in.device}")

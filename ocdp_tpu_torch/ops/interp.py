@@ -39,6 +39,7 @@ __all__ = [
     "affine_axes",
     "nearest_cell_index",
     "InterpPlan",
+    "PlanShape",
     "build_plan",
     "interp_apply",
     "interp_eval",
@@ -88,6 +89,30 @@ class InterpPlan:
     @property
     def device(self) -> torch.device:
         return self.lo[0].device
+
+
+@dataclasses.dataclass(frozen=True)
+class PlanShape:
+    """Shape-only stand-in for a plan (``ocdp_tpu/ops/interp.py:99``).
+
+    Engines driven by an explicit ``backup`` read the plan only for
+    ``grid_shape``, ``query_shape`` and ``device``; passing this instead
+    lets a solve drop a multi-GB flat plan once the backup holds what it
+    needs.
+    """
+
+    grid_shape: tuple
+    query_shape: tuple
+    device: torch.device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.grid_shape)
+
+    @classmethod
+    def of(cls, plan) -> "PlanShape":
+        return cls(tuple(plan.grid_shape), tuple(plan.query_shape),
+                   plan.device)
 
 
 def build_plan(axes: Sequence[np.ndarray], queries: Sequence, dtype=torch.float32,

@@ -1,5 +1,6 @@
 """The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
-backup) vs their plain PyTorch versions, on a card.
+backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
+carry mode, lane recompute) vs their plain PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -236,3 +237,54 @@ def test_solve_full_kernel_equals_plain(device):
     assert b6.backup6d_cuda.launches == before + 20
     assert sk.result.values.is_cuda
     _bitwise(sk.result, sp.result)
+
+
+ENVELOPE_MODES = [
+    ("plan", torch.int32, True), ("plan", torch.uint8, True),
+    ("plan", torch.uint8, False), ("recompute", torch.uint8, True),
+    ("recompute", torch.int32, False)]
+
+
+@pytest.mark.parametrize("lane_mode,adt,track", ENVELOPE_MODES,
+                         ids=["b4-int32", "b4-uint8", "b4-min-only",
+                              "b5-uint8", "b5-int32-min-only"])
+@pytest.mark.parametrize("edge", ["extrapolate", "clamp"])
+def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge):
+    """B.4 (flat stored plan) and B.5 (lane recompute) vs their plain
+    versions, one sweep: values and argmin bitwise."""
+    kw = dict(flat=True) if lane_mode == "plan" else dict(lane_mode=lane_mode)
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5), edge=edge, **kw)
+    bk = b6.Backup6D(plan, cost, argmin_dtype=adt, track_argmin=track)
+    fn = b6.backup6d_recompute_cuda if lane_mode == "recompute" \
+        else b6.backup6d_flat_cuda
+    v = torch.from_numpy(np.random.default_rng(11).uniform(
+        0, 50, (bk.NW, bk.NE)).astype(np.float32)).to(device)
+    before = fn.launches
+    got = fn(v, bk.args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert got.argmin.dtype == adt
+    _bitwise(got, b6.backup6d_plain(v, bk.args))
+    if not track:
+        assert int(got.argmin.max()) == 0
+
+
+@pytest.mark.parametrize("lane_mode", ["plan", "recompute"])
+def test_envelope_carry_solve_equals_plain(device, lane_mode):
+    """A forced flat, carry-mode solve through B.4 or B.5 equals the plain
+    version's solve; its tables stay flat."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5)
+    fn = b6.backup6d_recompute_cuda if lane_mode == "recompute" \
+        else b6.backup6d_flat_cuda
+    before = fn.launches
+    sk = attitude.solve_full(cfg, num_sweeps=10, flat=True,
+                             carry_padded=True, lane_mode=lane_mode)
+    assert fn.launches == before + 10 and sk.is_flat
+    sp = attitude.solve_full(cfg, num_sweeps=10, flat=True,
+                             lane_mode=lane_mode, impl="plain",
+                             device=device)
+    assert torch.equal(sk.result.values.reshape(sp.result.values.shape),
+                       sp.result.values)
+    assert torch.equal(sk.result.argmin.reshape(sp.result.argmin.shape),
+                       sp.result.argmin)
