@@ -98,6 +98,33 @@ The 6-D envelope (kernels ``backup6d_flat``, B.4, and
 21. timing with CUDA events, warm, median of 10: B.4 (uint8, tracking) and
     B.5 at 30^3 x 16^3 beside their bounds and B.3's ns per cell.
 
+Simplified attitude and position (kernel ``band_backup2d``, B.6):
+
+22. one sweep of the banded kernel vs its plain version: the three
+    simplified axes at ``AttitudeConfig()`` (1000 x 300) with
+    ``edge='clamp'`` and ``'extrapolate'``, position's C = 3 channel batch
+    at ``PositionConfig()`` (201 x 201), each on a seeded random table and
+    on the table after 50 sweeps, and an exact-tie case (h = 0, no cost,
+    each action listed twice): values and argmin bitwise equal;
+23. the main path, ``attitude.solve_simplified(AttitudeConfig())`` on the
+    default device (3 x 5999 sweeps): the kernel's launch count goes up by
+    exactly 17,997 and no other backup kernel launches, the values are
+    finite, a 50-sweep solve equals ``impl='plain'`` bitwise, and the
+    300-sweep ``edge='extrapolate'`` solve meets
+    tests/golden/attitude_axis_golden.npz within the JAX package's own
+    gather distance;
+24. serving on that policy: the simplified-plant rollout and the rk4 real-
+    dynamics rollout over the full horizon, a 200-stage ode45 flight and
+    the PD baseline, each timed per stage;
+25. ``position.solve(PositionConfig())``: 5999 sweeps, 5999 launches, a
+    50-sweep solve equal to ``impl='plain'`` bitwise, the 300-sweep golden
+    (tests/golden/position_golden.npz), and a 1 s RKF45 flight whose
+    controls equal a nearest lookup at every stage, timed;
+26. timing with CUDA events, warm, median of 10: the banded kernel and its
+    plain version at 1000 x 300 and at 3 x 201 x 201 beside the bound, the
+    ported row-band backup and the row/lane kernel (B.2) on the same
+    simplified axis, and the two main solves' wall times.
+
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (each input read once, each output written once) over
@@ -124,10 +151,12 @@ from ocdp_tpu_torch import _build, io
 from ocdp_tpu_torch.engine import (value_iteration_converged,
                                    value_iteration_finite,
                                    value_iteration_segmented)
-from ocdp_tpu_torch.models import attitude, kirk, pos_att
+from ocdp_tpu_torch.models import attitude, kirk, pos_att, position
 from ocdp_tpu_torch.ops import backup6d as b6
+from ocdp_tpu_torch.ops import band_backup2d as bb
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
+from ocdp_tpu_torch.ops.rowband import RowBandBackup2D
 from ocdp_tpu_torch.ops.interp import InterpPlan, PlanShape, build_plan
 from ocdp_tpu_torch.profiling import cuda_time_ms
 
@@ -211,6 +240,8 @@ def main() -> None:
     kernels = [kirk_phases(device), pos_att_phases(device)]
     b3 = attitude_phases(device)
     kernels += [b3, *envelope_phases(device, b3)]
+    free_cuda()
+    kernels.append(band_phases(device))
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
@@ -228,7 +259,8 @@ LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
              "rowlane_backup": rl.rowlane_backup_cuda,
              "backup6d": b6.backup6d_cuda,
              "backup6d_flat": b6.backup6d_flat_cuda,
-             "backup6d_recompute": b6.backup6d_recompute_cuda}
+             "backup6d_recompute": b6.backup6d_recompute_cuda,
+             "band_backup2d": bb.band_backup2d_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -1299,6 +1331,311 @@ def envelope_phases(device, b3) -> list:
          "launches": main_launches, "max_abs_err": err5, "ms": ms5,
          "plain_ms": plain_ms5, **bound5, **common},
     ]
+
+
+def band_vs_plain(bk, v, label: str) -> float:
+    """One sweep of a banded backup through its kernel and through its
+    plain version on the same inputs; bitwise. Returns max |dV|."""
+    got = bk(v)
+    want = bk.plain(v)
+    torch.cuda.synchronize()
+    err = float((got.values - want.values).abs().max())
+    same_v = torch.equal(got.values, want.values)
+    same_a = torch.equal(got.argmin, want.argmin)
+    st = bk.taps
+    print(f"{label} ({tuple(v.shape)}, {bk.args.n_actions} actions, taps "
+          f"{st.taps}, live {[len(t) for t in st.valid_taps]}): values "
+          f"bitwise {same_v}, argmin identical {same_a}, max |dV| {err}")
+    check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
+    check(same_v and same_a, f"{label}: kernel != plain version")
+    return err
+
+
+def tied_band_backup(device):
+    """A simplified axis with h = 0 (every query on a grid point), no cost
+    and each action listed twice: every minimum is an exact tie."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=1000, n_mesh_t=300, h=0.0)
+    _, plan, _ = attitude.build_simplified_axis(cfg, 0, device=device)
+
+    def twice(a):
+        return torch.cat([a, a], dim=-1) if a.shape[-1] > 1 else a
+
+    plan = InterpPlan(tuple(twice(a) for a in plan.lo),
+                      tuple(twice(a) for a in plan.frac), plan.grid_shape)
+    return bb.BandBackup2D(plan, torch.zeros((1000, 300, 6), device=device))
+
+
+def band_bound(bk) -> dict:
+    """The four-corner evaluation's FP32 operations (16 per cell and
+    action: two complements, four weight and four value products, four
+    sums, the cost add and the compare) and its bytes (the table, the plan
+    at its broadcast shapes, the dense cost, values and argmin out)."""
+    n_c, n_act = bk.args.cost.shape[:2]
+    n_cells = n_c * bk.args.cost.shape[2] * bk.args.cost.shape[3]
+    plan_bytes = sum(8 * lo.numel() for lo in bk.args.lo)
+    nbytes = 4 * n_cells + plan_bytes + 4 * n_act * n_cells + 8 * n_cells
+    return bound(16.0 * n_cells * n_act, nbytes)
+
+
+def band_tap_loop_ops(bk) -> float:
+    """FP32 operations of the plain tap loop on the same inputs, per cell
+    and action: 3 per live tap pair, 5 per live tap's weight, the cost add
+    and the compare."""
+    n1, n2 = (len(t) for t in bk.taps.valid_taps)
+    return 3.0 * n1 * n2 + 5.0 * (n1 + n2) + 2.0
+
+
+def nearest_index(ax: np.ndarray, q: float) -> int:
+    """MATLAB 'nearest' on an ascending axis, lower snap at midpoints."""
+    lo = int(np.clip(np.searchsorted(ax, q, side="right") - 1, 0,
+                     len(ax) - 2))
+    return lo + 1 if (q - ax[lo]) > (ax[lo + 1] - q) else lo
+
+
+ATT_GOLDEN_RTOL = 2e-5   # the JAX package's gather solve needs 1.38e-5
+POS_GOLDEN_RTOL = 1e-4   # the JAX package's gather solve needs 6.46e-5
+
+
+def golden_check(label, values, policy, gold_v, gold_p, rtol) -> None:
+    """Values within ``rtol`` (atol 1e-6) of a golden made by the JAX
+    stencil, and over 99.95% equal policies: the stencil nests its tap sums,
+    B.6 sums (w1 w2) leaf flat, so the goldens' own 1e-6 holds for neither
+    the port nor the JAX package's gather solve (tests/test_torch_
+    position.py)."""
+    d = np.abs(values - gold_v)
+    need = float(((d - 1e-6) / np.maximum(np.abs(gold_v), 1e-30)).max())
+    agree = float((policy == gold_p).mean())
+    print(f"{label}: max |dV| {float(d.max())} (max |V| "
+          f"{float(np.abs(gold_v).max())}), needs rtol {need:.4e} (bound "
+          f"{rtol}), policy agreement {agree}")
+    np.testing.assert_allclose(values, gold_v, rtol=rtol, atol=1e-6)
+    check(agree > 0.9995, f"{label}: policy agreement {agree}")
+
+
+def band_phases(device) -> dict:
+    """Phases 22-26; returns B.6's entry of the kernels line."""
+    rng = np.random.default_rng(SEED + 4)
+    cfg = attitude.AttitudeConfig()
+    pcfg = position.PositionConfig()
+
+    phase("22. B.6 vs plain, one sweep, bitwise")
+    max_err = 0.0
+    for edge in ("clamp", "extrapolate"):
+        for i in range(3):
+            _, plan, terms = attitude.build_simplified_axis(
+                cfg, i, edge=edge, device=device)
+            bk = bb.BandBackup2D(plan, terms)
+            v = torch.from_numpy(rng.uniform(0.0, 100.0, plan.grid_shape)
+                                 .astype(np.float32)).to(device)
+            label = f"axis {i}, edge={edge!r}"
+            max_err = max(max_err, band_vs_plain(bk, v, label + ", random"))
+            v50 = value_iteration_finite(plan, None, 50, backup=bk).values
+            max_err = max(max_err, band_vs_plain(bk, v50,
+                                                 label + ", after 50 sweeps"))
+    pp = position.build(pcfg, device=device)
+    pbk = bb.BandBackup2D(pp.plan, pp.stage_cost)
+    pv = torch.from_numpy(rng.uniform(0.0, 100.0, pp.plan.grid_shape)
+                          .astype(np.float32)).to(device)
+    max_err = max(max_err, band_vs_plain(pbk, pv, "position C=3, random"))
+    pv50 = value_iteration_finite(pp.plan, None, 50, backup=pbk).values
+    max_err = max(max_err, band_vs_plain(pbk, pv50,
+                                         "position C=3, after 50 sweeps"))
+    tie = tied_band_backup(device)
+    tv = torch.from_numpy(rng.uniform(0.0, 100.0, (1000, 300))
+                          .astype(np.float32)).to(device)
+    max_err = max(max_err, band_vs_plain(tie, tv, "exact ties"))
+    check(int(tie(tv).argmin.max()) == 0, "exact ties: a later action won")
+
+    phase("23. main path: attitude.solve_simplified(AttitudeConfig())")
+    sweeps = cfg.n_stage - 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol = attitude.solve_simplified(cfg)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    launches = counts.pop("band_backup2d")
+    print(f"attitude.solve_simplified(AttitudeConfig()): {solve_s:.3f} s for "
+          f"3 x {sweeps} sweeps incl. the builds "
+          f"({solve_s / (3 * sweeps) * 1e3:.4f} ms a sweep); band_backup2d "
+          f"launches {launches}, others {counts}")
+    check(launches == 3 * sweeps,
+          f"band_backup2d launched {launches} times, want {3 * sweeps}")
+    check(not any(counts.values()), "another backup kernel launched")
+    check(all(v.is_cuda and tuple(v.shape) == (cfg.n_mesh_w, cfg.n_mesh_t)
+              and bool(torch.isfinite(v).all()) for v in sol.values),
+          "main path: wrong device, shape or non-finite values")
+    print(f"V ranges {[(float(v.min()), float(v.max())) for v in sol.values]}")
+    k50 = attitude.solve_simplified(cfg, num_sweeps=50, impl="kernel")
+    p50 = attitude.solve_simplified(cfg, num_sweeps=50, impl="plain",
+                                    device=device)
+    same = all(torch.equal(a, b) for a, b in
+               zip(k50.values + k50.u_tables, p50.values + p50.u_tables))
+    print(f"50 sweeps, kernel vs plain: values and torque tables identical "
+          f"{same}")
+    check(same, "50-sweep solve: kernel != plain")
+    with np.load(GOLDEN_DIR / "attitude_axis_golden.npz") as z:
+        gold = {k: z[k] for k in z.files}
+    gsol = attitude.solve_simplified(cfg, num_sweeps=int(gold["sweeps"]),
+                                     edge="extrapolate")
+    golden_check(f"{int(gold['sweeps'])} sweeps, edge='extrapolate', vs "
+                 "attitude_axis_golden",
+                 np.stack([v.cpu().numpy() for v in gsol.values]),
+                 np.stack([t.cpu().numpy() for t in gsol.u_tables]),
+                 gold["values"], gold["u_tables"], ATT_GOLDEN_RTOL)
+
+    phase("24. serving on the simplified policy")
+    t0 = time.perf_counter()
+    X, U = attitude.rollout_simplified_plant(sol)
+    torch.cuda.synchronize()
+    plant_s = time.perf_counter() - t0
+    Xn, Un = X.cpu().numpy(), U.cpu().numpy()
+    check(bool(np.isfinite(Xn).all()) and Xn.shape == (cfg.n_stage, 3, 2),
+          "plant rollout: shape or non-finite")
+    check(bool(np.all(np.abs(Xn[-1, :, 1])
+                      < 0.5 * np.maximum(np.abs(Xn[0, :, 1]), 0.05))),
+          "plant rollout: the angles do not shrink")
+    check(bool(np.isin(np.round(np.abs(Un).astype(np.float64), 4),
+                       [0.0, 0.11]).all()), "plant rollout: torques off the set")
+    print(f"plant rollout, {cfg.n_stage - 1} stages: {plant_s:.3f} s, "
+          f"{plant_s / (cfg.n_stage - 1) * 1e3:.3f} ms a stage; angles "
+          f"{Xn[0, :, 1].tolist()} -> {Xn[-1, :, 1].tolist()} rad")
+
+    def real_flight(label, **kw):
+        t0 = time.perf_counter()
+        X, _ = attitude.rollout_simplified_real_dynamics(sol, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        Xn = X.cpu().numpy()
+        qn = np.linalg.norm(Xn[:, 3:7], axis=1)
+        e0, e1 = (float(np.linalg.norm(Xn[k, 3:6])) for k in (0, -1))
+        print(f"{label}, {len(Xn) - 1} stages: {s:.3f} s, "
+              f"{s / (len(Xn) - 1) * 1e3:.3f} ms a stage; max ||q| - 1| "
+              f"{float(np.abs(qn - 1).max())}; |q_vec| {e0} -> {e1}")
+        check(bool(np.isfinite(Xn).all()), f"{label}: non-finite")
+        check(bool(np.abs(qn - 1).max() < 1e-4), f"{label}: |q| != 1")
+        return X, e0, e1
+
+    Xr, e0, e1 = real_flight("real dynamics, rk4", integrator="rk4")
+    check(e1 < 0.5 * e0, "rk4 flight: the attitude error does not shrink")
+    Xo, e0, e1 = real_flight("real dynamics, ode45", integrator="ode45",
+                             num_stages=200)
+    check(e1 < e0, "ode45 flight: the attitude error does not shrink")
+    print(f"max |X_ode45 - X_rk4| over those 200 stages "
+          f"{float((Xo - Xr[:len(Xo)]).abs().max())}")
+    t0 = time.perf_counter()
+    Xl, _, drift = attitude.linear_control_response(cfg)
+    torch.cuda.synchronize()
+    lin_s = time.perf_counter() - t0
+    print(f"PD baseline, {len(Xl) - 1} stages: {lin_s:.3f} s, "
+          f"{lin_s / (len(Xl) - 1) * 1e3:.3f} ms a stage; |q| drift "
+          f"{float(drift)}")
+    check(float(drift) < 1e-5, "PD baseline: |q| drift")
+
+    phase("25. position: solve, golden, a 1 s RKF45 flight")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    psol = position.solve(pcfg)
+    torch.cuda.synchronize()
+    psolve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    plaunches = counts.pop("band_backup2d")
+    psweeps = pcfg.n_stage - 1
+    print(f"position.solve(PositionConfig()): {psolve_s:.3f} s for {psweeps} "
+          f"sweeps of 3 channels incl. the build "
+          f"({psolve_s / psweeps * 1e3:.4f} ms a sweep); band_backup2d "
+          f"launches {plaunches}, others {counts}")
+    check(plaunches == psweeps and not any(counts.values()),
+          f"position: {plaunches} launches, want {psweeps}")
+    check(bool(torch.isfinite(psol.result.values).all()), "position: "
+          "non-finite")
+    k50 = position.solve(pcfg, num_sweeps=50)
+    p50 = position.solve(pcfg, num_sweeps=50, impl="plain", device=device)
+    same = (torch.equal(k50.result.values, p50.result.values)
+            and torch.equal(k50.result.argmin, p50.result.argmin))
+    print(f"50 sweeps, kernel vs plain: values and argmin identical {same}")
+    check(same, "position 50-sweep solve: kernel != plain")
+    with np.load(GOLDEN_DIR / "position_golden.npz") as z:
+        gold = {k: z[k] for k in z.files}
+    gres = position.solve(pcfg, num_sweeps=int(gold["sweeps"])).result
+    golden_check(f"{int(gold['sweeps'])} sweeps vs position_golden",
+                 gres.values.cpu().numpy(), gres.argmin.cpu().numpy(),
+                 gold["values"], gold["argmin"], POS_GOLDEN_RTOL)
+    t0 = time.perf_counter()
+    T, X, U = position.get_optimal_path(psol, t_final=1.0)
+    torch.cuda.synchronize()
+    flight_s = time.perf_counter() - t0
+    Xn = X.cpu().numpy().astype(np.float64)
+    Un = U.cpu().numpy().astype(np.float64)
+    tables = psol.u_tables.cpu().numpy().astype(np.float64)
+    axes = [np.asarray(a, np.float64) for a in psol.problem.grid.axes[1:]]
+    wrong = sum(Un[k, c] != tables[c, nearest_index(axes[0], Xn[k, c]),
+                                   nearest_index(axes[1], Xn[k, 3 + c])]
+                for k in range(len(Un)) for c in range(3))
+    print(f"RKF45 flight, 1 s ({len(Un)} stages): {flight_s:.3f} s, "
+          f"{flight_s / len(Un) * 1e3:.3f} ms a stage; controls off the "
+          f"nearest lookup: {wrong}; x {Xn[0, :3].tolist()} -> "
+          f"{Xn[-1, :3].tolist()}")
+    check(bool(np.isfinite(Xn).all()) and wrong == 0,
+          "position flight: non-finite or a control off the lookup")
+
+    phase("26. timing (CUDA events, warm, median of 10)")
+    _, plan, terms = attitude.build_simplified_axis(cfg, 0, device=device)
+    bk = bb.BandBackup2D(plan, terms)
+    v = sol.values[0].contiguous()
+    v3 = v[None]
+    k_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(v3, bk.args), inner=20)
+    p_ms = cuda_time_ms(lambda: bb.band_backup2d_plain(v3, bk.args, bk.taps))
+    pv3 = psol.result.values.contiguous()
+    pk_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(pv3, pbk.args),
+                         inner=20)
+    pp_ms = cuda_time_ms(lambda: bb.band_backup2d_plain(pv3, pbk.args,
+                                                        pbk.taps))
+    rb = RowBandBackup2D(plan, terms)
+    rb_ms = cuda_time_ms(lambda: rb(v), inner=5)
+    rlb = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+    v2 = v.reshape(rlb.NW, rlb.NE)
+    rl_ms = cuda_time_ms(lambda: rl.rowlane_backup_cuda(v2, rlb.args),
+                         inner=20)
+    rl_err = rowlane_vs_plain(rlb, v, "B.2 on simplified axis 0 "
+                              f"({len(rlb.row_combos)} row combos, lane taps "
+                              f"{rlb.e_taps})")
+    ref = bk(v)
+    print(f"row-band and B.2 vs B.6 on that sweep: max |dV| "
+          f"{float((rb(v).values - ref.values).abs().max())} and "
+          f"{float((rlb(v).values - ref.values).abs().max())}; B.2 vs its "
+          f"plain version max |dV| {rl_err}")
+    solve_ms = cuda_time_ms(lambda: attitude.solve_simplified(cfg),
+                            repeats=3)
+    psolve_ms = cuda_time_ms(lambda: position.solve(pcfg), repeats=3)
+    bnd = band_bound(bk)
+    pbnd = band_bound(pbk)
+    print(f"1000x300 sweep: B.6 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
+          f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}; the plain tap loop "
+          f"does {band_tap_loop_ops(bk) / 16:.1f}x the four-corner "
+          f"operations); row-band {rb_ms:.4f} ms; B.2 (rowlane) "
+          f"{rl_ms:.4f} ms")
+    print(f"3x201x201 sweep: B.6 {pk_ms:.4f} ms, plain {pp_ms:.4f} ms, "
+          f"bound {pbnd['bound_ms']:.5f} ms ({pbnd['bound_by']}: "
+          f"{pbnd['flops']:.4e} operations, {pbnd['bytes']:.4e} bytes); "
+          f"position launches on its main path {plaunches}")
+    print(f"solve_simplified(AttitudeConfig()) {solve_ms / 1e3:.3f} s warm "
+          f"({solve_s:.3f} s cold), {solve_ms / (3 * sweeps):.4f} ms a sweep; "
+          f"position.solve(PositionConfig()) {psolve_ms / 1e3:.3f} s warm "
+          f"({psolve_s:.3f} s cold), {psolve_ms / psweeps:.4f} ms a sweep")
+    print(f"band_sweep: {kernel_registers('band_sweep')}")
+    return {
+        "name": "band_backup2d",
+        "route": "cuda",
+        "source": "ocdp_tpu_torch/csrc/band_backup2d.cu",
+        "replaces": "ocdp_tpu/ops/pallas_backup.py:90",
+        "launches": launches,
+        "max_abs_err": max_err,
+        "ms": k_ms,
+        "plain_ms": p_ms,
+        **bnd,
+        "library_ms": None,
+    }
 
 
 def state_shape(cfg) -> tuple:

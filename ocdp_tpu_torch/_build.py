@@ -32,6 +32,8 @@ NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
+    "band_backup2d_f32": (_I, [_P] * 8 + [_I] * 10 + [_P]),
+    "band_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "fused_backup2d_f32": (_I, [_P] * 12 + [_I] * 4 + [_P]),
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),

@@ -20,12 +20,14 @@ import torch
 from .engine import SolveResult
 from .grids import Grid
 from .io import ChannelController
-from .models.attitude import AttitudeConfig, FullSolution
+from .models.attitude import AttitudeConfig, FullSolution, SimplifiedSolution
 from .models.pos_att import PosAttConfig, PosAttSolution
+from .models.position import PositionConfig, PositionProblem, PositionSolution
 from .ops.interp import InterpPlan
 
 __all__ = ["plan_from_numpy", "result_from_numpy", "solution_from_numpy",
-           "full_solution_from_numpy", "to_numpy"]
+           "full_solution_from_numpy", "simplified_solution_from_numpy",
+           "position_solution_from_numpy", "to_numpy"]
 
 
 def _tensor(a, dtype, device) -> Optional[torch.Tensor]:
@@ -111,6 +113,41 @@ def full_solution_from_numpy(sol, *, device) -> FullSolution:
         result_from_numpy(
             values, argmin, num_sweeps=int(np.asarray(res.num_sweeps)),
             converged=bool(np.asarray(res.converged)), device=device))
+
+
+def simplified_solution_from_numpy(sol, *, device) -> SimplifiedSolution:
+    """A simplified attitude :class:`SimplifiedSolution` on ``device`` from
+    one whose tables hold numpy-convertible arrays (the JAX package's
+    ``SimplifiedSolution``): each axis's ``(s_w, s_t)``, values and torque
+    table, and the edge policy; the configuration is rebuilt from its
+    fields."""
+    return SimplifiedSolution(
+        AttitudeConfig(**dataclasses.asdict(sol.config)),
+        tuple(tuple(np.asarray(a) for a in ax) for ax in sol.axes),
+        tuple(_tensor(t, torch.float32, device) for t in sol.u_tables),
+        tuple(_tensor(v, torch.float32, device) for v in sol.values),
+        sol.edge)
+
+
+def position_solution_from_numpy(sol, *, device) -> PositionSolution:
+    """A :class:`PositionSolution` on ``device`` from one whose problem and
+    result hold numpy-convertible arrays (the JAX package's
+    ``PositionSolution``): the (channel, x, v) axes, the plan, the stage
+    cost, the values and the argmin (``u_tables`` follows from it); the
+    configuration is rebuilt from its fields."""
+    prob, res = sol.problem, sol.result
+    grid = Grid(tuple(np.asarray(a) for a in prob.grid.axes))
+    lo, frac = ([np.asarray(x) for x in arrs]
+                for arrs in (prob.plan.lo, prob.plan.frac))
+    problem = PositionProblem(
+        PositionConfig(**dataclasses.asdict(prob.config)), grid,
+        plan_from_numpy(lo, frac, grid.shape, device=device),
+        _tensor(prob.stage_cost, torch.float32, device))
+    result = result_from_numpy(
+        res.values, np.asarray(res.argmin).astype(np.int32),
+        num_sweeps=int(np.asarray(res.num_sweeps)),
+        converged=bool(np.asarray(res.converged)), device=device)
+    return PositionSolution(problem, result)
 
 
 def to_numpy(x):

@@ -11,7 +11,7 @@ from .orbital import (
     sv_from_coe,
     target_orbit_R0V0,
 )
-from .relmotion import cw_relative_rates
+from .relmotion import cw_relative_rates, target_states
 
 __all__ = [
     "MU_EARTH",
@@ -24,4 +24,5 @@ __all__ = [
     "sv_from_coe",
     "target_orbit_R0V0",
     "cw_relative_rates",
+    "target_states",
 ]

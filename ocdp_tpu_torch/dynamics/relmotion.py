@@ -14,12 +14,24 @@ import torch
 from ..utils.frames import cross, norm3
 from .orbital import MU_EARTH, propagate_kepler
 
-__all__ = ["cw_relative_rates"]
+__all__ = ["cw_relative_rates", "target_states"]
 
 
-def cw_relative_rates(t, y, accel, R0, V0, *, mu=MU_EARTH):
+def target_states(R0, V0, times, *, mu=MU_EARTH):
+    """The target's ``(R, V)`` at each of ``times`` (a list of equally
+    shaped time tensors) from one batched Kepler solve: the integrators'
+    ``prepare`` hook for :func:`cw_relative_rates`'s ``target``. Each entry
+    equals ``propagate_kepler(R0, V0, times[i])`` elementwise."""
+    R, V = propagate_kepler(R0, V0, torch.stack(
+        [torch.as_tensor(t, dtype=R0.dtype, device=R0.device)
+         for t in times]), mu=mu)
+    return list(zip(R.unbind(0), V.unbind(0)))
+
+
+def cw_relative_rates(t, y, accel, R0, V0, target=None, *, mu=MU_EARTH):
     """d/dt of [dr (3), dv (3)] (on ``y``'s last axis) with control
-    acceleration ``accel`` (km/s^2).
+    acceleration ``accel`` (km/s^2). ``target``: the target's ``(R, V)`` at
+    ``t`` when already propagated (:func:`target_states`).
 
     Curtis eq. 7.36 with time-varying R (Solver_position.m:296-306):
       ddx = (2mu/R^3 + H^2/R^4) dx - 2 (R.V) H/R^4 dy + 2H/R^2 dvy + a_x
@@ -27,7 +39,8 @@ def cw_relative_rates(t, y, accel, R0, V0, *, mu=MU_EARTH):
       ddz = -mu/R^3 dz + a_z
     ``t`` may be one time for the whole batch or one per batch member.
     """
-    R, V = propagate_kepler(R0, V0, t, mu=mu)
+    R, V = (propagate_kepler(R0, V0, t, mu=mu) if target is None
+            else target)
     nR = norm3(R)
     R1, R2, R3 = R.unbind(-1)
     V1, V2, V3 = V.unbind(-1)

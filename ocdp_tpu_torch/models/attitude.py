@@ -1,9 +1,22 @@
-"""Rigid-body attitude control: the full coupled 6-D solve and its rollout.
+"""Rigid-body attitude control: the per-axis simplified solve, the full
+coupled 6-D solve, their rollouts and the PD baseline.
 
-Counterpart of the full 6-D part of ``ocdp_tpu/models/attitude.py``
-(attitude-control/Solver_attitude.m:261-506, 744-833). The state grid is
-(omega1, omega2, omega3, yaw, pitch, roll) with the 27 torque combinations
-u in {-u_max, 0, u_max}^3 as one flat C-order action axis (u1 slowest), so
+Counterpart of ``ocdp_tpu/models/attitude.py``.
+
+The simplified solve (Solver_attitude.m:196-259) is 3 independent
+(omega_i, theta_i) 2-D problems with diagonal-inertia torque dynamics, one
+after another. The reference's RK4_t feeds omega back through the theta
+derivative, giving theta' = theta + h*omega*(1 + h/2 + h^2/6 + h^3/24)
+(``rk4_t_parity``). Each sweep runs through
+:class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D`, a CUDA kernel on
+the card. Its rollouts fly the three per-axis torque tables on the
+simplified plant, on the full nonlinear rigid body, and the quaternion PD
+baseline (:835-925, :508-591).
+
+The full 6-D part (attitude-control/Solver_attitude.m:261-506, 744-833):
+the state grid is (omega1, omega2, omega3, yaw, pitch, roll) with the 27
+torque combinations u in {-u_max, 0, u_max}^3 as one flat C-order action
+axis (u1 slowest), so
 one flat first-minimum argmin is the reference's chained 3-axis argmin
 (:400-409). Dynamics per sweep: an Euler step of omega with the gyroscopic
 cross terms, an Euler step of the quaternion built from the Euler
@@ -32,9 +45,6 @@ inside the kernel (B.5) instead of stored (24 B/cell), and a flat stored
 plan past ``CHUNKED_MIN_CELLS`` is built in row blocks. The rules read the
 cell count only; ``flat``, ``lane_mode``, ``chunked`` and ``carry_padded``
 force each mode at any size.
-
-The simplified per-axis solver's configuration fields are kept in
-:class:`AttitudeConfig`; its solver is not in this module.
 """
 
 from __future__ import annotations
@@ -51,16 +61,27 @@ from ..engine import (SolveResult, value_iteration_finite,
 from ..grids import Grid, linspace_axis
 from ..ops.backup6d import (Backup6D, LaneRecompute, RecomputePlan,
                             plan_is_flat)
-from ..ops.interp import (InterpPlan, PlanShape, affine_axes, axis_locate,
-                          build_plan, interp_apply, nearest_cell_index)
+from ..ops.band_backup2d import BandBackup2D
+from ..ops.interp import (AffineAxes, InterpPlan, PlanShape, affine_axes,
+                          axis_locate, build_plan, interp_apply,
+                          nearest_cell_index)
 from ..ops.kernelmath import quat_step_readback
+from ..ops.rowband import RowBandBackup2D
+from ..ops.rowlane import RowLaneBackup
 from ..profiling import SweepTimer, sweep_callback
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, resolve_impl
 from ..utils.frames import cross, matvec
+from ..utils.integrators import integrator_kwargs, rk4_step
 from ..utils.quaternions import kirk_quat_from_euler, quat_to_euler_zyx
 
 __all__ = [
     "AttitudeConfig",
+    "SimplifiedSolution",
+    "build_simplified_axis",
+    "solve_simplified",
+    "rollout_simplified_plant",
+    "rollout_simplified_real_dynamics",
+    "linear_control_response",
     "FullSolution",
     "decode_torque_digits",
     "build_full",
@@ -72,6 +93,7 @@ __all__ = [
 ]
 
 IMPLS = ("auto", "kernel", "plain", "gather")
+SIMPLIFIED_IMPLS = ("auto", "kernel", "plain", "rowband", "rowlane", "gather")
 LANE_MODES = ("auto", "plan", "recompute")
 _DEG = np.pi / 180.0
 
@@ -165,6 +187,267 @@ def decode_torque_digits(a, u_vec):
     i1, rem = a // (nu * nu), a % (nu * nu)
     return u_vec[i1], u_vec[rem // nu], u_vec[rem % nu]
 
+
+# ---------------------------------------------------------------- simplified
+
+def _quirk(h: float, on: bool) -> float:
+    return (1.0 + h / 2 + h * h / 6 + h**3 / 24) if on else 1.0
+
+
+class SimplifiedSolution(NamedTuple):
+    config: AttitudeConfig
+    axes: tuple       # per axis: (s_w, s_t), host numpy
+    u_tables: tuple   # per axis: (n_mesh_w, n_mesh_t) torque table
+    values: tuple
+    # the out-of-grid value policy the solve used: the default 'clamp'
+    # deviates from reference parity (MATLAB extrapolates) at edge cells,
+    # so parity comparisons read this field
+    edge: str = "clamp"
+
+    @property
+    def device(self) -> torch.device:
+        return self.values[0].device
+
+
+def build_simplified_axis(cfg: AttitudeConfig, axis: int, *,
+                          edge: str = "clamp", device="cuda"):
+    """Grid, Euler-step plan and stage-cost terms of simplified axis
+    ``axis`` (:231-242), on ``device``. Returns ``(grid, plan, terms)``:
+    the plan's queries are ``(n_w, 1, 3)`` on the omega axis (RK4_w: the
+    k's are equal, :631-645) and ``(n_w, n_t, 1)`` on the theta axis (the
+    RK4_t quirk, :647-661); the terms are ``Qw w^2``, ``Qq t^2`` and
+    ``R u^2``, whose sum in that order is the stage cost.
+
+    The next states keep the JAX package's operation order and float32
+    rounding; the torque divides by a float32 tensor (PyTorch on a CUDA
+    device would multiply by the reciprocal of a Python-scalar divisor).
+    """
+    device = resolve_device(device)
+    t_lo, t_hi = cfg.euler_ranges[axis]
+    s_w = linspace_axis(cfg.w_min_deg * _DEG, cfg.w_max_deg * _DEG,
+                        cfg.n_mesh_w)
+    s_t = linspace_axis(t_lo, t_hi, cfg.n_mesh_t)
+    grid = Grid((s_w, s_t))
+    w = torch.as_tensor(s_w, device=device).reshape(-1, 1, 1)
+    t = torch.as_tensor(s_t, device=device).reshape(1, -1, 1)
+    u = torch.as_tensor(cfg.u_vector, device=device).reshape(1, 1, -1)
+    J = torch.tensor(cfg.inertia_diag[axis], dtype=torch.float32,
+                     device=device)
+    w_next = w + cfg.h * u / J
+    t_next = t + cfg.h * w * _quirk(cfg.h, cfg.rk4_t_parity)
+    plan = build_plan(grid.axes, (w_next, t_next), edge=edge)
+    terms = (cfg.Qw[axis] * w**2, cfg.Qq[axis] * t**2, cfg.R[axis] * u**2)
+    return grid, plan, terms
+
+
+def solve_simplified(
+    cfg: AttitudeConfig = AttitudeConfig(),
+    *,
+    num_sweeps: Optional[int] = None,
+    impl: str = "auto",
+    edge: str = "clamp",
+    verbose: bool = False,
+    device="cuda",
+) -> SimplifiedSolution:
+    """3 decoupled (omega, theta) solves (:196-259), one after another, on
+    ``device``: the card unless the caller asks for ``"cpu"``; raises
+    without a card. ``num_sweeps`` defaults to ``n_stage - 1``.
+
+    ``impl``: ``'auto'`` (the banded 2-D backup of
+    :class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D`: its CUDA
+    kernel on a CUDA device, its plain version on the CPU), ``'kernel'``
+    (the same, CUDA devices only), ``'plain'`` (the plain version, any
+    device), ``'rowband'`` (the row-band backup, the JAX package's auto
+    path), ``'rowlane'`` (the row/lane backup: kernel B.2 on a CUDA device,
+    its plain version on the CPU) or ``'gather'`` (the gather oracle with
+    the dense cost). The JAX package's XLA stencil is not ported.
+
+    ``edge='clamp'`` (default) projects out-of-grid next states onto the
+    grid boundary, which keeps value iteration stable; ``'extrapolate'`` is
+    strict reference parity, whose edge cells diverge over the full
+    5999-sweep horizon (the reference's own behaviour; see the JAX
+    package's docstring). ``verbose`` prints the reference's per-stage
+    timing lines.
+    """
+    device = resolve_device(device)
+    impl = resolve_impl(impl, device, SIMPLIFIED_IMPLS, cpu_auto="plain")
+    sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
+    on_sweep = sweep_callback(verbose)
+    u_vec = torch.as_tensor(cfg.u_vector, device=device)
+    axes_out, tables, values = [], [], []
+    for i in range(3):
+        grid, plan, terms = build_simplified_axis(cfg, i, edge=edge,
+                                                  device=device)
+        cost = backup = None
+        if impl in ("kernel", "plain"):
+            bk = BandBackup2D(plan, terms)
+            backup = bk if impl == "kernel" else bk.plain
+        elif impl == "rowband":
+            backup = RowBandBackup2D(plan, terms)
+        elif impl == "rowlane":
+            # (omega, theta) is row/lane separable as it stands: omega'
+            # depends on (omega, u), theta' on (theta, omega)
+            backup = RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+        else:
+            cost = terms[0] + terms[1] + terms[2]
+        res = value_iteration_finite(plan, cost, sweeps, backup=backup,
+                                     on_sweep=on_sweep)
+        axes_out.append(grid.axes)
+        tables.append(u_vec[res.argmin.long()])
+        values.append(res.values)
+    return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),
+                              tuple(values), edge)
+
+
+def _simplified_lookup(sol: SimplifiedSolution, device):
+    """``(omega (3,), theta (3,)) -> torques (3,)``: the three axes' nearest
+    policy lookups (MATLAB 'nearest', lower snap at midpoints) as one affine
+    locate and one gather."""
+    tables = torch.stack([t.to(device).reshape(-1) for t in sol.u_tables])
+    affs = [affine_axes(ax, device=device) for ax in sol.axes]
+    aff = AffineAxes(*(torch.stack(f) for f in zip(*affs)))
+    n_t = len(sol.axes[0][1])
+    ch = torch.arange(3, device=device)
+
+    def lookup(w, t):
+        idx = nearest_cell_index(aff, torch.stack([w, t], dim=-1)).long()
+        return tables[ch, idx[:, 0] * n_t + idx[:, 1]]
+
+    return lookup
+
+
+def _default_axis_x0() -> torch.Tensor:
+    """(3, 2) per-axis (omega, theta) start: zero rates and the angles of
+    the standard X0, theta_i = 2 asin(kirk q_i)."""
+    q = torch.as_tensor(AttitudeConfig.default_x0()[3:7])
+    theta = 2.0 * torch.arcsin(torch.clamp(q[:3], -1.0, 1.0))
+    return torch.stack([torch.zeros(3), theta], dim=1)
+
+
+def rollout_simplified_plant(sol: SimplifiedSolution, x0=None, *,
+                             num_stages: Optional[int] = None, device=None):
+    """Policy on the SIMPLIFIED plant: 3 decoupled (omega_i, theta_i)
+    double integrators stepped with the training dynamics, the first half
+    of the reference's train-on-simplified / validate-on-real check
+    (attitude-control/test/test_simplified.m:121-264), on the solution's
+    device or on ``device``.
+
+    ``x0``: (3, 2) per-axis (omega, theta) initial states (default: zero
+    rates and the angles of the standard X0). Returns (X, U) with X
+    (N, 3, 2) and U (N-1, 3).
+    """
+    cfg = sol.config
+    n = num_stages or cfg.n_stage
+    dev = sol.device if device is None else torch.device(device)
+    c_h = _quirk(cfg.h, cfg.rk4_t_parity)
+    lookup = _simplified_lookup(sol, dev)
+    J = torch.tensor(cfg.inertia_diag, dtype=torch.float32, device=dev)
+    X = (_default_axis_x0() if x0 is None
+         else torch.as_tensor(np.asarray(x0, np.float32))).to(dev)
+    Xs, Us = [X], []
+    for _ in range(n - 1):
+        U = lookup(X[:, 0], X[:, 1])
+        w_next = X[:, 0] + cfg.h * U / J
+        t_next = X[:, 1] + cfg.h * X[:, 0] * c_h
+        X = torch.stack([w_next, t_next], dim=1)
+        Xs.append(X)
+        Us.append(U)
+    return torch.stack(Xs), torch.stack(Us)
+
+
+def rollout_simplified_real_dynamics(
+    sol: SimplifiedSolution,
+    x0=None,
+    *,
+    num_stages: Optional[int] = None,
+    ode_tol: Optional[float] = None,
+    integrator: str = "ode45",
+    device=None,
+):
+    """Train on simplified, validate on real (:835-925), on the solution's
+    device or on ``device``: per-axis policies looked up at (omega_i,
+    2 asin(kirk q_i)); the plant is the full nonlinear rigid body with the
+    complete inertia matrix, integrated per stage with ``integrator``:
+    'ode45' (default; the reference uses MATLAB ode45 here,
+    Solver_attitude.m:851,885), 'rkf45' (Fehlberg) or 'rk4' (one fixed step
+    per stage, the serving mode). ``ode_tol=None`` keeps each pair's
+    reference defaults; a value sets rkf45's tol, or ode45's RelTol with
+    AbsTol at MATLAB's 1e-3 ratio.
+
+    Returns (X, U): states (N, 7), torques (N-1, 3).
+    """
+    cfg = sol.config
+    n = num_stages or cfg.n_stage
+    dev = sol.device if device is None else torch.device(device)
+    adaptive, kw = integrator_kwargs(integrator, ode_tol)
+    lookup = _simplified_lookup(sol, dev)
+
+    def mat(a):
+        return torch.tensor(np.asarray(a, np.float32), device=dev)
+
+    inertia = mat(cfg.inertia_matrix)
+    inertia_inv = mat(np.linalg.inv(cfg.inertia_matrix))
+    X = torch.as_tensor(AttitudeConfig.default_x0() if x0 is None
+                        else np.asarray(x0, np.float32), device=dev)[None]
+    Xs, Us = [X[0]], []
+    for k in range(n - 1):
+        theta = 2.0 * torch.arcsin(torch.clamp(X[0, 3:6], -1.0, 1.0))
+        U = lookup(X[0, 0:3], theta)
+
+        def f(_t, y, U=U):
+            return attitude_rates_kirk(y, U, inertia, inertia_inv)
+
+        t0 = torch.tensor(float(k), dtype=torch.float32, device=dev) * cfg.h
+        X = _renorm_q(adaptive(f, t0, t0 + cfg.h, X, **kw))
+        Xs.append(X[0])
+        Us.append(U)
+    return torch.stack(Xs), torch.stack(Us)
+
+
+def linear_control_response(
+    cfg: AttitudeConfig = AttitudeConfig(),
+    x0=None,
+    *,
+    T_final: Optional[float] = None,
+    dt: Optional[float] = None,
+    K: float = 0.2,
+    C: float = 1.0,
+    device="cuda",
+):
+    """Quaternion PD baseline (:508-591) on ``device``: U = -K q_vec - C w,
+    RK4 steps of the diagonal-inertia 7-state dynamics with quaternion
+    renormalization.
+
+    Returns (X, U, drift): states (n+1, 7), torques (n, 3) and
+    |(|q| at T_final) - 1|, the reference's integration-error metric
+    (:543-548).
+    """
+    device = resolve_device(device)
+    h = dt or cfg.h
+    n = int(np.ceil((T_final or cfg.T_final) / h))
+
+    def mat(a):
+        return torch.tensor(np.asarray(a, np.float32), device=device)
+
+    inertia_d = mat(np.diag(cfg.inertia_diag))
+    inertia_d_inv = mat(np.diag(1.0 / np.asarray(cfg.inertia_diag)))
+    X = torch.as_tensor(AttitudeConfig.default_x0() if x0 is None
+                        else np.asarray(x0, np.float32), device=device)
+    Xs, Us = [X], []
+    for _ in range(n):
+        U = -K * X[3:6] - C * X[0:3]
+
+        def f(_t, y, U=U):
+            return attitude_rates_kirk(y, U, inertia_d, inertia_d_inv)
+
+        X = _renorm_q(rk4_step(f, 0.0, X, h))
+        Xs.append(X)
+        Us.append(U)
+    drift = torch.abs(torch.linalg.vector_norm(X[3:7]) - 1.0)
+    return torch.stack(Xs), torch.stack(Us), drift
+
+
+# ----------------------------------------------------------------- full 6-D
 
 class FullSolution(NamedTuple):
     config: AttitudeConfig

@@ -40,7 +40,7 @@ import numpy as np
 import torch
 
 from ..dynamics.orbital import target_orbit_R0V0
-from ..dynamics.relmotion import cw_relative_rates
+from ..dynamics.relmotion import cw_relative_rates, target_states
 from ..engine import SolveResult, value_iteration_converged
 from ..grids import Grid, sym_linspace_exact
 from ..io import ChannelController, save_channel_controller
@@ -49,7 +49,7 @@ from ..ops.interp import (AffineAxes, InterpPlan, affine_axes, build_plan,
 from ..ops.rowlane import RowLaneBackup
 from ..profiling import sweep_callback
 from ..utils.frames import cross, matvec, rsw_to_eci_matrix
-from ..utils.device import resolve_device
+from ..utils.device import resolve_device, resolve_impl
 from ..utils.integrators import integrator_kwargs
 from ..utils.quaternions import (euler_zyx_to_quat, quat_kinematics,
                                  quat_to_dcm, small_angles_from_quat)
@@ -242,16 +242,6 @@ def build_channel_rowlane_backup(cfg: PosAttConfig,
     return RowLaneBackup(problem.plan, terms, perm=(1, 3, 0, 2), row_axes=2)
 
 
-def _resolve_impl(impl: str, device: torch.device) -> str:
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; use one of {IMPLS}")
-    if impl == "auto":
-        return "kernel" if device.type == "cuda" else "rowlane"
-    if impl == "kernel" and device.type != "cuda":
-        raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
-    return impl
-
-
 def solve_channel(
     cfg: PosAttConfig,
     channel: str,
@@ -275,7 +265,7 @@ def solve_channel(
     errorU %f' lines (Solver_pos_att.m:272-279).
     """
     device = resolve_device(device)
-    impl = _resolve_impl(impl, device)
+    impl = resolve_impl(impl, device, IMPLS, cpu_auto="rowlane")
     sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
     problem = build_channel(cfg, channel, failure=failure,
                             with_cost=impl == "gather", device=device)
@@ -394,15 +384,20 @@ def _closed_loop(lookup, y0, R0, V0, inertia, inertia_inv, *, n, h, arm,
                  mass, accel_scale, integrator, ode_tol):
     """The 13-state closed loop of a batch ``y0`` (B, 13) over ``n``
     stages: per stage the policy lookup, the moments and accelerations, and
-    one integrator span of the plant (Solver_pos_att.m:452-730)."""
+    one integrator span of the plant (Solver_pos_att.m:452-730). The target
+    orbit is propagated once per integrator step for all its stage times
+    (``target_states``), elementwise the same as once per stage."""
     adaptive, kw = integrator_kwargs(integrator, ode_tol)
     dev = y0.device
     m_rsw = rsw_to_eci_matrix(R0, V0)
     mass_t = torch.tensor(mass, dtype=torch.float32, device=dev)
 
+    def target(times):
+        return target_states(R0, V0, times)
+
     def rates(a_rsw, U_M):
-        def f(tt, yy):
-            trans = cw_relative_rates(tt, yy[..., 0:6], a_rsw, R0, V0)
+        def f(tt, yy, rv):
+            trans = cw_relative_rates(tt, yy[..., 0:6], a_rsw, R0, V0, rv)
             wb = yy[..., 10:13]
             qdot = quat_kinematics(yy[..., 6:10], wb)
             wdot = matvec(inertia_inv, U_M - cross(wb, matvec(inertia, wb)))
@@ -433,7 +428,8 @@ def _closed_loop(lookup, y0, R0, V0, inertia, inertia_inv, *, n, h, arm,
         a_rsw = matvec(m_rsw.T, matvec(dcm.transpose(-1, -2), a_body)) \
             * accel_scale
         t0 = torch.tensor(float(k), dtype=torch.float32, device=dev) * h
-        y = adaptive(rates(a_rsw, U_M), t0, t0 + h, y, **kw)
+        y = adaptive(rates(a_rsw, U_M), t0, t0 + h, y, prepare=target,
+                     **kw)
         X.append(y)
         F_th.append(torch.cat([fx[..., :2], fy[..., :2], fz[..., :2],
                                fx[..., 2:], fy[..., 2:], fz[..., 2:]], -1))

@@ -373,6 +373,19 @@ def _split_cost(terms, shape, nr, n_act):
     return c_row, c_lane, c_act, c_rowact, c_rowlane
 
 
+def _with_unit_axis(lo, fr, terms, shape, p):
+    """Insert a size-1 state axis at position ``p`` into the permuted plan
+    arrays, the cost terms and the shape; the new axis's queries stay on its
+    one point (lo 0, frac 0)."""
+    unit = (1,) * (len(shape) + 2)
+    lo = [np.expand_dims(a, p) for a in lo]
+    fr = [np.expand_dims(a, p) for a in fr]
+    lo.insert(p, np.zeros(unit, np.int32))
+    fr.insert(p, np.zeros(unit, np.float32))
+    terms = [np.expand_dims(t, p) for t in terms]
+    return lo, fr, terms, shape[:p] + (1,) + shape[p:]
+
+
 def _upload(a, dtype, device):
     return None if a is None else torch.tensor(
         np.ascontiguousarray(a), dtype=dtype, device=device)
@@ -382,7 +395,10 @@ class RowLaneBackup:
     """Callable ``values -> BackupResult`` over one plan and stage cost,
     computed on the state axes permuted by ``perm`` with the first
     ``row_axes`` of them as rows (pos-att: ``perm=(1, 3, 0, 2)``,
-    ``row_axes=2``: rows (v, omega), lanes (x, theta)).
+    ``row_axes=2``: rows (v, omega), lanes (x, theta); the simplified
+    attitude axes: ``perm=(0, 1)``, ``row_axes=1``). The kernel takes two
+    row and two lane axes, so a group of one axis gets a unit axis in front
+    of it, whose tap weight is exactly 1.
 
     ``plan``: an :class:`InterpPlan` whose queries broadcast to
     ``(*state_shape, n_actions)``. ``cost_terms``: broadcast-shaped terms
@@ -414,12 +430,21 @@ class RowLaneBackup:
 
         lo = [permuted(plan.lo[k]).astype(np.int32) for k in self.perm]
         fr = [permuted(plan.frac[k]).astype(np.float32) for k in self.perm]
+        terms = [permuted(t) for t in
+                 (cost_terms if isinstance(cost_terms, (tuple, list))
+                  else [cost_terms])]
         shape = tuple(plan.grid_shape[k] for k in self.perm)
         self.state_shape = shape
         n_act = plan.query_shape[-1]
         nr = row_axes
         nw, ne = int(np.prod(shape[:nr])), int(np.prod(shape[nr:]))
         self.NW, self.NE = nw, ne
+        if nr == 1:
+            lo, fr, terms, shape = _with_unit_axis(lo, fr, terms, shape, 0)
+            nr = 2
+        if len(shape) - nr == 1:
+            lo, fr, terms, shape = _with_unit_axis(lo, fr, terms, shape, nr)
+        d = len(shape)
 
         w_off, w_frac = _row_plan(lo, fr, shape, nr, n_act)
 
@@ -464,10 +489,8 @@ class RowLaneBackup:
                 f" and {MAX_ACTIONS} actions")
 
         # the factorized stage cost
-        terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
-                 else [cost_terms])
         c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
-            [permuted(t) for t in terms], shape, nr, n_act)
+            terms, shape, nr, n_act)
         self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
 
         def up(a, dtype):

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "resolve_impl"]
 
 
 def resolve_device(device) -> torch.device:
@@ -21,3 +21,17 @@ def resolve_device(device) -> torch.device:
             "available (torch.cuda.is_available() is false); pass "
             "device='cpu' to run on the CPU")
     return device
+
+
+def resolve_impl(impl: str, device: torch.device, impls, *,
+                 cpu_auto: str) -> str:
+    """A solve's ``impl`` on ``device``: one of ``impls``; ``'auto'`` is
+    ``'kernel'`` on a CUDA device and ``cpu_auto`` elsewhere; ``'kernel'``
+    needs a CUDA device. Raises ``ValueError`` otherwise."""
+    if impl not in impls:
+        raise ValueError(f"unknown impl {impl!r}; use one of {impls}")
+    if impl == "auto":
+        return "kernel" if device.type == "cuda" else cpu_auto
+    if impl == "kernel" and device.type != "cuda":
+        raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
+    return impl

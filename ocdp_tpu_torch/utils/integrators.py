@@ -13,6 +13,13 @@ no longer changes while the others step on, which is what ``jax.vmap`` of
 the JAX package's ``while_loop`` does, so a member of a batch equals the
 same flight alone. The host reads one "any member still stepping" flag per
 step.
+
+``prepare``: an optional callable that every integrator calls once per
+step with the step's stage times (a list; the stage times do not depend on
+the state), before the first stage. It returns one entry per stage, and
+stage i then calls ``f(t_i, y_i, aux[i])`` instead of ``f(t_i, y_i)``. The
+rollouts use it to propagate the target orbit at all stage times in one
+batched Kepler solve, elementwise the same as one solve per stage.
 """
 
 from __future__ import annotations
@@ -24,12 +31,22 @@ __all__ = ["rk4_step", "rkf45_integrate", "ode45_integrate",
            "adaptive_integrator", "integrator_kwargs"]
 
 
-def rk4_step(f, t, y, h):
+def _stages(f, prepare, times):
+    """``stage(i, y)``: the derivative at stage time ``times[i]``, with the
+    stage's entry of ``prepare(times)`` when ``prepare`` is given."""
+    if prepare is None:
+        return lambda i, y: f(times[i], y)
+    aux = prepare(times)
+    return lambda i, y: f(times[i], y, aux[i])
+
+
+def rk4_step(f, t, y, h, *, prepare=None):
     """One classical RK4 step of ``dy/dt = f(t, y)``."""
-    k1 = f(t, y)
-    k2 = f(t + h / 2, y + (h / 2) * k1)
-    k3 = f(t + h / 2, y + (h / 2) * k2)
-    k4 = f(t + h, y + h * k3)
+    stage = _stages(f, prepare, [t, t + h / 2, t + h / 2, t + h])
+    k1 = stage(0, y)
+    k2 = stage(1, y + (h / 2) * k1)
+    k3 = stage(2, y + (h / 2) * k2)
+    k4 = stage(3, y + h * k3)
     return y + (h / 6) * (k1 + 2 * k2 + 2 * k3 + k4)
 
 
@@ -88,7 +105,8 @@ def _poison_truncated(t, t1, y):
     return torch.where(t < t1, nan, torch.ones_like(t))[..., None] * y
 
 
-def rkf45_integrate(f, t0, t1, y0, *, tol=1e-8, max_steps=10_000):
+def rkf45_integrate(f, t0, t1, y0, *, tol=1e-8, max_steps=10_000,
+                    prepare=None):
     """Adaptive RKF4(5) from ``t0`` to ``t1``; returns ``y(t1)``.
 
     The reference's step control (rkf45.m:73-113): initial step
@@ -105,6 +123,8 @@ def rkf45_integrate(f, t0, t1, y0, *, tol=1e-8, max_steps=10_000):
         if not bool(live.any()):
             return _poison_truncated(t, t1, y)
         h = torch.minimum(h, t1 - t)
+        stage = _stages(f, prepare, [t + float(np.float32(_A[i])) * h
+                                     for i in range(6)])
         ks = []
         for i in range(6):
             yi = y
@@ -112,7 +132,7 @@ def rkf45_integrate(f, t0, t1, y0, *, tol=1e-8, max_steps=10_000):
                 if _B[i, j] != 0.0:
                     yi = yi + (h * float(np.float32(_B[i, j])))[..., None] \
                         * ks[j]
-            ks.append(f(t + float(np.float32(_A[i])) * h, yi))
+            ks.append(stage(i, yi))
         te = h[..., None] * _weighted(_C4 - _C5, ks)
         y5 = y + h[..., None] * _weighted(_C5, ks)
 
@@ -129,7 +149,7 @@ def rkf45_integrate(f, t0, t1, y0, *, tol=1e-8, max_steps=10_000):
 
 
 def ode45_integrate(f, t0, t1, y0, *, rtol=1e-3, atol=1e-6,
-                    max_steps=10_000):
+                    max_steps=10_000, prepare=None):
     """Adaptive Dormand-Prince 5(4) from ``t0`` to ``t1``; returns ``y(t1)``.
 
     MATLAB ``ode45``'s defaults (RelTol=1e-3, AbsTol=1e-6):
@@ -149,7 +169,7 @@ def ode45_integrate(f, t0, t1, y0, *, rtol=1e-3, atol=1e-6,
     thr = atol / rtol
     hmax = 0.1 * (t1 - t)
 
-    k1 = f(t, y)
+    k1 = _stages(f, prepare, [t])(0, y)
     rh = torch.amax(torch.abs(k1) / torch.clamp(torch.abs(y), min=thr),
                     dim=-1) / (0.8 * rtol ** 0.2)
     h = torch.minimum(hmax, t1 - t)
@@ -161,6 +181,8 @@ def ode45_integrate(f, t0, t1, y0, *, rtol=1e-3, atol=1e-6,
         if not bool(live.any()):
             return _poison_truncated(t, t1, y)
         h = torch.minimum(h, t1 - t)
+        stage = _stages(f, prepare, [t + float(np.float32(_DP_C[i])) * h
+                                     for i in range(1, 7)])
         ks = [k1]
         for i in range(1, 7):
             yi = y
@@ -168,7 +190,7 @@ def ode45_integrate(f, t0, t1, y0, *, rtol=1e-3, atol=1e-6,
                 if _DP_A[i, j] != 0.0:
                     yi = yi + (h * float(np.float32(_DP_A[i, j])))[..., None] \
                         * ks[j]
-            ks.append(f(t + float(np.float32(_DP_C[i])) * h, yi))
+            ks.append(stage(i - 1, yi))
         y5 = y + h[..., None] * _weighted(_DP_B5, ks)
         ek = _weighted(_DP_E, ks)
         denom = torch.clamp(torch.maximum(torch.abs(y), torch.abs(y5)),
@@ -206,9 +228,9 @@ def adaptive_integrator(name: str):
         ) from None
 
 
-def _rk4_span(f, t0, t1, y0):
+def _rk4_span(f, t0, t1, y0, *, prepare=None):
     """Fixed-step bridge: ONE classical RK4 step across [t0, t1]."""
-    return rk4_step(f, t0, y0, t1 - t0)
+    return rk4_step(f, t0, y0, t1 - t0, prepare=prepare)
 
 
 def integrator_kwargs(name: str, tol=None):

@@ -1,6 +1,7 @@
 """The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
-carry mode, lane recompute) vs their plain PyTorch versions, on a card.
+carry mode, lane recompute; the banded 2-D backup with its channel batch)
+vs their plain PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -15,8 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-from ocdp_tpu_torch.models import attitude, kirk, pos_att
+from ocdp_tpu_torch.models import attitude, kirk, pos_att, position
 from ocdp_tpu_torch.ops import backup6d as b6
+from ocdp_tpu_torch.ops import band_backup2d as bb
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
 from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
@@ -288,3 +290,119 @@ def test_envelope_carry_solve_equals_plain(device, lane_mode):
                        sp.result.values)
     assert torch.equal(sk.result.argmin.reshape(sp.result.argmin.shape),
                        sp.result.argmin)
+
+
+def _band_vs_plain(bk, v):
+    before = bb.band_backup2d_cuda.launches
+    got = bk(v)
+    torch.cuda.synchronize()
+    assert bb.band_backup2d_cuda.launches == before + 1
+    _bitwise(got, bk.plain(v))
+    return got
+
+
+def _seeded(shape, device, seed=12):
+    return torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.0, 100.0, shape).astype(np.float32)).to(device)
+
+
+@pytest.mark.parametrize("edge", ["clamp", "extrapolate"])
+@pytest.mark.parametrize("size,axis", [((17, 40), 0), ((1000, 300), 0),
+                                       ((1000, 300), 2)],
+                         ids=["17x40", "full-yaw", "full-roll"])
+def test_band_one_sweep_bitwise(device, size, axis, edge):
+    """B.6 vs its plain version, one sweep: at (17, 40) and on full
+    simplified axes (25 and 27 live omega taps), both edge policies."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=size[0], n_mesh_t=size[1])
+    _, plan, terms = attitude.build_simplified_axis(cfg, axis, edge=edge,
+                                                    device=device)
+    _band_vs_plain(bb.BandBackup2D(plan, terms), _seeded(size, device))
+
+
+def test_band_wide_band_runs_the_kernel(device):
+    """The roll axis at n_mesh_w=2500 needs a 67-tap omega band, past the
+    JAX stencil's 64-tap cap: the kernel reads only lo/frac, so the auto
+    solve runs it, and one sweep equals the plain tap loop bitwise."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=2500, n_mesh_t=300)
+    _, plan, terms = attitude.build_simplified_axis(cfg, 2, device=device)
+    bk = bb.BandBackup2D(plan, terms)
+    _band_vs_plain(bk, _seeded((2500, 300), device))
+    t_lo, t_hi = bk.taps.taps[0]
+    assert t_hi - t_lo + 2 > 64
+    before = bb.band_backup2d_cuda.launches
+    sol = attitude.solve_simplified(cfg, num_sweeps=3)
+    assert bb.band_backup2d_cuda.launches == before + 9
+    assert all(bool(torch.isfinite(v).all()) for v in sol.values)
+
+
+def test_band_channel_batch_bitwise(device):
+    """Position's C = 3 batch at PositionConfig(): the kernel equals the
+    plain version, and each channel equals its own C = 1 sweep."""
+    p = position.build(position.PositionConfig(), device=device)
+    bk = bb.BandBackup2D(p.plan, p.stage_cost)
+    v = _seeded(p.plan.grid_shape, device)
+    got = _band_vs_plain(bk, v)
+    for c in range(3):
+        plan_c = InterpPlan((p.plan.lo[1][0], p.plan.lo[2][0]),
+                            (p.plan.frac[1][0], p.plan.frac[2][0]),
+                            p.plan.grid_shape[1:])
+        one = bb.BandBackup2D(plan_c, p.stage_cost[c])(v[c])
+        assert torch.equal(one.values, got.values[c])
+        assert torch.equal(one.argmin, got.argmin[c])
+
+
+def _tied_band_backup(device):
+    """A simplified axis with h = 0 (every query on a grid point), no cost
+    and each action listed twice: every minimum is an exact tie."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=50, n_mesh_t=30, h=0.0)
+    _, plan, _ = attitude.build_simplified_axis(cfg, 0, device=device)
+
+    def twice(a):
+        return torch.cat([a, a], dim=-1) if a.shape[-1] > 1 else a
+
+    plan = InterpPlan(tuple(twice(a) for a in plan.lo),
+                      tuple(twice(a) for a in plan.frac), plan.grid_shape)
+    return bb.BandBackup2D(plan, torch.zeros((50, 30, 6), device=device))
+
+
+def test_band_exact_ties_take_the_first_action(device):
+    bk = _tied_band_backup(device)
+    got = _band_vs_plain(bk, _seeded((50, 30), device))
+    assert int(got.argmin.max()) == 0
+
+
+def test_solve_simplified_kernel_equals_plain(device):
+    cfg = attitude.AttitudeConfig(n_mesh_w=101, n_mesh_t=40)
+    before = bb.band_backup2d_cuda.launches
+    sk = attitude.solve_simplified(cfg, num_sweeps=20)    # the card, B.6
+    assert bb.band_backup2d_cuda.launches == before + 60
+    sp = attitude.solve_simplified(cfg, num_sweeps=20, impl="plain",
+                                   device=device)
+    assert bb.band_backup2d_cuda.launches == before + 60
+    for i in range(3):
+        assert sk.values[i].is_cuda
+        assert torch.equal(sk.values[i], sp.values[i])
+        assert torch.equal(sk.u_tables[i], sp.u_tables[i])
+
+
+def test_solve_simplified_rowlane_runs_kernel_b2(device):
+    """impl='rowlane' on the card: one axis as rows (omega,) and lanes
+    (theta,), each with a unit axis in front, through the B.2 kernel."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=101, n_mesh_t=40)
+    before = rl.rowlane_backup_cuda.launches
+    sk = attitude.solve_simplified(cfg, num_sweeps=10, impl="rowlane")
+    assert rl.rowlane_backup_cuda.launches == before + 30
+    _, plan, terms = attitude.build_simplified_axis(cfg, 1, device=device)
+    bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+    assert bk.args.row_shape == (1, 101) and bk.args.lane_shape == (1, 40)
+    _rowlane_vs_plain(bk, _seeded((101, 40), device))
+    assert all(bool(torch.isfinite(v).all()) for v in sk.values)
+
+
+def test_position_solve_kernel_equals_plain(device):
+    cfg = position.PositionConfig(n_mesh_x=60, n_mesh_v=60)
+    before = bb.band_backup2d_cuda.launches
+    sk = position.solve(cfg, num_sweeps=20)
+    assert bb.band_backup2d_cuda.launches == before + 20
+    sp = position.solve(cfg, num_sweeps=20, impl="plain", device=device)
+    _bitwise(sk.result, sp.result)
