@@ -125,6 +125,38 @@ Simplified attitude and position (kernel ``band_backup2d``, B.6):
     ported row-band backup and the row/lane kernel (B.2) on the same
     simplified axis, and the two main solves' wall times.
 
+The multi-rank engines (kernel ``backup6d`` in its B.7 modes, wrappers
+``backup6d_block`` and ``backup6d_slice``) on in-process meshes of ranks on
+the one card (NCCL across cards is not exercised here):
+
+27. B.7 vs its plain version: the row blocks of 2 and 4 ranks at 11^3 x
+    10^3 (random table and the table after 50 sweeps; int32, uint8 and
+    min-only), of 2 ranks at 19^3 x 14^3 on the flat (B.4) and recompute
+    (B.5) plans, each of the 3 digit slices of the whole table and of each
+    2-rank block (the 2 x 3 main path's shapes), and an exact-tie case:
+    bitwise; the 3 slices combined by the first minimum equal one B.3 sweep
+    (whole table) or the block's B.7 sweep (each block) bitwise;
+28. the main path, ``value_iteration_finite_halo6`` at 11^3 x 10^3 on 2
+    ranks over the full 5999 sweeps: ``backup6d_block`` launches exactly 2 x
+    5999 times and no other backup kernel runs; values and argmin equal
+    phase 13's one-device solve bitwise; the halo bytes moved equal the
+    analytic count;
+29. the 2 x 3 mesh (rows x digit slices) over 5999 sweeps, with the digit
+    path asserted and ``backup6d_slice`` launched 6 x 5999 times, bitwise
+    equal to phase 13; the 1-D and 2-D converged engines against phase
+    14's (``check_every=50, tol=1e-2``): same sweep count and stop flag,
+    bitwise tables; 4 ranks over 200 sweeps with uint8 policies;
+30. the envelope over the mesh: 30^3 x 16^3 on the recompute plan, 2 ranks,
+    10 sweeps, bitwise equal to one-device B.5; the width guard raising on
+    11 ranks;
+31. the replicated-table engine (Kirk, 2 x 2), the halo engine with B.6 (a
+    simplified axis, 2 ranks), ``pos_att.solve_channel_sharded`` (both
+    engines) and ``pos_att.solve_ep`` against their one-device solves, and
+    the dryrun twin ``dryrun_multichip(8)``;
+32. timing with CUDA events, warm, median of 10: one B.7 block call and one
+    slice call beside their plain versions and bounds, and one halo6 sweep
+    on 2 ranks and on 2 x 3.
+
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (each input read once, each output written once) over
@@ -242,6 +274,8 @@ def main() -> None:
     kernels += [b3, *envelope_phases(device, b3)]
     free_cuda()
     kernels.append(band_phases(device))
+    free_cuda()
+    kernels += multirank_phases(device)
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
@@ -260,7 +294,9 @@ LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
              "backup6d": b6.backup6d_cuda,
              "backup6d_flat": b6.backup6d_flat_cuda,
              "backup6d_recompute": b6.backup6d_recompute_cuda,
-             "band_backup2d": bb.band_backup2d_cuda}
+             "band_backup2d": bb.band_backup2d_cuda,
+             "backup6d_block": b6.backup6d_block_cuda,
+             "backup6d_slice": b6.backup6d_slice_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -658,6 +694,8 @@ def rowlane_bound(bk) -> dict:
 
 
 ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
+# phase 13's and 14's one-device solves, which phases 28-29 are held to
+REF_6D = {}
 # the mangled names of the 6-D kernel's instantiations <ArgT, kTrack,
 # kRecompute>: B.3, B.4 with a uint8 argmin, B.5 with a uint8 argmin
 B3_KERNEL = "backup6d_sweepIiLb1ELb0E"
@@ -710,8 +748,16 @@ def backup6d_vs_plain(bk, v, label: str) -> float:
 def backup6d_bound(bk) -> dict:
     """FP32 operations and bytes of one 6-D sweep, as its plain version does
     them (``backup6d_plain``), from this plan's tap structure."""
-    a = bk.args
-    nw, ne, n_act = bk.NW, bk.NE, a.n_actions
+    return backup6d_args_bound(bk.args, bk.NE)
+
+
+def backup6d_args_bound(a, ne: int) -> dict:
+    """The bound of one sweep of the kernel's inputs ``a`` over its output
+    rows (a B.7 block reads its halo rows too) and its action range (a B.7
+    slice: the actions of the range; the full-width row plan is read)."""
+    nw, n_all = a.n_rows, a.n_actions
+    a_lo, a_hi = a.action_range
+    n_act = a_hi - a_lo
     n_row, n_lane = len(a.row_combos), len(a.lane_combos)
     e_taps = [len({c[k] for c in a.lane_combos}) for k in range(3)]
     per_cell = (2 * sum(e_taps)              # lane tap weights
@@ -733,15 +779,17 @@ def backup6d_bound(bk) -> dict:
     else:
         per_cell += n_act * (2 * n_row - 1)
         per_row += n_act * 2 * n_row            # row-combo weight products
-    per_cell += (sum(1 for c in a.c_act if c)
+    per_cell += (sum(1 for c in a.c_act[a_lo:a_hi] if c)
                  + (n_act if a.c_rowact is not None else 0)
                  + (n_act - 1) + 3)             # costs, compares, final adds
-    # table in; the lane plan (24 B/cell) or, recomputed, the rows' omegas
-    # and the lanes' kirk-q; values and argmin out
+    # table in (with a block's halo rows); the lane plan (24 B/cell) or,
+    # recomputed, the rows' omegas and the lanes' kirk-q; values and argmin
+    # out
+    table_rows = nw + sum(a.halo)
     lane_bytes = 24 * nw * ne if a.lanes is None else 12 * nw + 16 * ne
-    nbytes = (4 * nw * ne + 24 * nw * n_act + lane_bytes
+    nbytes = (4 * table_rows * ne + 24 * nw * n_all + lane_bytes
               + 4 * (nw + ne)
-              + (4 * nw * n_act if a.c_rowact is not None else 0)
+              + (4 * nw * n_all if a.c_rowact is not None else 0)
               + (4 * nw * ne if a.c_rowlane is not None else 0)
               + (4 + a.argmin_dtype.itemsize) * nw * ne)
     if a.lanes is not None:
@@ -823,6 +871,7 @@ def attitude_phases(device) -> dict:
     check(launches == sweeps,
           f"backup6d launched {launches} times, want {sweeps}")
     res = sol.result
+    REF_6D["finite"] = res
     check(res.values.is_cuda and tuple(res.values.shape) == bk.state_shape
           and bool(torch.isfinite(res.values).all()),
           "main path: wrong device, shape or non-finite values")
@@ -849,6 +898,7 @@ def attitude_phases(device) -> dict:
     print(f"segmented: {seg.num_sweeps} sweeps, converged {seg.converged}, "
           f"{seg_s:.3f} s; converged engine: {conv.num_sweeps} sweeps, "
           f"converged {conv.converged}, {conv_s:.3f} s")
+    REF_6D["converged"] = conv
     check(seg.num_sweeps == conv.num_sweeps
           and seg.converged == conv.converged,
           "segmented and converged engines stopped differently")
@@ -1636,6 +1686,357 @@ def band_phases(device) -> dict:
         **bnd,
         "library_ms": None,
     }
+
+
+def b7_vs_plain(fn, v, args, label: str) -> float:
+    """One B.7 launch and its plain version on the same inputs; bitwise.
+    Returns max |dV|."""
+    got = fn(v, args)
+    want = b6.backup6d_plain(v, args)
+    torch.cuda.synchronize()
+    err = float((got.values - want.values).abs().max())
+    same_v = torch.equal(got.values, want.values)
+    same_a = torch.equal(got.argmin, want.argmin)
+    print(f"{label}: values bitwise {same_v}, argmin identical {same_a}, "
+          f"max |dV| {err}")
+    check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
+    check(same_v and same_a, f"{label}: B.7 != plain version")
+    return err
+
+
+def b7_blocks_vs_plain(bk, v, n: int, label: str,
+                       slices: bool = False) -> tuple:
+    """Every rank's block of an ``n``-rank row split, from the local table
+    the halo exchange would give it (zero halos at the edges), through B.7
+    and its plain version. With ``slices``, each block's 3 digit slices
+    too (the shapes of a rows x 3 mesh), each against its plain version,
+    and combined by the first minimum against the block's B.7 result.
+    Returns max |dV| of the block calls and of the slice calls."""
+    from ocdp_tpu_torch.parallel.mesh import first_min, row_blocks
+
+    lo, hi = bk.row_reach()
+    vp = torch.nn.functional.pad(v.reshape(bk.NW, bk.NE), (0, 0, lo, hi))
+    err_b = err_s = 0.0
+    for s, (r0, r1) in enumerate(row_blocks(bk.NW, n)):
+        args = b6.block_args(bk.args, r0, r1, lo, hi)
+        local = vp[r0:r1 + lo + hi].contiguous()
+        where = f"{label}, block {s}/{n} rows [{r0}, {r1}) + halo ({lo}, {hi})"
+        err_b = max(err_b, b7_vs_plain(b6.backup6d_block_cuda, local, args,
+                                       where))
+        if not slices:
+            continue
+        vals, argm = [], []
+        for g in range(3):
+            sa = b6.slice_args(args, 9 * g, 9 * g + 9)
+            check(sa.action_digits == 3, f"{where}: slice {g} left the "
+                  "digit path")
+            err_s = max(err_s, b7_vs_plain(b6.backup6d_slice_cuda, local, sa,
+                                           f"{where}, digit slice {g}"))
+            res = b6.backup6d_slice_cuda(local, sa)
+            vals.append(res.values)
+            argm.append(res.argmin)
+        vmin, arg = first_min(vals, argm, 27)
+        whole = b6.backup6d_block_cuda(local, args)
+        torch.cuda.synchronize()
+        same = (torch.equal(vmin, whole.values)
+                and torch.equal(arg, whole.argmin.to(arg.dtype)))
+        print(f"{where}: 3 slices combined by the first minimum equal the "
+              f"block's B.7 sweep (values, argmin) {same}")
+        check(same, f"{where}: combined slices != the block's sweep")
+    return err_b, err_s
+
+
+def b7_slices_vs_one_sweep(bk, v, label: str) -> float:
+    """The 3 digit slices through B.7 and their plain versions; combined by
+    the first minimum they must equal one B.3 sweep bitwise."""
+    from ocdp_tpu_torch.parallel.mesh import first_min
+
+    v2 = v.reshape(bk.NW, bk.NE).contiguous()
+    err, vals, args = 0.0, [], []
+    for g in range(3):
+        sa = b6.slice_args(bk.args, 9 * g, 9 * g + 9)
+        check(sa.action_digits == 3, f"{label}: slice {g} left the digit "
+              "path")
+        err = max(err, b7_vs_plain(b6.backup6d_slice_cuda, v2, sa,
+                                   f"{label}, digit slice {g}"))
+        res = b6.backup6d_slice_cuda(v2, sa)
+        vals.append(res.values)
+        args.append(res.argmin)
+    vmin, arg = first_min(vals, args, 27)
+    one = b6.backup6d_cuda(v2, bk.args)
+    torch.cuda.synchronize()
+    same = torch.equal(vmin, one.values) and torch.equal(arg, one.argmin)
+    print(f"{label}: 3 slices combined by the first minimum equal one B.3 "
+          f"sweep (values, argmin) {same}")
+    check(same, f"{label}: combined slices != one B.3 sweep")
+    return err
+
+
+def same_result(got, want, label: str) -> None:
+    same_v = torch.equal(got.values.reshape(want.values.shape), want.values)
+    same_a = torch.equal(got.argmin.reshape(want.argmin.shape),
+                         want.argmin.to(got.argmin.dtype))
+    print(f"{label}: values bitwise {same_v}, argmin identical {same_a}")
+    check(same_v and same_a, f"{label}: != the one-device solve")
+
+
+def multirank_phases(device) -> list:
+    """Phases 27-32: B.7 and the multi-rank engines on in-process meshes
+    on the one card; returns B.7's two entries of the kernels line."""
+    from ocdp_tpu_torch.parallel import (make_mesh, measure_halo6_comms,
+                                         value_iteration_converged_halo6,
+                                         value_iteration_finite_halo,
+                                         value_iteration_finite_halo6,
+                                         value_iteration_finite_sharded)
+    from ocdp_tpu_torch.parallel.dryrun import dryrun_multichip
+    from ocdp_tpu_torch.parallel.halo6 import Halo6Backup, _Ranks
+
+    rng = np.random.default_rng(SEED + 6)
+    full_cfg = attitude.AttitudeConfig(**ATT_FULL)
+    sweeps = full_cfg.n_stage - 1
+
+    phase("27. B.7 vs plain: row blocks, digit slices, bitwise")
+    plan, cost, bk = attitude_backup(device, **ATT_FULL)
+    v_rand = torch.from_numpy(rng.uniform(0.0, 100.0, (bk.NW, bk.NE))
+                              .astype(np.float32)).to(device)
+    v50 = attitude.solve_full(full_cfg, num_sweeps=50).result.values
+    err_b = err_s = 0.0
+    for label, v in (("random table", v_rand), ("after 50 sweeps", v50)):
+        for n in (2, 4):
+            eb, es = b7_blocks_vs_plain(bk, v, n, f"11^3x10^3 {label}",
+                                        slices=n == 2)
+            err_b, err_s = max(err_b, eb), max(err_s, es)
+        err_s = max(err_s, b7_slices_vs_one_sweep(bk, v,
+                                                  f"11^3x10^3 {label}"))
+    for dt, track, mode in ((torch.uint8, True, "uint8"),
+                            (torch.uint8, False, "min-only")):
+        mbk = b6.Backup6D(plan, cost, argmin_dtype=dt, track_argmin=track)
+        err_b = max(err_b, b7_blocks_vs_plain(mbk, v_rand, 2,
+                                              f"11^3x10^3 {mode}")[0])
+    _, _, tbk = attitude_backup(device, "tie", n_mesh_w=5, n_mesh_q=4,
+                                h=0.0)
+    v_tie = torch.from_numpy(rng.uniform(0.0, 100.0, (tbk.NW, tbk.NE))
+                             .astype(np.float32)).to(device)
+    eb, es = b7_blocks_vs_plain(tbk, v_tie, 2, "exact ties", slices=True)
+    err_b, err_s = max(err_b, eb), max(err_s, es)
+    err_s = max(err_s, b7_slices_vs_one_sweep(tbk, v_tie, "exact ties"))
+    for g in range(3):
+        res = b6.backup6d_slice_cuda(v_tie, b6.slice_args(tbk.args, 9 * g,
+                                                          9 * g + 9))
+        check(bool((res.argmin == 9 * g).all()),
+              "exact ties: a later action of the slice won")
+    env_cfg = attitude.AttitudeConfig(**ENV_CHECK)
+    for kind, kw in (("flat (B.4)", dict(flat=True, lane_mode="plan")),
+                     ("recompute (B.5)", dict(lane_mode="recompute"))):
+        _, eplan, ecost = attitude.build_full(env_cfg, **kw)
+        ebk = b6.Backup6D(eplan, ecost, argmin_dtype=torch.uint8)
+        del eplan
+        ev = seeded_table(rng, ebk)
+        err_b = max(err_b, b7_blocks_vs_plain(ebk, ev, 2,
+                                              f"19^3x14^3 {kind}")[0])
+        del ebk, ev
+        free_cuda()
+
+    phase("28. main path: value_iteration_finite_halo6 at 11^3x10^3 on 2 "
+          "ranks, 5999 sweeps")
+    mesh2 = make_mesh(("s",), (2,))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res2 = value_iteration_finite_halo6(plan, cost, sweeps, mesh2)
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t0
+    counts = launch_counts()
+    block_launches = counts["backup6d_block"]
+    print(f"2 ranks, {sweeps} sweeps incl. the build: {main_s:.3f} s; "
+          f"launches {counts}; halo bytes moved {mesh2.halo_bytes}")
+    check(block_launches == 2 * sweeps,
+          f"backup6d_block launched {block_launches} times, want "
+          f"{2 * sweeps}")
+    check(all(n == 0 for k, n in counts.items() if k != "backup6d_block"),
+          "another backup kernel ran on the halo6 main path")
+    same_result(res2, REF_6D["finite"], "halo6 on 2 ranks vs phase 13's "
+                "one-device solve")
+    comms = measure_halo6_comms(full_cfg, 2)
+    print(f"halo per sweep: {comms}")
+    check(mesh2.halo_bytes == sweeps
+          * comms["halo_bytes_per_sweep_analytic"]
+          and comms["halo_bytes_per_sweep_counted"]
+          == comms["halo_bytes_per_sweep_analytic"],
+          "halo bytes moved != analytic count")
+
+    phase("29. the 2 x 3 mesh (rows x digit slices), the converged engines, "
+          "4 ranks with policies")
+    mesh23 = make_mesh(("s", "a"), (2, 3))
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res23 = value_iteration_finite_halo6(plan, cost, sweeps, mesh23,
+                                         action_axis_name="a")
+    torch.cuda.synchronize()
+    mesh_s = time.perf_counter() - t0
+    counts = launch_counts()
+    check(res23.digit_path is True, "2 x 3 mesh: the digit slices did not "
+          "take the factorized phase")
+    slice_launches = counts["backup6d_slice"]
+    print(f"2 x 3 mesh, {sweeps} sweeps: {mesh_s:.3f} s; launches {counts}")
+    check(slice_launches == 6 * sweeps,
+          f"backup6d_slice launched {slice_launches} times, want "
+          f"{6 * sweeps}")
+    same_result(res23, REF_6D["finite"], "halo6 on 2 x 3 vs phase 13")
+    conv = REF_6D["converged"]
+    for label, m, act in (("2 ranks", mesh2, None),
+                          ("2 x 3", mesh23, "a")):
+        t0 = time.perf_counter()
+        got = value_iteration_converged_halo6(
+            plan, cost, sweeps, m, check_every=50, tol=1e-2,
+            action_axis_name=act)
+        torch.cuda.synchronize()
+        print(f"converged halo6 on {label}: {got.num_sweeps} sweeps, "
+              f"converged {got.converged}, {time.perf_counter() - t0:.3f} s;"
+              f" one device: {conv.num_sweeps}, {conv.converged}; check log "
+              f"max |d| {float((got.checks - conv.checks).abs().max())}")
+        check(got.num_sweeps == conv.num_sweeps
+              and got.converged == conv.converged,
+              f"converged halo6 on {label} stopped elsewhere")
+        same_result(got, conv, f"converged halo6 on {label} vs phase 14")
+    ref200 = value_iteration_finite(plan, cost, 200, backup=bk,
+                                    store_policies=True)
+    got = value_iteration_finite_halo6(plan, cost, 200,
+                                       make_mesh(("s",), (4,)),
+                                       store_policies=True)
+    check(got.policies.dtype == torch.uint8
+          and torch.equal(got.policies, ref200.policies),
+          "4 ranks: policies != one device")
+    same_result(got, ref200, "halo6 on 4 ranks, 200 sweeps, uint8 "
+                "policies")
+
+    phase("30. the envelope over the mesh: 30^3x16^3 recompute plan, 2 "
+          "ranks, 10 sweeps; the width guard")
+    _, rplan, rcost = attitude.build_full(attitude.AttitudeConfig(
+        **ENV_MAIN))
+    rbk = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
+                      carry_padded=True)
+    one = value_iteration_finite(PlanShape.of(rplan), None, 10, backup=rbk,
+                                 narrow_argmin_result=True)
+    del rbk
+    free_cuda()
+    t0 = time.perf_counter()
+    got = value_iteration_finite_halo6(rplan, rcost, 10, mesh2,
+                                       argmin_dtype=torch.uint8)
+    torch.cuda.synchronize()
+    print(f"30^3x16^3 recompute on 2 ranks, 10 sweeps incl. the build: "
+          f"{time.perf_counter() - t0:.3f} s")
+    same_v = torch.equal(got.values.reshape(-1), one.values.reshape(-1))
+    same_a = torch.equal(got.argmin.reshape(-1),
+                         one.argmin.to(torch.int32).reshape(-1))
+    print(f"vs one-device B.5: values bitwise {same_v}, argmin identical "
+          f"{same_a}")
+    check(same_v and same_a, "envelope halo6 != one-device B.5")
+    del got, one, rplan, rcost
+    free_cuda()
+    try:
+        value_iteration_finite_halo6(plan, cost, 2, make_mesh(("s",), (11,)))
+        raise RuntimeError("chip_smoke: the width guard did not raise")
+    except ValueError as e:
+        print(f"11 ranks at 11^3x10^3 (133-row reach, 121-row blocks): {e}")
+
+    phase("31. the other engines and the dryrun twin")
+    kp = kirk.build(kirk.KirkConfig())
+    kref = value_iteration_finite(kp.plan, kp.stage_cost, 199,
+                                  store_policies=True)
+    kgot = value_iteration_finite_sharded(
+        kp.plan, kp.stage_cost, 199, make_mesh(("s", "a"), (2, 2)),
+        action_axis_name="a", store_policies=True)
+    same_result(kgot, kref, "replicated-table engine, Kirk 2 x 2, 199 "
+                "sweeps (gather)")
+    check(torch.equal(kgot.policies, kref.policies), "Kirk policies")
+    scfg = attitude.AttitudeConfig()
+    _, splan, sterms = attitude.build_simplified_axis(scfg, 0)
+    sref = value_iteration_finite(splan, sterms, 300,
+                                  backup=bb.BandBackup2D(splan, sterms))
+    reset_launch_counts()
+    sgot = value_iteration_finite_halo(splan, sterms, 300,
+                                       make_mesh(("s",), (2,)),
+                                       backup="band")
+    check(launch_counts()["band_backup2d"] == 600, "band halo launches")
+    same_result(sgot, sref, "halo engine, B.6 on simplified axis 0 "
+                "(1000x300), 2 ranks, 300 sweeps")
+    pcfg = pos_att.PosAttConfig()
+    for engine in ("halo", "replicated"):
+        ctrl, pres = pos_att.solve_channel_sharded(
+            pcfg, "x", make_mesh(("s",), (2,)), max_sweeps=300,
+            engine=engine)
+        rctrl, rres = pos_att.solve_channel(pcfg, "x", impl="gather",
+                                            max_sweeps=300)
+        check(pres.num_sweeps == rres.num_sweeps, f"{engine}: stop sweep")
+        same_result(pres, rres, f"solve_channel_sharded('{engine}'), x "
+                    "channel, 300 sweeps vs impl='gather'")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    ep = pos_att.solve_ep(pcfg)
+    torch.cuda.synchronize()
+    ep_s = time.perf_counter() - t0
+    ser = pos_att.solve(pcfg)
+    for name, c in ser.controllers.items():
+        check(torch.equal(ep.controllers[name].values, c.values)
+              and torch.equal(ep.controllers[name].argmin, c.argmin)
+              and ep.results[name].num_sweeps
+              == ser.results[name].num_sweeps,
+              f"solve_ep channel {name} != serial pos_att.solve")
+    print(f"solve_ep(PosAttConfig()) on 4 ranks: {ep_s:.3f} s, equals the "
+          f"serial pos_att.solve bitwise per channel (sweeps "
+          f"{[r.num_sweeps for r in ep.results.values()]})")
+    print(f"dryrun_multichip(8): {dryrun_multichip(8)}")
+
+    phase("32. timing (CUDA events, warm, median of 10)")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    hb2 = Halo6Backup(plan, cost, mesh2)
+    st2 = _Ranks(hb2, v50)
+    blk_args = hb2.args[0]
+    t_blk = st2.cur[0]
+    out_v = torch.empty((blk_args.n_rows, bk.NE), device=device)
+    out_a = torch.empty((blk_args.n_rows, bk.NE), dtype=torch.int32,
+                        device=device)
+    blk_ms = cuda_time_ms(lambda: b6.backup6d_block_cuda(
+        t_blk, blk_args, out_v=out_v, out_a=out_a), inner=5)
+    blk_plain_ms = cuda_time_ms(lambda: b6.backup6d_plain(t_blk, blk_args))
+    hb23 = Halo6Backup(plan, cost, mesh23, action_axis_name="a")
+    st23 = _Ranks(hb23, v50)
+    sl_args = hb23.args[0]
+    t_sl = st23.cur[0]
+    sl_ms = cuda_time_ms(lambda: b6.backup6d_slice_cuda(
+        t_sl, sl_args, out_v=out_v, out_a=out_a), inner=5)
+    sl_plain_ms = cuda_time_ms(lambda: b6.backup6d_plain(t_sl, sl_args))
+    sweep2_ms = cuda_time_ms(st2.sweep, inner=5)
+    sweep23_ms = cuda_time_ms(st23.sweep, inner=5)
+    v2 = v50.reshape(bk.NW, bk.NE).contiguous()
+    one_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, bk.args), inner=5)
+    bnd_blk = backup6d_args_bound(blk_args, bk.NE)
+    bnd_sl = backup6d_args_bound(sl_args, bk.NE)
+    print(f"[{smi}] 11^3x10^3: one B.7 block (rank 0 of 2, "
+          f"{blk_args.n_rows} rows + halo {blk_args.halo}) {blk_ms:.4f} ms, "
+          f"plain {blk_plain_ms:.4f} ms, bound {bnd_blk['bound_ms']:.5f} ms "
+          f"({bnd_blk['bound_by']}); one digit slice (rank (0, 0) of 2 x 3) "
+          f"{sl_ms:.4f} ms, plain {sl_plain_ms:.4f} ms, bound "
+          f"{bnd_sl['bound_ms']:.5f} ms ({bnd_sl['bound_by']}); one B.3 "
+          f"sweep of the whole table {one_ms:.4f} ms")
+    print(f"[{smi}] halo6 sweep (exchange, kernels, combine): 2 ranks "
+          f"{sweep2_ms:.4f} ms, 2 x 3 {sweep23_ms:.4f} ms; the 5999-sweep "
+          f"solves {main_s:.3f} s and {mesh_s:.3f} s")
+    common = {"route": "cuda", "source": "ocdp_tpu_torch/csrc/backup6d.cu",
+              "library_ms": None}
+    return [
+        {"name": "backup6d_slice",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:696 (digit_slice)",
+         "launches": slice_launches, "max_abs_err": err_s, "ms": sl_ms,
+         "plain_ms": sl_plain_ms, **bnd_sl, **common},
+        {"name": "backup6d_block",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:1390 (row-block "
+                     "layout: row_pad_to, pad_top/pad_bot)",
+         "launches": block_launches, "max_abs_err": err_b, "ms": blk_ms,
+         "plain_ms": blk_plain_ms, **bnd_blk, **common},
+    ]
 
 
 def state_shape(cfg) -> tuple:

@@ -41,6 +41,7 @@ _SIGNATURES = {
     "backup6d_f32": (_I, [_P] * 20 + [_I] * 10 + [_P]),
     "backup6d_flat_f32": (_I, [_P] * 20 + [_I] * 12 + [_P]),
     "backup6d_recompute_f32": (_I, [_P] * 22 + [_I] * 13 + [_P]),
+    "backup6d_block_f32": (_I, [_P] * 28 + [_I] * 18 + [_P]),
     "backup6d_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -51,7 +51,7 @@ def plan_from_numpy(lo: Sequence, frac: Sequence, grid_shape, *,
 
 def result_from_numpy(values, argmin, policies=None, *, num_sweeps=None,
                       converged: bool = False, probes=None, checks=None,
-                      device) -> SolveResult:
+                      digit_path=None, device) -> SolveResult:
     """A :class:`SolveResult` from numpy arrays, on ``device``.
 
     Integer arrays keep their dtype (policies may be uint8 or int16);
@@ -73,6 +73,7 @@ def result_from_numpy(values, argmin, policies=None, *, num_sweeps=None,
         converged=bool(converged),
         probes=_tensor(probes, torch.float32, device),
         checks=_tensor(checks, torch.float32, device),
+        digit_path=digit_path,
     )
 
 

@@ -82,6 +82,32 @@
 //   floorf and fminf/fmaxf clamps and float32-rounded constants, so the
 //   recomputed (off, frac) equal the plain version's bit for bit. Bytes:
 //   9 per cell; the recompute adds about 200 FP32 operations per cell.
+//
+// B.7, the modes of the row-sharded engines (ocdp_tpu_torch/parallel/
+// halo6.py), are one more parameter of the same kernel, a Block:
+//
+// * row-block mode replaces the row-block layout of the same _kernel
+//   (row_pad_to :750-757, pad_top/pad_bot :910-931, _sweep_padded :1390, as
+//   parallel/halo6.py::_build_rowsharded drives it). The kernel writes one
+//   rank's output rows [r0, r1) of the global table and reads a local table
+//   of lo + (r1 - r0) + hi rows that starts lo rows above r0: output row r
+//   reads table row r + lo + D_j, and a table row outside [0, lo + (r1 - r0)
+//   + hi) reads 0.0. The per-row inputs (row plan, lane plan or the rows'
+//   omegas, c_row, c_rowact, c_rowlane) are the block's own rows; the
+//   per-lane ones stay whole. lo = max(-min D_j, 0) and hi = max(max D_j,
+//   0) are the exact reach of the live row combos; the halo rows of an edge
+//   rank are zeros, which is what the one-device kernel reads outside
+//   [0, NW), so every term, and so every result, is the one-device kernel's.
+// * action-slice mode replaces digit_slice (:696-724): the kernel takes the
+//   full-width row plan and costs and an action range [a_lo, a_hi), and
+//   returns the first minimum over that range as a global action index.
+//   When the actions factor (A = m^3) and the range is whole fixed-d0 slices
+//   of m^2 actions, the factorized phase runs for those d0 only: its B and C
+//   partials depend on digits 1-2 alone, so each action's total is the one
+//   the full sweep forms, bit for bit. Otherwise the generic phase runs over
+//   the range, which is also each action's own full-sweep total when the
+//   full sweep is generic. The engines combine the ranges by the first
+//   minimum in ascending order, so the combined argmin is the full sweep's.
 
 #include <cuda_runtime.h>
 
@@ -128,6 +154,13 @@ struct LaneRec {
   int stride[3];          // flat lane stride of axis k
   float half_h;           // float32(h * 0.5)
   int clamp;              // edge='clamp': fracs clipped to [0, 1]
+};
+
+// B.7: the output rows' frame in the table and the action range.
+struct Block {
+  int n_table_rows;       // rows of the table the kernel reads
+  int table_row0;         // the table row of output row 0 (the halo above)
+  int a_lo, a_hi;         // the actions [a_lo, a_hi) the minimum runs over
 };
 
 // ops/kernelmath.py, op by op (Cephes atanf); constants are the float32
@@ -254,7 +287,7 @@ backup6d_sweep(const float* __restrict__ values,
                float* __restrict__ out_v, ArgT* __restrict__ out_a,
                int n_rows, int n_lanes, int n_actions,
                const __grid_constant__ Taps6 tp,
-               const __grid_constant__ LaneRec rec) {
+               const __grid_constant__ LaneRec rec, const Block blk) {
   const int cell = blockIdx.x * blockDim.x + threadIdx.x;
   if (cell >= n_rows * n_lanes) return;
   const int r = cell / n_lanes;
@@ -283,8 +316,8 @@ backup6d_sweep(const float* __restrict__ values,
 #pragma unroll
     for (int p = 0; p < kCube; ++p) {
       if (live(tp, p)) {
-        const int rr = r + tp.row_delta[p];
-        const float v = (lane_in && rr >= 0 && rr < n_rows)
+        const int rr = r + blk.table_row0 + tp.row_delta[p];
+        const float v = (lane_in && rr >= 0 && rr < blk.n_table_rows)
                             ? values[static_cast<long long>(rr) * n_lanes + c2]
                             : 0.0f;
         const float term = __fmul_rn(w, v);
@@ -303,8 +336,10 @@ backup6d_sweep(const float* __restrict__ values,
   int best_a = 0;
 
   if (tp.digits > 0) {
-    // factorized action phase; the totals sit in tot[(d0 * 3 + d1) * 3 + d2]
+    // factorized action phase over the whole d0 slices [d0_lo, d0_hi); the
+    // totals sit in tot[(d0 * 3 + d1) * 3 + d2]
     const int m = tp.digits;
+    const int d0_lo = blk.a_lo / (m * m), d0_hi = blk.a_hi / (m * m);
     float w1[kMaxTaps][kMaxDigits], w2[kMaxTaps][kMaxDigits];
 #pragma unroll
     for (int i = 0; i < kMaxTaps; ++i) {
@@ -365,7 +400,7 @@ backup6d_sweep(const float* __restrict__ values,
               }
 #pragma unroll
               for (int d0 = 0; d0 < kMaxDigits; ++d0) {
-                if (d0 < m) {
+                if (d0 >= d0_lo && d0 < d0_hi) {
                   const int a = d0 * m * m;  // canonical action of d0
                   const float w0 = tap_weight(off_r[a], frac_r[a],
                                               tp.row_taps[0][i0]);
@@ -386,12 +421,12 @@ backup6d_sweep(const float* __restrict__ values,
       for (int d1 = 0; d1 < kMaxDigits; ++d1) {
 #pragma unroll
         for (int d2 = 0; d2 < kMaxDigits; ++d2) {
-          if (d0 < m && d1 < m && d2 < m) {
+          if (d0 >= d0_lo && d0 < d0_hi && d1 < m && d2 < m) {
             const int a = (d0 * m + d1) * m + d2;
             float t = tot[(d0 * 3 + d1) * 3 + d2];
             if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
             if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
-            if (a == 0 || t < best) {  // strict: the first minimum wins
+            if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
               best = t;
               if (kTrack) best_a = a;
             }
@@ -401,7 +436,7 @@ backup6d_sweep(const float* __restrict__ values,
     }
   } else {
     // generic action phase: every live row combo per action
-    for (int a = 0; a < n_actions; ++a) {
+    for (int a = blk.a_lo; a < blk.a_hi; ++a) {
       float w[3][kMaxTaps];
 #pragma unroll
       for (int k = 0; k < 3; ++k) {
@@ -427,7 +462,7 @@ backup6d_sweep(const float* __restrict__ values,
       }
       if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
       if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
-      if (a == 0 || t < best) {  // strict: the first minimum wins
+      if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
         best = t;
         if (kTrack) best_a = a;
       }
@@ -501,9 +536,15 @@ struct SweepIo {
   void* out_a;
 };
 
+// The whole table, every action: the one-device sweep.
+Block full_block(int n_rows, int n_actions) {
+  return Block{n_rows, 0, 0, n_actions};
+}
+
 template <typename ArgT, bool kTrack, bool kRecompute>
 int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-           int n_rows, int n_lanes, int n_actions, void* stream) {
+           const Block& blk, int n_rows, int n_lanes, int n_actions,
+           void* stream) {
   const long long n_cells = static_cast<long long>(n_rows) * n_lanes;
   backup6d_sweep<ArgT, kTrack, kRecompute>
       <<<static_cast<unsigned>((n_cells + kThreads - 1) / kThreads), kThreads,
@@ -512,7 +553,7 @@ int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
           io.lane_frac[0], io.lane_off[1], io.lane_frac[1], io.lane_off[2],
           io.lane_frac[2], io.c_row, io.c_lane, io.c_rowact, io.c_rowlane,
           io.out_v, static_cast<ArgT*>(io.out_a), n_rows, n_lanes,
-          n_actions, tp, rec);
+          n_actions, tp, rec, blk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -520,21 +561,47 @@ int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
 // 1 (argmin) or 0 (min-only, all-zero argmin).
 template <bool kRecompute>
 int launch_mode(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-                int n_rows, int n_lanes, int n_actions, int argmin_bytes,
-                int track, void* stream) {
+                const Block& blk, int n_rows, int n_lanes, int n_actions,
+                int argmin_bytes, int track, void* stream) {
   if (argmin_bytes == 4) {
-    return track ? launch<int, true, kRecompute>(io, tp, rec, n_rows, n_lanes,
-                                                 n_actions, stream)
-                 : launch<int, false, kRecompute>(io, tp, rec, n_rows,
+    return track ? launch<int, true, kRecompute>(io, tp, rec, blk, n_rows,
+                                                 n_lanes, n_actions, stream)
+                 : launch<int, false, kRecompute>(io, tp, rec, blk, n_rows,
                                                   n_lanes, n_actions, stream);
   }
   if (argmin_bytes == 1) {
     return track ? launch<unsigned char, true, kRecompute>(
-                       io, tp, rec, n_rows, n_lanes, n_actions, stream)
+                       io, tp, rec, blk, n_rows, n_lanes, n_actions, stream)
                  : launch<unsigned char, false, kRecompute>(
-                       io, tp, rec, n_rows, n_lanes, n_actions, stream);
+                       io, tp, rec, blk, n_rows, n_lanes, n_actions, stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// B.5's lane generators into rec; false for a lane axis of fewer than 2
+// points.
+bool fill_rec(LaneRec& rec, const float* w1, const float* w2, const float* w3,
+              const float* q1, const float* q2, const float* q3,
+              const float* q4, const float* rec_consts, int n_l0, int n_l1,
+              int n_l2, int clamp) {
+  rec = LaneRec{};
+  const int sizes[3] = {n_l0, n_l1, n_l2};
+  const int strides[3] = {n_l1 * n_l2, n_l2, 1};
+  const float* w[3] = {w1, w2, w3};
+  const float* q[4] = {q1, q2, q3, q4};
+  for (int k = 0; k < 3; ++k) {
+    if (sizes[k] < 2) return false;
+    rec.w[k] = w[k];
+    rec.start[k] = rec_consts[k];
+    rec.inv_step[k] = rec_consts[3 + k];
+    rec.top[k] = static_cast<float>(sizes[k] - 2);
+    rec.size[k] = sizes[k];
+    rec.stride[k] = strides[k];
+  }
+  for (int k = 0; k < 4; ++k) rec.q[k] = q[k];
+  rec.half_h = rec_consts[6];
+  rec.clamp = clamp;
+  return true;
 }
 
 }  // namespace
@@ -569,7 +636,9 @@ extern "C" int backup6d_f32(
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch<int, true, false>(io, tp, LaneRec{}, n_r0 * n_r1 * n_r2,
+  const int n_rows = n_r0 * n_r1 * n_r2;
+  return launch<int, true, false>(io, tp, LaneRec{},
+                                  full_block(n_rows, n_actions), n_rows,
                                   n_l0 * n_l1 * n_l2, n_actions, stream);
 }
 
@@ -596,9 +665,10 @@ extern "C" int backup6d_flat_f32(
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch_mode<false>(io, tp, LaneRec{}, n_r0 * n_r1 * n_r2,
-                            n_l0 * n_l1 * n_l2, n_actions, argmin_bytes,
-                            track, stream);
+  const int n_rows = n_r0 * n_r1 * n_r2;
+  return launch_mode<false>(io, tp, LaneRec{}, full_block(n_rows, n_actions),
+                            n_rows, n_l0 * n_l1 * n_l2, n_actions,
+                            argmin_bytes, track, stream);
 }
 
 // One sweep with the Euler lanes recomputed per cell (B.5). Device
@@ -623,29 +693,78 @@ extern "C" int backup6d_recompute_f32(
                  digits)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  LaneRec rec = {};
-  const int sizes[3] = {n_l0, n_l1, n_l2};
-  const int strides[3] = {n_l1 * n_l2, n_l2, 1};
-  const float* w[3] = {w1, w2, w3};
-  const float* q[4] = {q1, q2, q3, q4};
-  for (int k = 0; k < 3; ++k) {
-    if (sizes[k] < 2) return static_cast<int>(cudaErrorInvalidValue);
-    rec.w[k] = w[k];
-    rec.start[k] = rec_consts[k];
-    rec.inv_step[k] = rec_consts[3 + k];
-    rec.top[k] = static_cast<float>(sizes[k] - 2);
-    rec.size[k] = sizes[k];
-    rec.stride[k] = strides[k];
+  LaneRec rec;
+  if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1, n_l2,
+                clamp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  for (int k = 0; k < 4; ++k) rec.q[k] = q[k];
-  rec.half_h = rec_consts[6];
-  rec.clamp = clamp;
   const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
                       {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                       c_rowlane, out_v, out_a};
-  return launch_mode<true>(io, tp, rec, n_r0 * n_r1 * n_r2,
+  const int n_rows = n_r0 * n_r1 * n_r2;
+  return launch_mode<true>(io, tp, rec, full_block(n_rows, n_actions), n_rows,
                            n_l0 * n_l1 * n_l2, n_actions, argmin_bytes, track,
                            stream);
+}
+
+// One sweep of one rank's row block and action range (B.7). The arguments
+// of backup6d_flat_f32, then B.5's w1..w3, q1..q4 and rec_consts (all null
+// on a stored lane plan, whose lane_off/lane_frac are then given; the
+// reverse for recompute 1), then the block: values (n_table_rows, NE), of
+// which output row 0 is table row table_row0; the per-row device arrays
+// (row_off/row_frac (3, n_out_rows, A), the lane plan or w1..w3, c_row,
+// c_rowact, c_rowlane) and out_v/out_a hold the n_out_rows output rows; the
+// first minimum runs over the actions [a_lo, a_hi) and out_a holds global
+// action indices. With digits > 0, a_lo and a_hi must be multiples of
+// digits^2 (whole fixed-d0 slices).
+extern "C" int backup6d_block_f32(
+    const float* values, const int* row_off, const float* row_frac,
+    const int* lane_off0, const float* lane_frac0, const int* lane_off1,
+    const float* lane_frac1, const int* lane_off2, const float* lane_frac2,
+    const float* c_row, const float* c_lane, const float* c_rowact,
+    const float* c_rowlane, float* out_v, void* out_a, const float* w1,
+    const float* w2, const float* w3, const float* q1, const float* q2,
+    const float* q3, const float* q4, const float* rec_consts,
+    const int* w_taps, const int* n_taps, const int* row_combos,
+    const int* lane_combos, const float* c_act, int n_r1, int n_r2, int n_l0,
+    int n_l1, int n_l2, int n_actions, int n_row_combos, int n_lane_combos,
+    int digits, int argmin_bytes, int track, int recompute, int clamp,
+    int n_out_rows, int table_row0, int n_table_rows, int a_lo, int a_hi,
+    void* stream) {
+  Taps6 tp;
+  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
+                 digits)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int slice = digits * digits;
+  if (n_out_rows < 1 || table_row0 < 0 ||
+      n_table_rows < table_row0 + n_out_rows || a_lo < 0 || a_hi <= a_lo ||
+      a_hi > n_actions ||
+      (digits > 0 && (a_lo % slice != 0 || a_hi % slice != 0))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const Block blk = {n_table_rows, table_row0, a_lo, a_hi};
+  const int n_lanes = n_l0 * n_l1 * n_l2;
+  if (recompute) {
+    LaneRec rec;
+    if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
+                  n_l2, clamp)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    const SweepIo io = {values, row_off, row_frac,
+                        {nullptr, nullptr, nullptr},
+                        {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
+                        c_rowlane, out_v, out_a};
+    return launch_mode<true>(io, tp, rec, blk, n_out_rows, n_lanes, n_actions,
+                             argmin_bytes, track, stream);
+  }
+  const SweepIo io = {values, row_off, row_frac,
+                      {lane_off0, lane_off1, lane_off2},
+                      {lane_frac0, lane_frac1, lane_frac2},
+                      c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
+  return launch_mode<false>(io, tp, LaneRec{}, blk, n_out_rows, n_lanes,
+                            n_actions, argmin_bytes, track, stream);
 }
 
 extern "C" const char* backup6d_error_string(int err) {

@@ -73,6 +73,9 @@ class SolveResult(NamedTuple):
     # converged-engine check log, (n_checks, 3) float32: [k_s, errorF,
     # errorU] per check (Solver_pos_att.m:272-279); rows past the stop are 0
     checks: Optional[torch.Tensor] = None
+    # row-sharded 6-D engines with an action axis: whether the action
+    # groups ran the factorized (digit-slice) phase; None elsewhere
+    digit_path: Optional[bool] = None
 
 
 def policy_dtype_for(n_actions: int) -> torch.dtype:

@@ -64,6 +64,8 @@ __all__ = [
     "build_channel_rowlane_backup",
     "solve_channel",
     "solve",
+    "solve_channel_sharded",
+    "solve_ep",
     "PosAttSolution",
     "default_x0",
     "get_optimal_path",
@@ -325,6 +327,132 @@ def solve(
                 os.path.join(save_dir, f"channel_{name}_controller_1.npz"),
                 ctrl)
     return PosAttSolution(cfg, controllers, results)
+
+
+def solve_channel_sharded(
+    cfg: PosAttConfig,
+    channel: str,
+    mesh,
+    *,
+    failure: bool = False,
+    max_sweeps: Optional[int] = None,
+    axis_name: str = "s",
+    engine: str = "halo",
+    tol_mode: str = "abs",
+) -> tuple[ChannelController, SolveResult]:
+    """One channel's early-stopping solve sharded over ``mesh`` (a
+    :func:`~ocdp_tpu_torch.parallel.make_mesh` mesh; its device is the
+    solve's), the scaling path for :meth:`PosAttConfig.high_res` grids
+    (``pos_att.py:524-567`` of the JAX package).
+
+    ``engine='halo'`` keeps the value table sharded on the x axis and
+    exchanges the interpolation's boundary rows each sweep
+    (:func:`~ocdp_tpu_torch.parallel.halo.value_iteration_converged_halo`
+    with the gather backup); ``'replicated'`` gathers the whole table each
+    sweep (:func:`~ocdp_tpu_torch.parallel.sharded.
+    value_iteration_converged_sharded`). Both run the gather oracle, so
+    values and argmin equal ``solve_channel(impl='gather')`` bitwise when
+    they stop at the same sweep.
+    """
+    from ..parallel.halo import value_iteration_converged_halo
+    from ..parallel.sharded import value_iteration_converged_sharded
+
+    if engine not in ("halo", "replicated"):
+        raise ValueError(f"unknown engine {engine!r}; use 'halo' or "
+                         "'replicated'")
+    problem = build_channel(cfg, channel, failure=failure,
+                            device=mesh.device)
+    sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
+    if engine == "halo":
+        result = value_iteration_converged_halo(
+            problem.plan, problem.stage_cost, sweeps, mesh,
+            check_every=cfg.check_every, tol=cfg.tol, tol_mode=tol_mode,
+            axis_name=axis_name)
+    else:
+        result = value_iteration_converged_sharded(
+            problem.plan, problem.stage_cost, sweeps, mesh,
+            check_every=cfg.check_every, tol=cfg.tol, tol_mode=tol_mode,
+            state_axis_name=axis_name)
+    ctrl = ChannelController(axes=tuple(problem.grid.axes),
+                             values=result.values, argmin=result.argmin,
+                             forces=problem.forces)
+    return ctrl, result
+
+
+def solve_ep(
+    cfg: PosAttConfig = PosAttConfig(),
+    mesh=None,
+    *,
+    include_failure: bool = True,
+    axis_name: str = "c",
+    max_sweeps: Optional[int] = None,
+    tol_mode: str = "abs",
+    return_results: bool = False,
+    device="cuda",
+):
+    """Every channel solved at once, one channel per rank of ``mesh``'s
+    ``axis_name`` axis: channel-level expert parallelism (``pos_att.py:570``
+    of the JAX package). ``mesh`` defaults to an in-process mesh of one rank
+    per channel on ``device`` (the card unless the caller asks for the
+    CPU).
+
+    Each rank builds its own channel's row/lane backup (B.2; no union tap
+    rebuild, which exists in the JAX package only to give the stacked
+    channels one program) and runs :func:`~ocdp_tpu_torch.engine.
+    value_iteration_converged`, the serial solve's engine, so each channel
+    stops on its own checks and its values and argmin equal the serial
+    :func:`solve_channel` bitwise. The results come to every process.
+    Returns :class:`PosAttSolution` (with its ``results``), and with
+    ``return_results`` also a per-channel dict of ``num_sweeps``,
+    ``converged`` and ``checks``.
+    """
+    from ..parallel.multihost import make_mesh
+
+    jobs = [(ch, ch, False) for ch in CHANNELS]
+    if include_failure:
+        jobs.append(("x_failure", "x", True))
+    if mesh is None:
+        mesh = make_mesh((axis_name,), (len(jobs),), device=device)
+    if mesh.shape[axis_name] != len(jobs):
+        raise ValueError(f"mesh axis {axis_name!r} has "
+                         f"{mesh.shape[axis_name]} ranks but {len(jobs)} "
+                         "channels")
+    if not mesh.is_member:
+        raise ValueError("this process holds no rank of the mesh")
+    sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
+    ax = mesh.axis(axis_name)
+    packed = {"values": [], "argmin": [], "checks": [], "stop": []}
+    for coord in mesh.local_coords:
+        _, ch, failure = jobs[coord[ax]]
+        problem = build_channel(cfg, ch, failure=failure, with_cost=False,
+                                device=mesh.device)
+        res = value_iteration_converged(
+            problem.plan, None, sweeps, check_every=cfg.check_every,
+            tol=cfg.tol, tol_mode=tol_mode,
+            backup=build_channel_rowlane_backup(cfg, problem))
+        packed["values"].append(res.values)
+        packed["argmin"].append(res.argmin)
+        packed["checks"].append(res.checks)
+        packed["stop"].append(torch.tensor(
+            [res.num_sweeps, int(res.converged)], dtype=torch.int32,
+            device=mesh.device))
+    line = {k: mesh.all_gather(v, axis_name)[0] for k, v in packed.items()}
+    controllers, results, summary = {}, {}, {}
+    for i, (name, ch, failure) in enumerate(jobs):
+        n_done, conv = (int(x) for x in line["stop"][i].cpu())
+        forces = thruster_combinations(*cfg.thruster_value_sets(ch, failure))
+        controllers[name] = ChannelController(
+            axes=tuple(Grid(_channel_axes(cfg, ch)).axes),
+            values=line["values"][i], argmin=line["argmin"][i],
+            forces=forces)
+        results[name] = SolveResult(
+            values=line["values"][i], argmin=line["argmin"][i],
+            policies=None, num_sweeps=n_done, converged=bool(conv),
+            checks=line["checks"][i])
+        summary[name] = {"num_sweeps": n_done, "converged": bool(conv),
+                         "checks": line["checks"][i]}
+    sol = PosAttSolution(cfg, controllers, results)
+    return (sol, summary) if return_results else sol
 
 
 def default_x0(pitch_deg: float = 3.0) -> np.ndarray:

@@ -12,7 +12,12 @@ attitude path:
   sweeps into buffers the engine allocated once): :func:`backup6d_flat_cuda`;
 * B.5, lane recompute (:class:`RecomputePlan`: no lane plan exists; the
   kernel regenerates each cell's Euler (lo, frac) from per-row omegas and
-  per-lane kirk-q components): :func:`backup6d_recompute_cuda`.
+  per-lane kirk-q components): :func:`backup6d_recompute_cuda`;
+* B.7, the row-sharded engines' modes (``parallel/halo6.py``), on any of
+  the three plan kinds: one rank's row block swept from a local table that
+  holds its halo rows (:func:`block_args`, :func:`backup6d_block_cuda`), and
+  that block over one contiguous action range, a fixed-d0 digit slice when
+  the actions factor (:func:`slice_args`, :func:`backup6d_slice_cuda`).
 
 The kernel source, with the note on its arithmetic, tie order and what
 bounds it, is ``csrc/backup6d.cu``.
@@ -40,6 +45,16 @@ matrix, and one sweep is, per cell (row r, lane c):
 A read that leaves the table (a row outside ``[0, NW)`` or a lane outside
 ``[0, NE)``) reads 0.0 and always carries an exactly zero weight; it is
 summed all the same.
+
+In B.7's row-block mode the output rows are a block ``[r0, r1)`` and the
+table is local: ``lo + (r1 - r0) + hi`` rows starting ``lo`` rows above
+``r0`` (``Backup6DArgs.halo``), so output row r reads table row ``r + lo +
+D_j``; the halo rows of an edge rank are zeros, the value the one-device
+sweep reads outside ``[0, NW)``. In its action-slice mode the minimum runs
+over ``Backup6DArgs.actions = (a_lo, a_hi)`` and the argmin is the global
+action index; the factorized phase runs for whole fixed-d0 slices, the
+generic phase otherwise. Either way each action's total is the one-device
+sweep's, bit for bit.
 
 * ``backup6d_cuda``, ``backup6d_flat_cuda`` and ``backup6d_recompute_cuda``
   launch the kernel; each counts its launches in ``.launches``.
@@ -71,7 +86,9 @@ from .rowlane import (_as_numpy, _corner_live_sets, _decode_live, _row_plan,
 
 __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "affine_locate", "plan_is_flat", "backup6d_cuda",
-           "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain"]
+           "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain",
+           "block_args", "slice_args", "digit_path", "backup6d_block_cuda",
+           "backup6d_slice_cuda", "backup6d_block"]
 
 # the kernel's fixed capacities (kMaxTaps, kMaxActions, kMaxDigits in
 # csrc/backup6d.cu): live taps per row or lane axis (so at most 27 row and
@@ -203,6 +220,11 @@ class Backup6DArgs(NamedTuple):
     torch.int32 or torch.uint8; ``track_argmin`` False: a min-only sweep.
     ``lanes``: a :class:`LaneRecompute` (then ``lane_off``/``lane_frac``
     are empty), else None.
+
+    B.7: ``halo = (lo, hi)``, the table rows above and below the output
+    rows (then every per-row input holds only the output rows, a block of
+    the ``row_shape`` grid); ``actions = (a_lo, a_hi)``, the action range of
+    the minimum (None: every action).
     """
 
     row_shape: tuple
@@ -223,10 +245,22 @@ class Backup6DArgs(NamedTuple):
     argmin_dtype: torch.dtype = torch.int32
     track_argmin: bool = True
     lanes: Optional[LaneRecompute] = None
+    halo: tuple = (0, 0)
+    actions: Optional[tuple] = None
 
     @property
     def n_actions(self) -> int:
         return self.row_off.shape[-1]
+
+    @property
+    def n_rows(self) -> int:
+        """Output rows: ``NW``, or the block's rows."""
+        return self.row_off.shape[1]
+
+    @property
+    def action_range(self) -> tuple:
+        return self.actions if self.actions is not None \
+            else (0, self.n_actions)
 
     def row_deltas(self) -> list:
         return _flat_shifts(self.row_combos, self.row_shape)
@@ -241,8 +275,9 @@ def _flat_shifts(combos, shape) -> list:
 
 
 def _lane_phase(values: torch.Tensor, args: Backup6DArgs) -> list:
-    """``A_j`` of every row combo, ``(NW, NE)`` each."""
-    nw = values.shape[0]
+    """``A_j`` of every row combo, ``(rows, NE)`` each; output row r reads
+    table row ``r + halo[0] + D_j``."""
+    nw, base = args.n_rows, args.halo[0]
     e_taps = [sorted({c[k] for c in args.lane_combos}) for k in range(3)]
     ew = [{t: _tap_weight(args.lane_off[k], args.lane_frac[k], t)
            for t in e_taps[k]} for k in range(3)]
@@ -258,7 +293,7 @@ def _lane_phase(values: torch.Tensor, args: Backup6DArgs) -> list:
     vp = torch.nn.functional.pad(values, (0, 0, pad, pad))   # zero rows
     out = []
     for d in row_deltas:
-        rows = vp[pad + d:pad + d + nw]
+        rows = vp[pad + base + d:pad + base + d + nw]
         acc = None
         for w, dl in zip(joint, lane_deltas):
             term = w * _shift_lanes(rows, dl)
@@ -269,7 +304,8 @@ def _lane_phase(values: torch.Tensor, args: Backup6DArgs) -> list:
 
 def _action_totals_factorized(A, ww, args: Backup6DArgs):
     """Per-action totals, contracted one action digit at a time
-    (``pallas_backup6.py:1269``); yields ``(a, tot_a)`` in action order."""
+    (``pallas_backup6.py:1269``); yields ``(a, tot_a)`` in action order over
+    ``args.action_range`` (whole fixed-d0 slices)."""
     m = args.action_digits
     jidx = {c: j for j, c in enumerate(args.row_combos)}
     t0s = sorted({c[0] for c in args.row_combos})
@@ -302,7 +338,7 @@ def _action_totals_factorized(A, ww, args: Backup6DArgs):
                     term = col(1, t1, d1) * b
                     acc = term if acc is None else acc + term
                 part_c[(t0, d1, d2)] = acc
-    for a in range(args.n_actions):
+    for a in range(*args.action_range):
         d0, rem = divmod(a, m * m)
         d1, d2 = divmod(rem, m)
         tot = None
@@ -314,8 +350,8 @@ def _action_totals_factorized(A, ww, args: Backup6DArgs):
 
 def _action_totals_generic(A, ww, args: Backup6DArgs):
     """Per-action totals over every row combo (``pallas_backup6.py:1215``);
-    yields ``(a, tot_a)`` in action order."""
-    for a in range(args.n_actions):
+    yields ``(a, tot_a)`` in action order over ``args.action_range``."""
+    for a in range(*args.action_range):
         tot = None
         for j, combo in enumerate(args.row_combos):
             w = None
@@ -330,12 +366,15 @@ def _action_totals_generic(A, ww, args: Backup6DArgs):
 def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     """The kernel's function in plain PyTorch, on the kernel's inputs.
 
-    ``values``: the ``(NW, NE)`` table. Every product and sum is one
+    ``values``: the ``(NW, NE)`` table, or in B.7's row-block mode the
+    local ``(lo + rows + hi, NE)`` one. Every product and sum is one
     separately rounded PyTorch op, in the kernel's order. With
     ``args.lanes`` the lane (off, frac) are recomputed first
     (:meth:`LaneRecompute.lane_block`), as the B.5 kernel does per cell.
+    Returns the ``(rows, NE)`` output rows; the argmin is a global action
+    index.
     """
-    nw, ne = values.shape
+    nw, ne = args.n_rows, values.shape[1]
     if args.lanes is not None:
         offs, fracs = args.lanes.lane_block(0, nw)
         args = args._replace(lane_off=tuple(offs), lane_frac=tuple(fracs))
@@ -352,8 +391,8 @@ def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
             tot = tot + args.c_rowact[:, a:a + 1]
         if best is None:
             best = tot
-            arg = torch.zeros((nw, ne), dtype=torch.int32,
-                              device=values.device)
+            arg = torch.full((nw, ne), a if args.track_argmin else 0,
+                             dtype=torch.int32, device=values.device)
         elif not args.track_argmin:
             # min-only: the same where-min, not torch.minimum (which would
             # let a NaN win)
@@ -368,11 +407,24 @@ def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
 
 
 def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
-    nw, ne = int(np.prod(args.row_shape)), int(np.prod(args.lane_shape))
-    if nw * ne >= 2**31:
-        raise ValueError(f"{nw}x{ne} cells exceed the kernel's int32 index")
+    nw, ne = args.n_rows, int(np.prod(args.lane_shape))
+    lo, hi = args.halo
+    if nw > int(np.prod(args.row_shape)) or min(lo, hi) < 0:
+        raise ValueError(f"{nw} output rows and halo {args.halo} do not fit "
+                         f"the row grid {args.row_shape}")
+    if (lo + nw + hi) * ne >= 2**31:
+        raise ValueError(f"{lo + nw + hi}x{ne} cells exceed the kernel's "
+                         "int32 index")
     n_act = args.n_actions
-    want = {"values": ((nw, ne), torch.float32, values),
+    a_lo, a_hi = args.action_range
+    if not 0 <= a_lo < a_hi <= n_act:
+        raise ValueError(f"action range {args.actions} leaves [0, {n_act})")
+    m = args.action_digits
+    if m and (a_lo % (m * m) or a_hi % (m * m)):
+        raise ValueError(f"action range {args.actions} is not whole digit "
+                         f"slices of {m * m} actions; use the generic phase "
+                         "(action_digits None)")
+    want = {"values": ((lo + nw + hi, ne), torch.float32, values),
             "row_off": ((3, nw, n_act), torch.int32, args.row_off),
             "row_frac": ((3, nw, n_act), torch.float32, args.row_frac),
             "c_row": ((nw,), torch.float32, args.c_row),
@@ -403,9 +455,15 @@ def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
+    a0, b0 = a.data_ptr(), b.data_ptr()
+    return a0 < b0 + b.numel() * b.element_size() and \
+        b0 < a0 + a.numel() * a.element_size()
+
+
 def _outputs(values, args: Backup6DArgs, out_v, out_a):
     """The sweep's output buffers: new ones, or the caller's, checked."""
-    nw, ne = values.shape
+    nw, ne = args.n_rows, values.shape[1]
     if out_v is None:
         out_v = torch.empty((nw, ne), dtype=torch.float32,
                             device=values.device)
@@ -419,9 +477,9 @@ def _outputs(values, args: Backup6DArgs, out_v, out_a):
             raise ValueError(f"{name}: want a contiguous {dtype} {(nw, ne)} "
                              f"tensor on {values.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    if out_v.data_ptr() == values.data_ptr():
-        raise ValueError("out_v must not be the input table (a sweep reads "
-                         "every row window of it)")
+    if _overlap(out_v, values):
+        raise ValueError("out_v must not overlap the input table (a sweep "
+                         "reads every row window of it)")
     return out_v, out_a
 
 
@@ -565,6 +623,154 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
 
 
 backup6d_recompute_cuda.launches = 0
+
+
+def block_args(args: Backup6DArgs, r0: int, r1: int, lo: int,
+               hi: int) -> Backup6DArgs:
+    """B.7's row-block inputs: output rows ``[r0, r1)`` of the full
+    analysis ``args``, swept from a local table of ``lo + (r1 - r0) + hi``
+    rows starting ``lo`` rows above ``r0``. Per-row inputs become the
+    block's rows (views where they are contiguous); the live taps, combos
+    and action digits stay the full plan's, so the block's sums keep every
+    term of the one-device sweep."""
+    if args.halo != (0, 0) or not 0 <= r0 < r1 <= args.n_rows:
+        raise ValueError(f"rows [{r0}, {r1}) of a {args.n_rows}-row full "
+                         "analysis")
+    if min(lo, hi) < 0:
+        raise ValueError(f"halo widths ({lo}, {hi}) must be >= 0")
+
+    def rows(t):
+        return None if t is None else t[r0:r1].contiguous()
+
+    lanes = args.lanes
+    if lanes is not None:
+        lanes = lanes._replace(row_feats=tuple(rows(t)
+                                               for t in lanes.row_feats))
+    return args._replace(
+        row_off=args.row_off[:, r0:r1].contiguous(),
+        row_frac=args.row_frac[:, r0:r1].contiguous(),
+        lane_off=tuple(rows(t) for t in args.lane_off),
+        lane_frac=tuple(rows(t) for t in args.lane_frac),
+        c_row=rows(args.c_row), c_rowact=rows(args.c_rowact),
+        c_rowlane=rows(args.c_rowlane), lanes=lanes, halo=(lo, hi))
+
+
+def digit_path(args: Backup6DArgs, a_lo: int, a_hi: int) -> bool:
+    """Whether actions ``[a_lo, a_hi)`` run the factorized phase: the full
+    set factors (``action_digits``) and the range is whole fixed-d0 slices
+    (the JAX package's ``digit_slice`` mode, ``pallas_backup6.py:696-724``;
+    its host checks, axis 0 constant within a slice and axes 1-2 digit by
+    digit, hold for every slice of a set that factors)."""
+    m = args.action_digits
+    return bool(m) and a_lo % (m * m) == 0 and a_hi % (m * m) == 0
+
+
+def slice_args(args: Backup6DArgs, a_lo: int, a_hi: int) -> Backup6DArgs:
+    """B.7's action-slice inputs: the minimum over actions ``[a_lo, a_hi)``
+    of the full-width plan and costs, with global action indices; the
+    factorized phase when :func:`digit_path` holds, else the generic
+    phase."""
+    if not 0 <= a_lo < a_hi <= args.n_actions:
+        raise ValueError(f"actions [{a_lo}, {a_hi}) of {args.n_actions}")
+    return args._replace(
+        actions=(a_lo, a_hi),
+        action_digits=args.action_digits if digit_path(args, a_lo, a_hi)
+        else None)
+
+
+def _launch_block(values, args: Backup6DArgs, out_v, out_a) -> BackupResult:
+    from .. import _build
+
+    _check_cuda_inputs(values, args)
+    lib = _build.load()
+    out_v, out_a = _outputs(values, args, out_v, out_a)
+    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
+    rec = args.lanes
+    if rec is None:
+        lane_ptrs = [_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
+                     for t in pair]
+        rec_ptrs = [None] * 8
+        consts = None
+    else:
+        if tuple(rec.axis_sizes) != tuple(args.lane_shape):
+            raise ValueError(f"lane axes {rec.axis_sizes} != lane shape "
+                             f"{args.lane_shape}")
+        lane_ptrs = [None] * 6
+        consts = np.asarray([*rec.axis_starts, *rec.axis_inv_steps,
+                             rec.h * 0.5], np.float32)
+        rec_ptrs = [*(_ptr(t) for t in rec.row_feats),
+                    *(_ptr(t) for t in rec.lane_feats), consts.ctypes.data]
+    lo, hi = args.halo
+    a_lo, a_hi = args.action_range
+    stream = torch.cuda.current_stream(values.device).cuda_stream
+    err = lib.backup6d_block_f32(
+        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac), *lane_ptrs,
+        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
+        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a), *rec_ptrs,
+        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
+        lane_combos.ctypes.data, c_act.ctypes.data,
+        *args.row_shape[1:], *args.lane_shape, args.n_actions,
+        len(row_combos), len(lane_combos), args.action_digits or 0,
+        *_mode_ints(args), int(rec is not None),
+        int(rec is not None and rec.edge == "clamp"), args.n_rows, lo,
+        lo + args.n_rows + hi, a_lo, a_hi, stream)
+    _raise_on(lib, err, "backup6d_block")
+    return BackupResult(out_v, out_a)
+
+
+def backup6d_block_cuda(values: torch.Tensor, args: Backup6DArgs,
+                        out_v: Optional[torch.Tensor] = None,
+                        out_a: Optional[torch.Tensor] = None
+                        ) -> BackupResult:
+    """Launch the kernel in B.7's row-block mode over every action: the
+    block of :func:`block_args` on any plan kind (broadcast, flat,
+    recompute), int32 or uint8 argmin, min-only or tracking. ``values`` is
+    the local ``(lo + rows + hi, NE)`` table; ``out_v``/``out_a`` the
+    ``(rows, NE)`` outputs (views into a larger buffer are fine; ``out_v``
+    must not overlap ``values``), else new ones."""
+    if args.actions is not None:
+        raise ValueError("an action range runs backup6d_slice_cuda")
+    res = _launch_block(values, args, out_v, out_a)
+    backup6d_block_cuda.launches += 1
+    return res
+
+
+backup6d_block_cuda.launches = 0
+
+
+def backup6d_slice_cuda(values: torch.Tensor, args: Backup6DArgs,
+                        out_v: Optional[torch.Tensor] = None,
+                        out_a: Optional[torch.Tensor] = None
+                        ) -> BackupResult:
+    """Launch the kernel in B.7's action-slice mode: the row block (or the
+    whole table) of :func:`backup6d_block_cuda` over the action range of
+    :func:`slice_args`, global action indices out."""
+    if args.actions is None:
+        raise ValueError("backup6d_slice_cuda needs args.actions "
+                         "(slice_args)")
+    res = _launch_block(values, args, out_v, out_a)
+    backup6d_slice_cuda.launches += 1
+    return res
+
+
+backup6d_slice_cuda.launches = 0
+
+
+def backup6d_block(values: torch.Tensor, args: Backup6DArgs,
+                   out_v: torch.Tensor, out_a: torch.Tensor) -> None:
+    """One B.7 sweep into ``out_v``/``out_a``: the kernel on a CUDA tensor
+    (:func:`backup6d_slice_cuda` with an action range, else
+    :func:`backup6d_block_cuda`), the plain version on a CPU tensor."""
+    if values.is_cuda:
+        fn = (backup6d_slice_cuda if args.actions is not None
+              else backup6d_block_cuda)
+        fn(values, args, out_v=out_v, out_a=out_a)
+    elif values.device.type == "cpu":
+        res = backup6d_plain(values, args)
+        out_v.copy_(res.values)
+        out_a.copy_(res.argmin)
+    else:
+        raise ValueError(f"no 6-D backup for device {values.device}")
 
 
 def _detect_action_digits(w_off, w_frac, nr: int) -> Optional[int]:
@@ -913,6 +1119,13 @@ class Backup6D:
         self.row_combos = tuple(row_combos)
         self.lane_combos = tuple(lane_combos)
         self.action_digits = digits
+
+    def row_reach(self) -> tuple:
+        """``(lo, hi)``: the table rows above and below its own that a
+        sweep reads, the exact reach of the live row combos (B.7's halo
+        widths)."""
+        d = self.args.row_deltas()
+        return max(-min(d), 0), max(max(d), 0)
 
     def _kernel(self):
         """The CUDA wrapper of this backup's mode: B.5 for a recompute plan,

@@ -1,7 +1,8 @@
 """The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
-carry mode, lane recompute; the banded 2-D backup with its channel batch)
-vs their plain PyTorch versions, on a card.
+carry mode, lane recompute; its row-block and digit-slice modes (B.7) and
+the row-sharded engines over an in-process mesh; the banded 2-D backup with
+its channel batch) vs their plain PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -406,3 +407,99 @@ def test_position_solve_kernel_equals_plain(device):
     assert bb.band_backup2d_cuda.launches == before + 20
     sp = position.solve(cfg, num_sweeps=20, impl="plain", device=device)
     _bitwise(sk.result, sp.result)
+
+
+B7_KINDS = {"broadcast": {}, "flat": {"flat": True},
+            "recompute": {"lane_mode": "recompute"}}
+
+
+@pytest.mark.parametrize("mode", [(torch.int32, True), (torch.uint8, True),
+                                  (torch.uint8, False)],
+                         ids=["int32", "uint8", "min-only"])
+@pytest.mark.parametrize("kind", list(B7_KINDS))
+def test_b7_block_and_slices_bitwise(device, kind, mode):
+    """B.7's row blocks (2 and 3 ranks) and digit slices vs their plain
+    versions, and the slices combined by the first minimum vs one sweep."""
+    from ocdp_tpu_torch.parallel.mesh import first_min
+
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5), device=device,
+        **B7_KINDS[kind])
+    bk = b6.Backup6D(plan, cost, argmin_dtype=mode[0], track_argmin=mode[1])
+    v = _seeded((bk.NW, bk.NE), device)
+    lo, hi = bk.row_reach()
+    vp = torch.nn.functional.pad(v, (0, 0, lo, hi))
+    before = b6.backup6d_block_cuda.launches
+    for r0, r1 in ((0, 172), (172, 343), (100, 200)):
+        args = b6.block_args(bk.args, r0, r1, lo, hi)
+        local = vp[r0:r1 + lo + hi].contiguous()
+        whole = b6.backup6d_block_cuda(local, args)
+        _bitwise(whole, b6.backup6d_plain(local, args))
+        # the block's digit slices, as a rows x 3 mesh runs them
+        vals, argm = [], []
+        for g in range(3):
+            sa = b6.slice_args(args, 9 * g, 9 * g + 9)
+            assert sa.action_digits == 3
+            got = b6.backup6d_slice_cuda(local, sa)
+            _bitwise(got, b6.backup6d_plain(local, sa))
+            vals.append(got.values)
+            argm.append(got.argmin)
+        vmin, arg = first_min(vals, argm, 27)
+        assert torch.equal(vmin, whole.values)
+        if mode[1]:
+            assert torch.equal(arg, whole.argmin.to(torch.int32))
+    assert b6.backup6d_block_cuda.launches == before + 3
+    full = b6.backup6d_plain(v, bk.args)
+    vals, argm = [], []
+    for g in range(3):
+        sa = b6.slice_args(bk.args, 9 * g, 9 * g + 9)
+        got = b6.backup6d_slice_cuda(v, sa)
+        _bitwise(got, b6.backup6d_plain(v, sa))
+        vals.append(got.values)
+        argm.append(got.argmin)
+    vmin, arg = first_min(vals, argm, 27)
+    assert torch.equal(vmin, full.values)
+    if mode[1]:
+        assert torch.equal(arg, full.argmin.to(torch.int32))
+
+
+def test_b7_output_may_not_overlap_the_table(device):
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device=device)
+    bk = b6.Backup6D(plan, cost)
+    lo, hi = bk.row_reach()
+    t = torch.zeros((lo + 60 + hi, bk.NE), device=device)
+    args = b6.block_args(bk.args, 0, 60, lo, hi)
+    with pytest.raises(ValueError, match="overlap"):
+        b6.backup6d_block_cuda(t, args, out_v=t[lo:lo + 60])
+
+
+@pytest.mark.parametrize("sizes", [(2,), (4,), (2, 3)],
+                         ids=["2", "4", "2x3"])
+def test_halo6_on_the_card_equals_one_device(device, sizes):
+    from ocdp_tpu_torch.engine import value_iteration_finite
+    from ocdp_tpu_torch.parallel import (LocalMesh,
+                                         value_iteration_finite_halo6)
+
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=9, n_mesh_q=6), device=device)
+    ref = value_iteration_finite(plan, cost, 30, backup=b6.Backup6D(plan,
+                                                                    cost))
+    mesh = LocalMesh(("s", "a")[:len(sizes)], sizes)
+    before = (b6.backup6d_block_cuda.launches,
+              b6.backup6d_slice_cuda.launches)
+    got = value_iteration_finite_halo6(
+        plan, cost, 30, mesh,
+        action_axis_name="a" if len(sizes) == 2 else None)
+    n = 30 * int(np.prod(sizes))
+    want = (before[0], before[1] + n) if len(sizes) == 2 else \
+        (before[0] + n, before[1])
+    assert (b6.backup6d_block_cuda.launches,
+            b6.backup6d_slice_cuda.launches) == want
+    _bitwise(got, ref)
+
+
+def test_dryrun_on_the_card(device):
+    from ocdp_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    assert len(dryrun_multichip(8)) == 9
