@@ -49,8 +49,12 @@ torques, 5999 sweeps):
 
 12. one sweep of the 6-D kernel vs its plain version: a seeded random table
     and the table after 50 sweeps at 11^3 x 10^3, 5^3 x 4^3, an exact-tie
-    case (h = 0, no cost), ``edge='clamp'``, and a permuted action order
-    (the generic action phase): values and argmin bitwise equal;
+    case (h = 0, no cost), ``edge='clamp'``, a permuted action order (the
+    generic action phase), and the shared-memory tiles' edges: the
+    11^3 x 10^3 sweep's first and last row tiles, clipped at the table's
+    top and bottom, and its 1000 lanes, not a multiple of the tile's; a
+    10-row block with no halo rows, whose tiles are each clipped at both
+    edges: values and argmin bitwise equal;
 13. the main path, ``attitude.solve_full(AttitudeConfig(n_mesh_w=11,
     n_mesh_q=10))`` on the default device over the full 5999 sweeps: the
     kernel's launch count goes up by exactly 5999, the values are finite;
@@ -66,8 +70,9 @@ torques, 5999 sweeps):
     path's solution, timed; one 'interp' rollout;
 16. timing: the kernel and plain sweeps at 11^3 x 10^3 (CUDA events, warm,
     median of 10), the solves' wall times, the rollout time per stage, peak
-    device memory, and the kernel's registers and spills from the build
-    log.
+    device memory, the kernel's registers, static shared memory and spills
+    from the build log, and beside them the dynamic shared memory a launch
+    asks for (the tile planner), its tile and its occupancy.
 
 The 6-D envelope (kernels ``backup6d_flat``, B.4, and
 ``backup6d_recompute``, B.5), past 8M cells:
@@ -92,11 +97,15 @@ The 6-D envelope (kernels ``backup6d_flat``, B.4, and
     plain version's on every cell), and its live taps lie in B.5's
     admitted ones;
 19. serving: a 1000-stage flat-argmin rollout of that solution;
-20. the H100's own envelope: ``solve_full(AttitudeConfig(n_mesh_w=50,
-    n_mesh_q=20), num_sweeps=2)``, 1.0B cells: build seconds, seconds per
-    sweep, peak device memory;
+20. past 2^31 cells: ``solve_full(AttitudeConfig(n_mesh_w=60,
+    n_mesh_q=22), num_sweeps=1, init_values=...)`` (2.30B cells, B.5) from
+    a seeded table: build seconds, seconds per sweep, peak device memory;
+    its last output rows, at flat offsets past 2^31, equal the plain
+    version of their row block (``block_args``) on those rows' local
+    table, bitwise;
 21. timing with CUDA events, warm, median of 10: B.4 (uint8, tracking) and
-    B.5 at 30^3 x 16^3 beside their bounds and B.3's ns per cell.
+    B.5 at 30^3 x 16^3 beside their bounds and B.3's ns per cell, with
+    each mode's registers, shared memory and occupancy.
 
 Simplified attitude and position (kernel ``band_backup2d``, B.6):
 
@@ -133,9 +142,10 @@ the one card (NCCL across cards is not exercised here):
     10^3 (random table and the table after 50 sweeps; int32, uint8 and
     min-only), of 2 ranks at 19^3 x 14^3 on the flat (B.4) and recompute
     (B.5) plans, each of the 3 digit slices of the whole table and of each
-    2-rank block (the 2 x 3 main path's shapes), and an exact-tie case:
-    bitwise; the 3 slices combined by the first minimum equal one B.3 sweep
-    (whole table) or the block's B.7 sweep (each block) bitwise;
+    2-rank block (the 2 x 3 main path's shapes), a block with halo rows of
+    the table on both sides, and an exact-tie case: bitwise; the 3 slices
+    combined by the first minimum equal one B.3 sweep (whole table) or the
+    block's B.7 sweep (each block) bitwise;
 28. the main path, ``value_iteration_finite_halo6`` at 11^3 x 10^3 on 2
     ranks over the full 5999 sweeps: ``backup6d_block`` launches exactly 2 x
     5999 times and no other backup kernel runs; values and argmin equal
@@ -154,8 +164,8 @@ the one card (NCCL across cards is not exercised here):
     engines) and ``pos_att.solve_ep`` against their one-device solves, and
     the dryrun twin ``dryrun_multichip(8)``;
 32. timing with CUDA events, warm, median of 10: one B.7 block call and one
-    slice call beside their plain versions and bounds, and one halo6 sweep
-    on 2 ranks and on 2 x 3.
+    slice call beside their plain versions and bounds, with their shared
+    memory and occupancy, and one halo6 sweep on 2 ranks and on 2 x 3.
 
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
@@ -198,6 +208,7 @@ SEED = 0
 # the H100 SXM's published peaks: FP32 outside the tensor cores, HBM3
 FP32_FLOP_PER_S = 67e12
 HBM_BYTES_PER_S = 3.35e12
+SM_MAX_THREADS = 2048          # resident threads an H100 SM holds
 
 
 def bound(flops: float, nbytes: float) -> dict:
@@ -809,9 +820,9 @@ RECOMPUTE_OPS_PER_CELL = 28 + 8 + 4 + 28 + 2 * 25 + 6 + 25 + 3 * 6
 
 
 def kernel_registers(name: str) -> str:
-    """The ptxas line (registers, spills) of kernel ``name`` (a substring of
-    its mangled name) in the build log that ``_build`` writes beside the
-    library."""
+    """The ptxas line (registers, static shared memory, spills) of kernel
+    ``name`` (a substring of its mangled name) in the build log that
+    ``_build`` writes beside the library."""
     log = _build.library_path().with_suffix(".log").read_text()
     blocks = log.split("Compiling entry function")
     for b in blocks:
@@ -819,9 +830,50 @@ def kernel_registers(name: str) -> str:
             spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                               r"loads", b)
             regs = re.search(r"Used (\d+) registers", b)
-            return (f"{regs.group(1)} registers, {spill.group(1)} B spill "
-                    f"stores, {spill.group(2)} B spill loads")
+            smem = re.search(r"(\d+) bytes smem", b)
+            return (f"{regs.group(1)} registers, "
+                    f"{smem.group(1) if smem else 0} B static shared memory, "
+                    f"{spill.group(1)} B spill stores, {spill.group(2)} B "
+                    "spill loads")
     raise RuntimeError(f"chip_smoke: {name} not in the build log")
+
+
+def tile_line(values, args) -> str:
+    """The dynamic shared memory a 6-D launch on ``values`` asks for (the
+    tile planner's stage), its tile and its occupancy (the card's query)."""
+    plan, blocks = b6.tile_occupancy(values, args)
+    return (f"{plan.smem_bytes} B dynamic shared memory a launch (tile "
+            f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
+            f"rows x {plan.width} lanes, {plan.threads} threads a block, "
+            f"{blocks} blocks an SM: occupancy "
+            f"{blocks * plan.threads / SM_MAX_THREADS:.0%})")
+
+
+def tile_edge_cases(bk, v) -> float:
+    """The shared-memory tiles' edges of B.3, bitwise against the plain
+    version: the sweep of ``v`` (already compared) has row tiles clipped at
+    the table's top and bottom and lanes that the tile does not divide; a
+    10-row block with no halo rows puts every row tile past both edges
+    (0.0 there, as the plain version reads). Returns max |dV|."""
+    v2 = v.reshape(bk.NW, bk.NE).contiguous()
+    plan, _ = b6.tile_occupancy(v2, bk.args)
+    top = int(plan.stage_rows(0).min())
+    bottom = int(plan.stage_rows(plan.grid[0] - 1).max())
+    print(f"{bk.NW}x{bk.NE} tiles {plan.rows} x {plan.lanes}: first row tile "
+          f"stages table row {top}, last {bottom} ({bk.NW} rows), lanes "
+          f"{bk.NE} % {plan.lanes} = {bk.NE % plan.lanes}")
+    check(top < 0 and bottom >= bk.NW and bk.NE % plan.lanes != 0,
+          "the 11^3x10^3 tiles do not reach both edges and a cut lane tile")
+    args = b6.block_args(bk.args, 600, 610, 0, 0)
+    local = v2[600:610].contiguous()
+    plan10, _ = b6.tile_occupancy(local, args)
+    check(all(plan10.stage_rows(i).min() < 0
+              and plan10.stage_rows(i).max() >= 10
+              for i in range(plan10.grid[0])),
+          "the 10-row block's tiles are not clipped at both edges")
+    return b7_vs_plain(b6.backup6d_block_cuda, local, args,
+                       f"a 10-row block with no halo rows: {plan10.grid[0]} "
+                       "row tiles, each clipped at both table edges")
 
 
 def attitude_phases(device) -> dict:
@@ -852,6 +904,7 @@ def attitude_phases(device) -> dict:
         if case == "tie":
             check(int(cbk(cv).argmin.max()) == 0,
                   "exact ties: a later action won")
+    max_err = max(max_err, tile_edge_cases(bk, v))
 
     phase("13. main path: attitude.solve_full(AttitudeConfig(n_mesh_w=11, "
           "n_mesh_q=10))")
@@ -987,7 +1040,7 @@ def attitude_phases(device) -> dict:
           f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
           f"memory of the main path {peak_mib:.1f} MiB")
     print(f"backup6d_sweep<int32, tracking> (B.3): "
-          f"{kernel_registers(B3_KERNEL)}")
+          f"{kernel_registers(B3_KERNEL)}; {tile_line(v2, bk.args)}")
     return {
         "name": "backup6d",
         "route": "cuda",
@@ -1004,7 +1057,7 @@ def attitude_phases(device) -> dict:
 
 ENV_CHECK = dict(n_mesh_w=19, n_mesh_q=14)   # 18.8M cells: the plain fits
 ENV_MAIN = dict(n_mesh_w=30, n_mesh_q=16)    # 110.6M cells (README)
-ENV_MAX = dict(n_mesh_w=50, n_mesh_q=20)     # 1.0B cells
+ENV_MAX = dict(n_mesh_w=60, n_mesh_q=22)     # 2.30B cells, past 2^31
 ENV_SWEEPS = 100                             # of the main path's 5999
 ENV_TOL = dict(tol=1e-6, tol_mode="rel")
 
@@ -1307,34 +1360,64 @@ def envelope_phases(device, b3) -> list:
     print(f"1000-stage rollout of the 30^3x16^3 policy: {roll_s:.3f} s, "
           f"{roll_s / 999 * 1e3:.3f} ms per stage")
 
-    phase("20. the H100's own envelope: solve_full(AttitudeConfig("
-          "n_mesh_w=50, n_mesh_q=20), num_sweeps=2)")
+    phase("20. past 2^31 cells: solve_full(AttitudeConfig(n_mesh_w=60, "
+          "n_mesh_q=22), num_sweeps=1) from a seeded table")
     v_main = res.values
     del X, U, res
     free_cuda()
-    torch.cuda.reset_peak_memory_stats()
     max_cfg = attitude.AttitudeConfig(**ENV_MAX)
+    big_cells = max_cfg.n_mesh_w**3 * max_cfg.n_mesh_q**3
+    big_nw, big_ne = max_cfg.n_mesh_w**3, max_cfg.n_mesh_q**3
+    check(big_cells > 2**31, f"{big_cells} cells do not pass 2^31")
+    gen = torch.Generator(device=device).manual_seed(SEED + 20)
+    v_big = torch.rand((big_nw, big_ne), generator=gen, device=device)
+    v_big.mul_(100.0)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     log = _io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(log):
-        big = attitude.solve_full(max_cfg, num_sweeps=2, verbose=True)
+        big = attitude.solve_full(max_cfg, num_sweeps=1, init_values=v_big,
+                                  verbose=True)
     torch.cuda.synchronize()
     big_s = time.perf_counter() - t0
     print(log.getvalue(), end="")
     sweep_s = [float(x) for x in re.findall(r"step \d+ - ([\d.]+) seconds",
                                             log.getvalue())]
-    big_cells = max_cfg.n_mesh_w**3 * max_cfg.n_mesh_q**3
-    peak_big = torch.cuda.max_memory_allocated() / 2**30
-    check(len(sweep_s) == 2 and big.is_flat
+    peak_big = (torch.cuda.max_memory_allocated() - base) / 2**30
+    check(len(sweep_s) == 1 and big.is_flat
           and bool(torch.isfinite(big.result.values).all()),
-          "1.0B-cell solve")
+          "2.30B-cell solve")
     print(f"{big_cells} cells: {big_s:.3f} s, of which the build "
-          f"{big_s - sum(sweep_s):.3f} s and sweeps {sweep_s} s "
-          f"({sweep_s[-1] / big_cells * 1e9:.3f} ns per cell); peak device "
-          f"memory {peak_big:.3f} GiB "
-          f"({peak_big * 2**30 / big_cells:.2f} B per cell); the kernel's "
-          f"int32 cell index caps a grid at 2^31 = {2**31} cells")
+          f"{big_s - sum(sweep_s):.3f} s and the sweep {sweep_s[0]} s "
+          f"({sweep_s[0] / big_cells * 1e9:.3f} ns per cell); peak device "
+          f"memory of the solve {peak_big:.3f} GiB "
+          f"({peak_big * 2**30 / big_cells:.2f} B per cell) beside the "
+          "seeded table")
+    got = big.result
     del big
+    free_cuda()
+    # the last rows against the plain version of their row block, on the
+    # local table of those rows and their halos (zeros below the table)
+    _, rplan, rcost = attitude.build_full(max_cfg)
+    rbk = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8)
+    del rplan
+    lo, hi = rbk.row_reach()
+    k = 2
+    args = b6.block_args(rbk.args, big_nw - k, big_nw, lo, hi)
+    local = torch.cat([v_big[big_nw - k - lo:],
+                       torch.zeros((hi, big_ne), device=device)])
+    want = b6.backup6d_plain(local, args)
+    torch.cuda.synchronize()
+    first = (big_nw - k) * big_ne
+    same_v = torch.equal(got.values[big_nw - k:], want.values)
+    same_a = torch.equal(got.argmin[big_nw - k:], want.argmin)
+    print(f"the last {k} rows (flat offsets {first} to {big_cells - 1}, past "
+          f"2^31 = {2**31}) vs the plain version of their block: values "
+          f"bitwise {same_v}, argmin identical {same_a}")
+    check(first > 2**31 and same_v and same_a,
+          "the rows past 2^31 cells != the plain version")
+    del got, rbk, args, local, want, v_big
     free_cuda()
 
     phase("21. timing (CUDA events, warm, median of 10)")
@@ -1347,6 +1430,8 @@ def envelope_phases(device, b3) -> list:
     ms4 = cuda_time_ms(lambda: b6.backup6d_flat_cuda(
         v_main, bk4.args, out_v=out_v, out_a=out_a))
     bound4 = backup6d_bound(bk4)
+    line4 = (f"B.4 (uint8, tracking): {kernel_registers(B4_KERNEL)}; "
+             f"{tile_line(v_main, bk4.args)}")
     del bk4
     free_cuda()
     _, rplan, rcost = attitude.build_full(main_cfg)
@@ -1362,8 +1447,9 @@ def envelope_phases(device, b3) -> list:
           f"({ms5 * 1e6 / cells:.3f} ns per cell, bound "
           f"{bound5['bound_ms']:.4f} ms by {bound5['bound_by']}); B.3 at "
           f"11^3x10^3 {b3_ns:.3f} ns per cell")
-    print(f"registers: B.4 {kernel_registers(B4_KERNEL)}; B.5 "
-          f"{kernel_registers(B5_KERNEL)}")
+    print(line4)
+    print(f"B.5 (uint8, tracking): {kernel_registers(B5_KERNEL)}; "
+          f"{tile_line(v_main, bk5.args)}")
     print("plain_ms of B.4 and B.5 are at 19^3x14^3 (phase 17); ms and "
           "bound_ms at 30^3x16^3")
     tmp.cleanup()
@@ -1813,6 +1899,15 @@ def multirank_phases(device) -> list:
         mbk = b6.Backup6D(plan, cost, argmin_dtype=dt, track_argmin=track)
         err_b = max(err_b, b7_blocks_vs_plain(mbk, v_rand, 2,
                                               f"11^3x10^3 {mode}")[0])
+    lo, hi = bk.row_reach()
+    r0, r1 = 400, 900
+    check(r0 - lo >= 0 and r1 + hi <= bk.NW, "the block's halos leave the "
+          "table")
+    err_b = max(err_b, b7_vs_plain(
+        b6.backup6d_block_cuda, v50.reshape(bk.NW, bk.NE)[r0 - lo:r1 + hi]
+        .contiguous(), b6.block_args(bk.args, r0, r1, lo, hi),
+        f"11^3x10^3 after 50 sweeps, block rows [{r0}, {r1}) with both "
+        f"halos ({lo}, {hi}) from the table"))
     _, _, tbk = attitude_backup(device, "tie", n_mesh_w=5, n_mesh_q=4,
                                 h=0.0)
     v_tie = torch.from_numpy(rng.uniform(0.0, 100.0, (tbk.NW, tbk.NE))
@@ -2021,6 +2116,8 @@ def multirank_phases(device) -> list:
           f"{sl_ms:.4f} ms, plain {sl_plain_ms:.4f} ms, bound "
           f"{bnd_sl['bound_ms']:.5f} ms ({bnd_sl['bound_by']}); one B.3 "
           f"sweep of the whole table {one_ms:.4f} ms")
+    print(f"B.7b block: {tile_line(t_blk, blk_args)}; B.7a slice: "
+          f"{tile_line(t_sl, sl_args)}")
     print(f"[{smi}] halo6 sweep (exchange, kernels, combine): 2 ranks "
           f"{sweep2_ms:.4f} ms, 2 x 3 {sweep23_ms:.4f} ms; the 5999-sweep "
           f"solves {main_s:.3f} s and {mesh_s:.3f} s")

@@ -38,10 +38,12 @@ _SIGNATURES = {
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),
     "rowlane_backup_error_string": (ctypes.c_char_p, [_I]),
-    "backup6d_f32": (_I, [_P] * 20 + [_I] * 10 + [_P]),
-    "backup6d_flat_f32": (_I, [_P] * 20 + [_I] * 12 + [_P]),
-    "backup6d_recompute_f32": (_I, [_P] * 22 + [_I] * 13 + [_P]),
-    "backup6d_block_f32": (_I, [_P] * 28 + [_I] * 18 + [_P]),
+    "backup6d_f32": (_I, [_P] * 21 + [_I] * 10 + [_P]),
+    "backup6d_flat_f32": (_I, [_P] * 21 + [_I] * 12 + [_P]),
+    "backup6d_recompute_f32": (_I, [_P] * 23 + [_I] * 13 + [_P]),
+    "backup6d_block_f32": (_I, [_P] * 29 + [_I] * 18 + [_P]),
+    "backup6d_smem_limit": (_I, []),
+    "backup6d_blocks_per_sm": (_I, [_I] * 5),
     "backup6d_error_string": (ctypes.c_char_p, [_I]),
 }
 

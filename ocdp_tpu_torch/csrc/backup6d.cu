@@ -42,20 +42,41 @@
 // chain of both action phases. A NaN total at action 0 therefore stays, and
 // a later NaN never wins; the plain version runs the same chain.
 //
-// Layout and what bounds it: one thread per cell, 256 threads per block
-// over the flat (NW * NE) cells, so a warp reads consecutive lanes of one or
-// two rows. The live taps sit on a 3 x 3 x 3 cube per group (row, lane), so
-// the row combos' A_j, the per-digit row weights and the 27 action totals
-// have fixed register slots (kCube). Each cell reads its 3 lane (off, frac)
-// pairs once (24 B) and recomputes the joint weight of each lane combo once,
-// for all row combos; the per-(row, action) row plan is uniform across a
-// row and read per digit in the factorized phase. The table (5.3 MB at
-// 11^3 x 10^3) stays in the 50 MB L2: 27 x 27 = 729 reads per cell, served
-// from L1/L2. FP32 work is about 2e3 operations per cell, so the function is
-// bound by FP32 throughput, not by device memory; this first kernel is bound
-// by its load and instruction issue instead. Later work (ROADMAP B.3):
-// shared-memory tiles of the row window a block reads, and sharing the lane
-// phase across the row shifts.
+// Layout and what bounds it. Per cell the lane phase makes 27 x 27 = 729
+// table reads and about 2e3 FP32 operations, each a separately rounded
+// __fmul_rn/__fadd_rn that nvcc never contracts into an FMA, so the real
+// arithmetic ceiling is half the card's FMA-counted FP32 rate. The first
+// kernel (one thread a cell over the flat cells) sent every read to L1/L2
+// and ran at 43-50x its bound. Here a block owns a tile of R consecutive
+// output rows x L consecutive lanes (the host planner,
+// ops/backup6d.py::plan_tiles, picks R, L and the block size and hands the
+// kernel its index map as a Tiles) and first stages in dynamic shared
+// memory every table row its cells read, over the lanes [c0 - reach_lo,
+// c0 + L + reach_hi), with cp.async (16-byte chunks where the table's rows
+// are 4-lane aligned). The row shifts are D = (t0 * n_r1 + t1) * n_r2 +
+// t2, so for each live (t0, t1) the tile's rows read one run of R + (t2
+// span) consecutive table rows: the stage holds at most 9 such row groups,
+// about 9 (R + 2) rows for 27 R combo rows. A stage entry outside the table
+// (a row outside [0, n_table_rows), a lane outside [0, NE)) is zero-filled
+// by the copy itself (src-size 0): exactly the 0.0 the plain version reads
+// there, under a zero weight. Beside the rows, the block forms each tile
+// row's factorized row tap weights once (27 a row). Then each thread takes
+// the tile's cells in turn: its 9 lane tap weights once, each joint weight
+// once, and all 729 terms from the stage, every cube slot summed without a
+// branch on its liveness (a dead slot reads a stage entry and is never
+// used), each sum started at -0.0 (-0 + x == x, so the first term stands
+// as the plain version's). Blocks run row tiles fastest (blockIdx.x), so
+// the blocks in flight share their staged rows in L2 even where the table
+// (442 MB at 30^3 x 16^3) is far larger than L2. The planner sizes a stage
+// for two resident blocks of 256 threads an SM, or one of 512 where a wide
+// lane reach needs the whole SM (__launch_bounds__ caps the registers at
+// 128 for either), so one block's copies overlap the other's arithmetic.
+// What bounds it now (measured on an H100, PERF.md §6): not the stage
+// reads (half of them cost 7%) but the instruction stream of the unfused
+// arithmetic, about 3 instructions a term, and the action phase (about 40%
+// of a sweep), at 16 warps an SM; more warps did not help. Cells are
+// addressed with 64-bit offsets (row tile, lane tile), so a grid may pass
+// 2^31 cells.
 //
 // The envelope modes (B.4, B.5) are instantiations of the same kernel:
 //
@@ -113,12 +134,15 @@
 
 namespace {
 
-constexpr int kThreads = 256;
 constexpr int kMaxTaps = 3;       // MAX_TAPS in ops/backup6d.py
 constexpr int kCube = kMaxTaps * kMaxTaps * kMaxTaps;
 constexpr int kMaxLaneCombos = kCube;
 constexpr int kMaxActions = 64;   // MAX_ACTIONS
 constexpr int kMaxDigits = 3;     // MAX_DIGITS
+constexpr int kMaxGroups = kMaxTaps * kMaxTaps;  // live (t0, t1) pairs
+constexpr int kTileInts = 65;     // TILE_INTS: the planner's int32 array
+constexpr int kMaxThreads = 512;  // threads of a block (TilePlan.threads)
+constexpr int kRowWeights = 3 * kMaxTaps * kMaxDigits;  // ROW_WEIGHTS
 
 // The tap structure, passed by value (it lives in the constant bank).
 struct Taps6 {
@@ -127,10 +151,14 @@ struct Taps6 {
   int row_live;                   // bit (i0 * 3 + i1) * 3 + i2: combo live
   int row_delta[kCube];           // flat row shift of cube slot p
   int n_lane_combos;
-  int lane_tap[kMaxLaneCombos][3];  // live lane combos, sorted
+  int lane_taps[3][kMaxTaps];     // live taps of each lane axis
+  int lane_idx[kMaxLaneCombos][3];  // live lane combos (sorted) as indices
+                                    // into lane_taps
   int lane_delta[kMaxLaneCombos];   // flat lane shift of lane combo e
   int digits;                     // action digit base m, 0: generic phase
   float c_act[kMaxActions];       // per-action cost
+  float c_act_q[kCube];           // c_act of action (d0, d1, d2) at slot
+                                  // (d0 * 3 + d1) * 3 + d2 (digits > 0)
 };
 
 __device__ __forceinline__ float tap_weight(int off, float f, int t) {
@@ -161,6 +189,24 @@ struct Block {
   int n_table_rows;       // rows of the table the kernel reads
   int table_row0;         // the table row of output row 0 (the halo above)
   int a_lo, a_hi;         // the actions [a_lo, a_hi) the minimum runs over
+};
+
+// A block's tile and its stage (ops/backup6d.py::plan_tiles): output rows
+// [r0, r0 + rows) and lanes [c0, c0 + lanes), r0 = blockIdx.x * rows, c0 =
+// blockIdx.y * lanes. Stage row g_slot[g] + i holds table row r0 +
+// table_row0 + g_delta[g] + i over the lanes [c0 - reach_lo, c0 - reach_lo
+// + width); row combo p of tile row rr reads stage row p's slot + rr, at
+// byte offset row_base[p] + 4 * rr * width. After the table rows, the
+// factorized phase's row tap weights of each tile row: kRowWeights floats,
+// w_k[i][d] of row axis k, tap i, digit d at (k * 3 + i) * 3 + d.
+struct Tiles {
+  int rows, lanes;
+  int reach_lo, width;
+  int weights_at;         // the rows' tap weights: stage + weights_at
+  int vec4;               // copy in 16-byte chunks (aligned, NE % 4 == 0)
+  int n_groups;
+  int g_delta[kMaxGroups], g_rows[kMaxGroups], g_slot[kMaxGroups];
+  int row_base[kCube];    // byte offset of combo p's tile row 0 in the stage
 };
 
 // ops/kernelmath.py, op by op (Cephes atanf); constants are the float32
@@ -269,8 +315,29 @@ __device__ __forceinline__ void recompute_lanes(const LaneRec& rec, int r,
   locate(rec, 2, roll, c, o2, f2);
 }
 
+// w[i] for a tap index i uniform across the warp (no local memory)
+__device__ __forceinline__ float pick(const float (&w)[kMaxTaps], int i) {
+  return i == 0 ? w[0] : (i == 1 ? w[1] : w[2]);
+}
+
+// one 4-byte cp.async into the stage; ok false: a zero, nothing read
+__device__ __forceinline__ void stage_copy(float* dst, const float* src,
+                                           bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+
+// one 16-byte cp.async into the stage (both addresses 16-byte aligned)
+__device__ __forceinline__ void stage_copy16(float* dst, const float* src,
+                                             bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+
 template <typename ArgT, bool kTrack, bool kRecompute>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
 backup6d_sweep(const float* __restrict__ values,
                const int* __restrict__ row_off,
                const float* __restrict__ row_frac,
@@ -287,191 +354,247 @@ backup6d_sweep(const float* __restrict__ values,
                float* __restrict__ out_v, ArgT* __restrict__ out_a,
                int n_rows, int n_lanes, int n_actions,
                const __grid_constant__ Taps6 tp,
-               const __grid_constant__ LaneRec rec, const Block blk) {
-  const int cell = blockIdx.x * blockDim.x + threadIdx.x;
-  if (cell >= n_rows * n_lanes) return;
-  const int r = cell / n_lanes;
-  const int c = cell - r * n_lanes;
-  int o0, o1, o2;
-  float f0, f1, f2;
-  if constexpr (kRecompute) {
-    recompute_lanes(rec, r, c, o0, o1, o2, f0, f1, f2);
-  } else {
-    o0 = lane_off0[cell], o1 = lane_off1[cell], o2 = lane_off2[cell];
-    f0 = lane_frac0[cell], f1 = lane_frac1[cell], f2 = lane_frac2[cell];
-  }
+               const __grid_constant__ LaneRec rec, const Block blk,
+               const __grid_constant__ Tiles tl) {
+  extern __shared__ __align__(16) float stage[];
+  const int r0 = blockIdx.x * tl.rows;
+  const int c0 = blockIdx.y * tl.lanes;
+  const int lane0 = c0 - tl.reach_lo;     // the table lane of stage column 0
 
-  // lane phase: A[p] for each live row combo (cube slot p), summed over the
-  // lane combos in order; each joint weight is formed once for all p
-  float A[kCube];
-#pragma unroll
-  for (int p = 0; p < kCube; ++p) A[p] = 0.0f;
-  for (int e = 0; e < tp.n_lane_combos; ++e) {
-    const float w = __fmul_rn(
-        __fmul_rn(tap_weight(o0, f0, tp.lane_tap[e][0]),
-                  tap_weight(o1, f1, tp.lane_tap[e][1])),
-        tap_weight(o2, f2, tp.lane_tap[e][2]));
-    const int c2 = c + tp.lane_delta[e];
-    const bool lane_in = c2 >= 0 && c2 < n_lanes;
-#pragma unroll
-    for (int p = 0; p < kCube; ++p) {
-      if (live(tp, p)) {
-        const int rr = r + blk.table_row0 + tp.row_delta[p];
-        const float v = (lane_in && rr >= 0 && rr < blk.n_table_rows)
-                            ? values[static_cast<long long>(rr) * n_lanes + c2]
-                            : 0.0f;
-        const float term = __fmul_rn(w, v);
-        A[p] = e == 0 ? term : __fadd_rn(A[p], term);
+  // stage every table row the tile reads, zero outside the table: in
+  // 16-byte chunks where the rows and the window are 4-lane aligned (a
+  // chunk then lies wholly inside or outside the table), else by lane
+  for (int g = 0; g < tl.n_groups; ++g) {
+    for (int i = 0; i < tl.g_rows[g]; ++i) {
+      const int tr = r0 + blk.table_row0 + tl.g_delta[g] + i;
+      const bool row_in = tr >= 0 && tr < blk.n_table_rows;
+      const float* src = values + static_cast<long long>(row_in ? tr : 0) *
+                                      n_lanes;
+      float* dst = stage + (tl.g_slot[g] + i) * tl.width;
+      if (tl.vec4) {
+        for (int j = 4 * threadIdx.x; j < tl.width; j += 4 * blockDim.x) {
+          const int c = lane0 + j;
+          const bool ok = row_in && c >= 0 && c < n_lanes;
+          stage_copy16(dst + j, ok ? src + c : values, ok);
+        }
+      } else {
+        for (int j = threadIdx.x; j < tl.width; j += blockDim.x) {
+          const int c = lane0 + j;
+          const bool ok = row_in && c >= 0 && c < n_lanes;
+          stage_copy(dst + j, ok ? src + c : values, ok);
+        }
       }
     }
   }
-
+  // the factorized phase's row tap weights of each tile row, once a block
+  float* row_w = stage + tl.weights_at;
   const long long plane = static_cast<long long>(n_rows) * n_actions;
-  const int* off_r = row_off + static_cast<long long>(r) * n_actions;
-  const float* frac_r = row_frac + static_cast<long long>(r) * n_actions;
-  const float* rowact_r =
-      c_rowact != nullptr ? c_rowact + static_cast<long long>(r) * n_actions
-                          : nullptr;
-  float best = 0.0f;
-  int best_a = 0;
-
   if (tp.digits > 0) {
-    // factorized action phase over the whole d0 slices [d0_lo, d0_hi); the
-    // totals sit in tot[(d0 * 3 + d1) * 3 + d2]
     const int m = tp.digits;
-    const int d0_lo = blk.a_lo / (m * m), d0_hi = blk.a_hi / (m * m);
-    float w1[kMaxTaps][kMaxDigits], w2[kMaxTaps][kMaxDigits];
+    for (int j = threadIdx.x; j < tl.rows * kRowWeights; j += blockDim.x) {
+      const int rr = j / kRowWeights, k = (j / 9) % 3, i = (j / 3) % 3;
+      const int d = j % 3, r = r0 + rr;
+      float w = 0.0f;
+      if (r < n_rows && d < m && i < tp.n_row_taps[k]) {
+        // the canonical action of digit d on axis k
+        const int a = k == 0 ? d * m * m : (k == 1 ? d * m : d);
+        const long long at =
+            k * plane + static_cast<long long>(r) * n_actions + a;
+        w = tap_weight(row_off[at], row_frac[at], tp.row_taps[k][i]);
+      }
+      row_w[j] = w;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < tl.rows * tl.lanes; i += blockDim.x) {
+    const int rr = i / tl.lanes;
+    const int cl = i - rr * tl.lanes;
+    const int r = r0 + rr;
+    const int c = c0 + cl;
+    if (r >= n_rows || c >= n_lanes) continue;
+    const long long cell = static_cast<long long>(r) * n_lanes + c;
+    int o0, o1, o2;
+    float f0, f1, f2;
+    if constexpr (kRecompute) {
+      recompute_lanes(rec, r, c, o0, o1, o2, f0, f1, f2);
+    } else {
+      o0 = lane_off0[cell], o1 = lane_off1[cell], o2 = lane_off2[cell];
+      f0 = lane_frac0[cell], f1 = lane_frac1[cell], f2 = lane_frac2[cell];
+    }
+
+    // lane phase: A[p] for each row combo (cube slot p), summed over the
+    // lane combos in order from the stage. Each sum starts at -0.0, which
+    // adds to its first term exactly (-0 + x == x); each tap weight and
+    // each joint weight is formed once for all p. Every slot p is summed,
+    // with no branch on its liveness: a slot that is not live reads the
+    // stage at offset 0 from the cell's column and is never used.
+    float ew[3][kMaxTaps];
 #pragma unroll
     for (int i = 0; i < kMaxTaps; ++i) {
+      ew[0][i] = tap_weight(o0, f0, tp.lane_taps[0][i]);
+      ew[1][i] = tap_weight(o1, f1, tp.lane_taps[1][i]);
+      ew[2][i] = tap_weight(o2, f2, tp.lane_taps[2][i]);
+    }
+    const char* cell_stage = reinterpret_cast<const char*>(
+        stage + rr * tl.width + cl + tl.reach_lo);
+    float A[kCube];
 #pragma unroll
-      for (int d = 0; d < kMaxDigits; ++d) {
-        w1[i][d] = w2[i][d] = 0.0f;
-        if (d < m && i < tp.n_row_taps[1]) {
-          w1[i][d] = tap_weight(off_r[plane + d * m], frac_r[plane + d * m],
-                                tp.row_taps[1][i]);
-        }
-        if (d < m && i < tp.n_row_taps[2]) {
-          w2[i][d] = tap_weight(off_r[2 * plane + d], frac_r[2 * plane + d],
-                                tp.row_taps[2][i]);
-        }
+    for (int p = 0; p < kCube; ++p) A[p] = -0.0f;
+    for (int e = 0; e < tp.n_lane_combos; ++e) {
+      const float w = __fmul_rn(
+          __fmul_rn(pick(ew[0], tp.lane_idx[e][0]),
+                    pick(ew[1], tp.lane_idx[e][1])),
+          pick(ew[2], tp.lane_idx[e][2]));
+      const char* col = cell_stage + 4 * tp.lane_delta[e];
+#pragma unroll
+      for (int p = 0; p < kCube; ++p) {
+        const float v = *reinterpret_cast<const float*>(col + tl.row_base[p]);
+        A[p] = __fadd_rn(A[p], __fmul_rn(w, v));
       }
     }
-    float tot[kCube];
+
+    const int* off_r = row_off + static_cast<long long>(r) * n_actions;
+    const float* frac_r = row_frac + static_cast<long long>(r) * n_actions;
+    const float* rowact_r =
+        c_rowact != nullptr ? c_rowact + static_cast<long long>(r) * n_actions
+                            : nullptr;
+    float best = 0.0f;
+    int best_a = 0;
+
+    if (tp.digits > 0) {
+      // factorized action phase over the whole d0 slices [d0_lo, d0_hi); the
+      // totals sit in tot[(d0 * 3 + d1) * 3 + d2]
+      const int m = tp.digits;
+      const int d0_lo = blk.a_lo / (m * m), d0_hi = blk.a_hi / (m * m);
+      const float* w_r = row_w + rr * kRowWeights;
+      float w1[kMaxTaps][kMaxDigits], w2[kMaxTaps][kMaxDigits];
 #pragma unroll
-    for (int q = 0; q < kCube; ++q) tot[q] = 0.0f;
+      for (int i = 0; i < kMaxTaps; ++i) {
 #pragma unroll
-    for (int i0 = 0; i0 < kMaxTaps; ++i0) {
-      if (i0 < tp.n_row_taps[0]) {
-        float B[kMaxTaps][kMaxDigits];
-        bool has_b[kMaxTaps];
+        for (int d = 0; d < kMaxDigits; ++d) {
+          w1[i][d] = w_r[(3 + i) * 3 + d];
+          w2[i][d] = w_r[(6 + i) * 3 + d];
+        }
+      }
+      float tot[kCube];
 #pragma unroll
-        for (int i1 = 0; i1 < kMaxTaps; ++i1) {
-          has_b[i1] = ((tp.row_live >> ((i0 * 3 + i1) * 3)) & 7) != 0;
+      for (int q = 0; q < kCube; ++q) tot[q] = 0.0f;
 #pragma unroll
-          for (int d2 = 0; d2 < kMaxDigits; ++d2) {
-            float acc = 0.0f;
-            bool have = false;
+      for (int i0 = 0; i0 < kMaxTaps; ++i0) {
+        if (i0 < tp.n_row_taps[0]) {
+          float B[kMaxTaps][kMaxDigits];
+          bool has_b[kMaxTaps];
 #pragma unroll
-            for (int i2 = 0; i2 < kMaxTaps; ++i2) {
-              const int p = (i0 * 3 + i1) * 3 + i2;
-              if (d2 < m && live(tp, p)) {
-                const float term = __fmul_rn(w2[i2][d2], A[p]);
-                acc = have ? __fadd_rn(acc, term) : term;
-                have = true;
+          for (int i1 = 0; i1 < kMaxTaps; ++i1) {
+            has_b[i1] = ((tp.row_live >> ((i0 * 3 + i1) * 3)) & 7) != 0;
+#pragma unroll
+            for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+              float acc = 0.0f;
+              bool have = false;
+#pragma unroll
+              for (int i2 = 0; i2 < kMaxTaps; ++i2) {
+                const int p = (i0 * 3 + i1) * 3 + i2;
+                if (d2 < m && live(tp, p)) {
+                  const float term = __fmul_rn(w2[i2][d2], A[p]);
+                  acc = have ? __fadd_rn(acc, term) : term;
+                  have = true;
+                }
+              }
+              B[i1][d2] = acc;
+            }
+          }
+#pragma unroll
+          for (int d1 = 0; d1 < kMaxDigits; ++d1) {
+#pragma unroll
+            for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+              if (d1 < m && d2 < m) {
+                float cc = 0.0f;
+                bool have = false;
+#pragma unroll
+                for (int i1 = 0; i1 < kMaxTaps; ++i1) {
+                  if (has_b[i1]) {
+                    const float term = __fmul_rn(w1[i1][d1], B[i1][d2]);
+                    cc = have ? __fadd_rn(cc, term) : term;
+                    have = true;
+                  }
+                }
+#pragma unroll
+                for (int d0 = 0; d0 < kMaxDigits; ++d0) {
+                  if (d0 >= d0_lo && d0 < d0_hi) {
+                    const float term = __fmul_rn(w_r[i0 * 3 + d0], cc);
+                    const int q = (d0 * 3 + d1) * 3 + d2;
+                    tot[q] = i0 == 0 ? term : __fadd_rn(tot[q], term);
+                  }
+                }
               }
             }
-            B[i1][d2] = acc;
           }
         }
+      }
+      // strict-'<' first minimum over a = (d0 * m + d1) * m + d2, ascending
+#pragma unroll
+      for (int d0 = 0; d0 < kMaxDigits; ++d0) {
 #pragma unroll
         for (int d1 = 0; d1 < kMaxDigits; ++d1) {
 #pragma unroll
           for (int d2 = 0; d2 < kMaxDigits; ++d2) {
-            if (d1 < m && d2 < m) {
-              float cc = 0.0f;
-              bool have = false;
-#pragma unroll
-              for (int i1 = 0; i1 < kMaxTaps; ++i1) {
-                if (has_b[i1]) {
-                  const float term = __fmul_rn(w1[i1][d1], B[i1][d2]);
-                  cc = have ? __fadd_rn(cc, term) : term;
-                  have = true;
-                }
-              }
-#pragma unroll
-              for (int d0 = 0; d0 < kMaxDigits; ++d0) {
-                if (d0 >= d0_lo && d0 < d0_hi) {
-                  const int a = d0 * m * m;  // canonical action of d0
-                  const float w0 = tap_weight(off_r[a], frac_r[a],
-                                              tp.row_taps[0][i0]);
-                  const float term = __fmul_rn(w0, cc);
-                  const int q = (d0 * 3 + d1) * 3 + d2;
-                  tot[q] = i0 == 0 ? term : __fadd_rn(tot[q], term);
-                }
+            if (d0 >= d0_lo && d0 < d0_hi && d1 < m && d2 < m) {
+              const int a = (d0 * m + d1) * m + d2;
+              const int q = (d0 * 3 + d1) * 3 + d2;
+              float t = tot[q];
+              if (tp.c_act_q[q] != 0.0f) t = __fadd_rn(t, tp.c_act_q[q]);
+              if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
+              // strict: the first minimum wins
+              if (a == blk.a_lo || t < best) {
+                best = t;
+                if (kTrack) best_a = a;
               }
             }
           }
         }
       }
-    }
-    // strict-'<' first minimum over a = (d0 * m + d1) * m + d2, ascending
+    } else {
+      // generic action phase: every live row combo per action
+      for (int a = blk.a_lo; a < blk.a_hi; ++a) {
+        float w[3][kMaxTaps];
 #pragma unroll
-    for (int d0 = 0; d0 < kMaxDigits; ++d0) {
+        for (int k = 0; k < 3; ++k) {
+          const int o = off_r[k * plane + a];
+          const float g = frac_r[k * plane + a];
 #pragma unroll
-      for (int d1 = 0; d1 < kMaxDigits; ++d1) {
-#pragma unroll
-        for (int d2 = 0; d2 < kMaxDigits; ++d2) {
-          if (d0 >= d0_lo && d0 < d0_hi && d1 < m && d2 < m) {
-            const int a = (d0 * m + d1) * m + d2;
-            float t = tot[(d0 * 3 + d1) * 3 + d2];
-            if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
-            if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
-            if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
-              best = t;
-              if (kTrack) best_a = a;
-            }
+          for (int i = 0; i < kMaxTaps; ++i) {
+            w[k][i] = i < tp.n_row_taps[k]
+                          ? tap_weight(o, g, tp.row_taps[k][i])
+                          : 0.0f;
           }
         }
-      }
-    }
-  } else {
-    // generic action phase: every live row combo per action
-    for (int a = blk.a_lo; a < blk.a_hi; ++a) {
-      float w[3][kMaxTaps];
+        float t = 0.0f;
+        bool have = false;
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        const int o = off_r[k * plane + a];
-        const float g = frac_r[k * plane + a];
-#pragma unroll
-        for (int i = 0; i < kMaxTaps; ++i) {
-          w[k][i] = i < tp.n_row_taps[k] ? tap_weight(o, g, tp.row_taps[k][i])
-                                         : 0.0f;
+        for (int p = 0; p < kCube; ++p) {
+          if (live(tp, p)) {
+            const float ww = __fmul_rn(
+                __fmul_rn(w[0][p / 9], w[1][(p / 3) % 3]), w[2][p % 3]);
+            const float term = __fmul_rn(ww, A[p]);
+            t = have ? __fadd_rn(t, term) : term;
+            have = true;
+          }
+        }
+        if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
+        if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
+        if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
+          best = t;
+          if (kTrack) best_a = a;
         }
       }
-      float t = 0.0f;
-      bool have = false;
-#pragma unroll
-      for (int p = 0; p < kCube; ++p) {
-        if (live(tp, p)) {
-          const float ww =
-              __fmul_rn(__fmul_rn(w[0][p / 9], w[1][(p / 3) % 3]), w[2][p % 3]);
-          const float term = __fmul_rn(ww, A[p]);
-          t = have ? __fadd_rn(t, term) : term;
-          have = true;
-        }
-      }
-      if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
-      if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
-      if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
-        best = t;
-        if (kTrack) best_a = a;
-      }
     }
+    float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
+    out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
+    out_v[cell] = out;
+    out_a[cell] = static_cast<ArgT>(best_a);   // 0 in a min-only sweep
   }
-  float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
-  out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
-  out_v[cell] = out;
-  out_a[cell] = static_cast<ArgT>(best_a);   // 0 in a min-only sweep
 }
 
 int tap_index(const int* taps, int n, int t) {
@@ -512,13 +635,30 @@ bool fill_taps(Taps6& tp, const int* w_taps, const int* n_taps,
     tp.row_delta[p] = (t[0] * n_r1 + t[1]) * n_r2 + t[2];
   }
   tp.n_lane_combos = n_lane_combos;
+  int n_lane_taps[3] = {0, 0, 0};
   for (int e = 0; e < n_lane_combos; ++e) {
     const int* t = lane_combos + 3 * e;
-    for (int k = 0; k < 3; ++k) tp.lane_tap[e][k] = t[k];
+    for (int k = 0; k < 3; ++k) {
+      int i = tap_index(tp.lane_taps[k], n_lane_taps[k], t[k]);
+      if (i < 0) {
+        if (n_lane_taps[k] == kMaxTaps) return false;
+        i = n_lane_taps[k]++;
+        tp.lane_taps[k][i] = t[k];
+      }
+      tp.lane_idx[e][k] = i;
+    }
     tp.lane_delta[e] = (t[0] * n_l1 + t[1]) * n_l2 + t[2];
   }
   tp.digits = digits;
   for (int a = 0; a < n_actions; ++a) tp.c_act[a] = c_act[a];
+  for (int d0 = 0; d0 < digits; ++d0) {
+    for (int d1 = 0; d1 < digits; ++d1) {
+      for (int d2 = 0; d2 < digits; ++d2) {
+        tp.c_act_q[(d0 * 3 + d1) * 3 + d2] =
+            c_act[(d0 * digits + d1) * digits + d2];
+      }
+    }
+  }
   return true;
 }
 
@@ -541,19 +681,126 @@ Block full_block(int n_rows, int n_actions) {
   return Block{n_rows, 0, 0, n_actions};
 }
 
+// The planner's int32 array (ops/backup6d.py::TilePlan.ints): R, L,
+// reach_lo, reach_hi, width, staged rows, groups, g_delta[9], g_rows[9],
+// g_slot[9], the stage slot of each cube slot p (27, -1 where not live),
+// the grid's row and lane tiles, the shared-memory bytes, the threads of a
+// block.
+static_assert(7 + 3 * kMaxGroups + kCube + 4 == kTileInts,
+              "the planner's layout");
+
+struct TileArgs {
+  Tiles tl;
+  dim3 grid;
+  int smem_bytes;
+  int threads;
+};
+
+// The planner's tiles into ta, checked against the tap structure and the
+// shapes: every read of every cell must lie in its block's stage, the grid
+// must cover the output cells once, the stage must fit the device. False
+// when the kernel cannot take the plan. The stage is copied in 16-byte
+// chunks where values and the window allow it.
+bool fill_tiles(TileArgs& ta, const int* in, const Taps6& tp,
+                const float* values, int n_rows, int n_lanes) {
+  const int R = in[0], L = in[1], reach_lo = in[2], reach_hi = in[3];
+  const int width = in[4], n_staged = in[5], n_groups = in[6];
+  const int* g_delta = in + 7;
+  const int* g_rows = in + 7 + kMaxGroups;
+  const int* g_slot = in + 7 + 2 * kMaxGroups;
+  const int* slot = in + 7 + 3 * kMaxGroups;
+  const int* tail = slot + kCube;
+  const long long grid_rows = tail[0], grid_lanes = tail[1];
+  const long long smem = tail[2];
+  const int threads = tail[3];
+  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
+      L < 32 || L % 32 != 0 || reach_lo < 0 || reach_hi < 0 ||
+      width != L + reach_lo + reach_hi || n_groups < 1 ||
+      n_groups > kMaxGroups || n_staged < 1) {
+    return false;
+  }
+  if (grid_rows != (static_cast<long long>(n_rows) + R - 1) / R ||
+      grid_lanes != (static_cast<long long>(n_lanes) + L - 1) / L ||
+      grid_rows > 0x7fffffffLL || grid_lanes > 65535) {
+    return false;
+  }
+  if (smem != 4LL * (static_cast<long long>(n_staged) * width +
+                    static_cast<long long>(R) * kRowWeights)) {
+    return false;
+  }
+  int device = 0, smem_max = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&smem_max,
+                             cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess ||
+      smem > smem_max) {
+    return false;
+  }
+  ta.tl = Tiles{};
+  ta.tl.rows = R;
+  ta.tl.lanes = L;
+  ta.tl.reach_lo = reach_lo;
+  ta.tl.width = width;
+  ta.tl.n_groups = n_groups;
+  ta.tl.weights_at = n_staged * width;
+  ta.tl.vec4 = n_lanes % 4 == 0 && reach_lo % 4 == 0 && width % 4 == 0 &&
+               reinterpret_cast<unsigned long long>(values) % 16 == 0;
+  int next = 0;
+  for (int g = 0; g < n_groups; ++g) {
+    if (g_rows[g] < 1 || g_slot[g] != next) return false;
+    next += g_rows[g];
+    ta.tl.g_delta[g] = g_delta[g];
+    ta.tl.g_rows[g] = g_rows[g];
+    ta.tl.g_slot[g] = g_slot[g];
+  }
+  if (next != n_staged) return false;
+  for (int e = 0; e < tp.n_lane_combos; ++e) {
+    if (tp.lane_delta[e] < -reach_lo || tp.lane_delta[e] > reach_hi) {
+      return false;
+    }
+  }
+  for (int p = 0; p < kCube; ++p) {
+    if (!((tp.row_live >> p) & 1)) continue;
+    // tile row rr of combo p reads table row r0 + table_row0 + D_p + rr
+    for (int rr = 0; rr < R; ++rr) {
+      const int s = slot[p] + rr;
+      bool found = false;
+      for (int g = 0; g < n_groups && !found; ++g) {
+        found = s >= g_slot[g] && s < g_slot[g] + g_rows[g] &&
+                g_delta[g] + (s - g_slot[g]) == tp.row_delta[p] + rr;
+      }
+      if (!found) return false;
+    }
+    ta.tl.row_base[p] = 4 * slot[p] * width;
+  }
+  ta.grid = dim3(static_cast<unsigned>(grid_rows),
+                 static_cast<unsigned>(grid_lanes));
+  ta.smem_bytes = static_cast<int>(smem);
+  ta.threads = threads;
+  return true;
+}
+
 template <typename ArgT, bool kTrack, bool kRecompute>
 int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-           const Block& blk, int n_rows, int n_lanes, int n_actions,
-           void* stream) {
-  const long long n_cells = static_cast<long long>(n_rows) * n_lanes;
-  backup6d_sweep<ArgT, kTrack, kRecompute>
-      <<<static_cast<unsigned>((n_cells + kThreads - 1) / kThreads), kThreads,
-         0, static_cast<cudaStream_t>(stream)>>>(
-          io.values, io.row_off, io.row_frac, io.lane_off[0],
-          io.lane_frac[0], io.lane_off[1], io.lane_frac[1], io.lane_off[2],
-          io.lane_frac[2], io.c_row, io.c_lane, io.c_rowact, io.c_rowlane,
-          io.out_v, static_cast<ArgT*>(io.out_a), n_rows, n_lanes,
-          n_actions, tp, rec, blk);
+           const Block& blk, const TileArgs& ta, int n_rows, int n_lanes,
+           int n_actions, void* stream) {
+  auto kernel = backup6d_sweep<ArgT, kTrack, kRecompute>;
+  // a stage above 48 KB needs the opt-in; two stages share an SM's 228 KB
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.smem_bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ta.grid, ta.threads, ta.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      io.values, io.row_off, io.row_frac, io.lane_off[0], io.lane_frac[0],
+      io.lane_off[1], io.lane_frac[1], io.lane_off[2], io.lane_frac[2],
+      io.c_row, io.c_lane, io.c_rowact, io.c_rowlane, io.out_v,
+      static_cast<ArgT*>(io.out_a), n_rows, n_lanes, n_actions, tp, rec, blk,
+      ta.tl);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -561,21 +808,44 @@ int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
 // 1 (argmin) or 0 (min-only, all-zero argmin).
 template <bool kRecompute>
 int launch_mode(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-                const Block& blk, int n_rows, int n_lanes, int n_actions,
-                int argmin_bytes, int track, void* stream) {
+                const Block& blk, const TileArgs& ta, int n_rows,
+                int n_lanes, int n_actions, int argmin_bytes, int track,
+                void* stream) {
   if (argmin_bytes == 4) {
-    return track ? launch<int, true, kRecompute>(io, tp, rec, blk, n_rows,
-                                                 n_lanes, n_actions, stream)
-                 : launch<int, false, kRecompute>(io, tp, rec, blk, n_rows,
-                                                  n_lanes, n_actions, stream);
+    return track ? launch<int, true, kRecompute>(io, tp, rec, blk, ta,
+                                                 n_rows, n_lanes, n_actions,
+                                                 stream)
+                 : launch<int, false, kRecompute>(io, tp, rec, blk, ta,
+                                                  n_rows, n_lanes, n_actions,
+                                                  stream);
   }
   if (argmin_bytes == 1) {
     return track ? launch<unsigned char, true, kRecompute>(
-                       io, tp, rec, blk, n_rows, n_lanes, n_actions, stream)
+                       io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
+                       stream)
                  : launch<unsigned char, false, kRecompute>(
-                       io, tp, rec, blk, n_rows, n_lanes, n_actions, stream);
+                       io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
+                       stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Resident blocks an SM of one instantiation at this block size and stage.
+template <typename ArgT, bool kTrack, bool kRecompute>
+int blocks_per_sm(int threads, int smem_bytes) {
+  auto kernel = backup6d_sweep<ArgT, kTrack, kRecompute>;
+  int blocks = 0;
+  if (cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes) != cudaSuccess ||
+      cudaFuncSetAttribute(kernel,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, threads, smem_bytes) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
 }
 
 // B.5's lane generators into rec; false for a lane axis of fewer than 2
@@ -606,16 +876,17 @@ bool fill_rec(LaneRec& rec, const float* w1, const float* w2, const float* w3,
 
 }  // namespace
 
-// One sweep (B.3). Device pointers: values (NW, NE); row_off/row_frac (3, NW, A);
-// lane_off{k}/lane_frac{k} (NW, NE); c_row (NW,); c_lane (NE,); c_rowact
-// (NW, A) and c_rowlane (NW, NE) may be null; out_v/out_a (NW, NE). Host
-// pointers: w_taps (3, 3) live row taps per axis, ascending, n_taps (3,)
-// their counts; row_combos (n_row_combos, 3) and lane_combos
-// (n_lane_combos, 3) the live combos, sorted; c_act (A,). digits: the
-// action digit base m (A == m^3), or 0 for the generic action phase.
-// Returns a cudaError_t (0 on success): cudaErrorInvalidValue when the tap
-// structure exceeds the kernel's capacities, else cudaGetLastError() after
-// the launch.
+// One sweep (B.3). Device pointers: values (NW, NE); row_off/row_frac (3,
+// NW, A); lane_off{k}/lane_frac{k} (NW, NE); c_row (NW,); c_lane (NE,);
+// c_rowact (NW, A) and c_rowlane (NW, NE) may be null; out_v/out_a (NW,
+// NE). Host pointers: w_taps (3, 3) live row taps per axis, ascending,
+// n_taps (3,) their counts; row_combos (n_row_combos, 3) and lane_combos
+// (n_lane_combos, 3) the live combos, sorted; c_act (A,); tiles the tile
+// planner's kTileInts ints. digits: the action digit base m (A == m^3), or
+// 0 for the generic action phase. Returns a cudaError_t (0 on success):
+// cudaErrorInvalidValue when the tap structure exceeds the kernel's
+// capacities or the tiles do not cover the reads, else the error of the
+// launch.
 extern "C" int backup6d_f32(
     const float* values, const int* row_off, const float* row_frac,
     const int* lane_off0, const float* lane_frac0, const int* lane_off1,
@@ -623,23 +894,25 @@ extern "C" int backup6d_f32(
     const float* c_row, const float* c_lane, const float* c_rowact,
     const float* c_rowlane, float* out_v, int* out_a, const int* w_taps,
     const int* n_taps, const int* row_combos, const int* lane_combos,
-    const float* c_act, int n_r0, int n_r1, int n_r2, int n_l0, int n_l1,
-    int n_l2, int n_actions, int n_row_combos, int n_lane_combos, int digits,
-    void* stream) {
+    const float* c_act, const int* tiles, int n_r0, int n_r1, int n_r2,
+    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
+    int n_lane_combos, int digits, void* stream) {
   Taps6 tp;
+  TileArgs ta;
+  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
   if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
                  n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits)) {
+                 digits) ||
+      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  const int n_rows = n_r0 * n_r1 * n_r2;
   return launch<int, true, false>(io, tp, LaneRec{},
-                                  full_block(n_rows, n_actions), n_rows,
-                                  n_l0 * n_l1 * n_l2, n_actions, stream);
+                                  full_block(n_rows, n_actions), ta, n_rows,
+                                  n_lanes, n_actions, stream);
 }
 
 // One sweep on a flat plan (B.4): the arguments of backup6d_f32, with out_a
@@ -652,23 +925,26 @@ extern "C" int backup6d_flat_f32(
     const float* c_row, const float* c_lane, const float* c_rowact,
     const float* c_rowlane, float* out_v, void* out_a, const int* w_taps,
     const int* n_taps, const int* row_combos, const int* lane_combos,
-    const float* c_act, int n_r0, int n_r1, int n_r2, int n_l0, int n_l1,
-    int n_l2, int n_actions, int n_row_combos, int n_lane_combos, int digits,
-    int argmin_bytes, int track, void* stream) {
+    const float* c_act, const int* tiles, int n_r0, int n_r1, int n_r2,
+    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
+    int n_lane_combos, int digits, int argmin_bytes, int track,
+    void* stream) {
   Taps6 tp;
+  TileArgs ta;
+  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
   if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
                  n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits)) {
+                 digits) ||
+      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  const int n_rows = n_r0 * n_r1 * n_r2;
   return launch_mode<false>(io, tp, LaneRec{}, full_block(n_rows, n_actions),
-                            n_rows, n_l0 * n_l1 * n_l2, n_actions,
-                            argmin_bytes, track, stream);
+                            ta, n_rows, n_lanes, n_actions, argmin_bytes,
+                            track, stream);
 }
 
 // One sweep with the Euler lanes recomputed per cell (B.5). Device
@@ -683,27 +959,27 @@ extern "C" int backup6d_recompute_f32(
     const float* rec_consts, const float* c_row, const float* c_lane,
     const float* c_rowact, const float* c_rowlane, float* out_v, void* out_a,
     const int* w_taps, const int* n_taps, const int* row_combos,
-    const int* lane_combos, const float* c_act, int n_r0, int n_r1, int n_r2,
-    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
-    int n_lane_combos, int digits, int argmin_bytes, int track, int clamp,
-    void* stream) {
+    const int* lane_combos, const float* c_act, const int* tiles, int n_r0,
+    int n_r1, int n_r2, int n_l0, int n_l1, int n_l2, int n_actions,
+    int n_row_combos, int n_lane_combos, int digits, int argmin_bytes,
+    int track, int clamp, void* stream) {
   Taps6 tp;
+  TileArgs ta;
+  LaneRec rec;
+  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
   if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
                  n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  LaneRec rec;
-  if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1, n_l2,
-                clamp)) {
+                 digits) ||
+      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes) ||
+      !fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
+                n_l2, clamp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
                       {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                       c_rowlane, out_v, out_a};
-  const int n_rows = n_r0 * n_r1 * n_r2;
-  return launch_mode<true>(io, tp, rec, full_block(n_rows, n_actions), n_rows,
-                           n_l0 * n_l1 * n_l2, n_actions, argmin_bytes, track,
+  return launch_mode<true>(io, tp, rec, full_block(n_rows, n_actions), ta,
+                           n_rows, n_lanes, n_actions, argmin_bytes, track,
                            stream);
 }
 
@@ -726,15 +1002,18 @@ extern "C" int backup6d_block_f32(
     const float* w2, const float* w3, const float* q1, const float* q2,
     const float* q3, const float* q4, const float* rec_consts,
     const int* w_taps, const int* n_taps, const int* row_combos,
-    const int* lane_combos, const float* c_act, int n_r1, int n_r2, int n_l0,
-    int n_l1, int n_l2, int n_actions, int n_row_combos, int n_lane_combos,
-    int digits, int argmin_bytes, int track, int recompute, int clamp,
-    int n_out_rows, int table_row0, int n_table_rows, int a_lo, int a_hi,
-    void* stream) {
+    const int* lane_combos, const float* c_act, const int* tiles, int n_r1,
+    int n_r2, int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
+    int n_lane_combos, int digits, int argmin_bytes, int track,
+    int recompute, int clamp, int n_out_rows, int table_row0,
+    int n_table_rows, int a_lo, int a_hi, void* stream) {
   Taps6 tp;
+  TileArgs ta;
+  const int n_lanes = n_l0 * n_l1 * n_l2;
   if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
                  n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits)) {
+                 digits) ||
+      !fill_tiles(ta, tiles, tp, values, n_out_rows, n_lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int slice = digits * digits;
@@ -745,7 +1024,6 @@ extern "C" int backup6d_block_f32(
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Block blk = {n_table_rows, table_row0, a_lo, a_hi};
-  const int n_lanes = n_l0 * n_l1 * n_l2;
   if (recompute) {
     LaneRec rec;
     if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
@@ -756,15 +1034,52 @@ extern "C" int backup6d_block_f32(
                         {nullptr, nullptr, nullptr},
                         {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                         c_rowlane, out_v, out_a};
-    return launch_mode<true>(io, tp, rec, blk, n_out_rows, n_lanes, n_actions,
-                             argmin_bytes, track, stream);
+    return launch_mode<true>(io, tp, rec, blk, ta, n_out_rows, n_lanes,
+                             n_actions, argmin_bytes, track, stream);
   }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch_mode<false>(io, tp, LaneRec{}, blk, n_out_rows, n_lanes,
+  return launch_mode<false>(io, tp, LaneRec{}, blk, ta, n_out_rows, n_lanes,
                             n_actions, argmin_bytes, track, stream);
+}
+
+// The most dynamic shared memory one block of the current device may ask
+// for (bytes), the tile planner's limit; 0 when it cannot be read.
+extern "C" int backup6d_smem_limit(void) {
+  int device = 0, bytes = 0;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess) {
+    return 0;
+  }
+  return bytes;
+}
+
+// Resident blocks an SM of the kernel of one mode (argmin_bytes 4 or 1,
+// track, recompute) at threads a block and smem_bytes of stage, on the
+// current device: the occupancy of a launch; -1 on an error.
+extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
+                                      int recompute, int threads,
+                                      int smem_bytes) {
+  const int mode = (argmin_bytes == 1 ? 4 : 0) + (track ? 2 : 0) +
+                   (recompute ? 1 : 0);
+  switch (argmin_bytes == 4 || argmin_bytes == 1 ? mode : -1) {
+    case 0: return blocks_per_sm<int, false, false>(threads, smem_bytes);
+    case 1: return blocks_per_sm<int, false, true>(threads, smem_bytes);
+    case 2: return blocks_per_sm<int, true, false>(threads, smem_bytes);
+    case 3: return blocks_per_sm<int, true, true>(threads, smem_bytes);
+    case 4:
+      return blocks_per_sm<unsigned char, false, false>(threads, smem_bytes);
+    case 5:
+      return blocks_per_sm<unsigned char, false, true>(threads, smem_bytes);
+    case 6:
+      return blocks_per_sm<unsigned char, true, false>(threads, smem_bytes);
+    case 7:
+      return blocks_per_sm<unsigned char, true, true>(threads, smem_bytes);
+    default: return -1;
+  }
 }
 
 extern "C" const char* backup6d_error_string(int err) {

@@ -57,7 +57,10 @@ generic phase otherwise. Either way each action's total is the one-device
 sweep's, bit for bit.
 
 * ``backup6d_cuda``, ``backup6d_flat_cuda`` and ``backup6d_recompute_cuda``
-  launch the kernel; each counts its launches in ``.launches``.
+  launch the kernel; each counts its launches in ``.launches``. Every
+  launch takes its tiles from :func:`plan_tiles`: the rows x lanes a block
+  owns and the table rows and lanes it stages in shared memory, the index
+  map the CPU tests check (``tests/test_torch_backup6d_tiles.py``).
 * :func:`backup6d_plain` is the same function in plain PyTorch on the same
   inputs, in the same order of operations (the recompute through
   :meth:`LaneRecompute.lane_block`). On a CUDA device the two agree
@@ -73,6 +76,7 @@ sweep's, bit for bit.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -88,7 +92,8 @@ __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "affine_locate", "plan_is_flat", "backup6d_cuda",
            "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain",
            "block_args", "slice_args", "digit_path", "backup6d_block_cuda",
-           "backup6d_slice_cuda", "backup6d_block"]
+           "backup6d_slice_cuda", "backup6d_block", "TilePlan",
+           "plan_tiles", "tile_occupancy"]
 
 # the kernel's fixed capacities (kMaxTaps, kMaxActions, kMaxDigits in
 # csrc/backup6d.cu): live taps per row or lane axis (so at most 27 row and
@@ -407,14 +412,14 @@ def backup6d_plain(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
 
 
 def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
+    """Every input's shape and dtype, then every input's device and layout.
+    Cells are addressed with 64-bit offsets: a grid may pass 2**31
+    cells."""
     nw, ne = args.n_rows, int(np.prod(args.lane_shape))
     lo, hi = args.halo
     if nw > int(np.prod(args.row_shape)) or min(lo, hi) < 0:
         raise ValueError(f"{nw} output rows and halo {args.halo} do not fit "
                          f"the row grid {args.row_shape}")
-    if (lo + nw + hi) * ne >= 2**31:
-        raise ValueError(f"{lo + nw + hi}x{ne} cells exceed the kernel's "
-                         "int32 index")
     n_act = args.n_actions
     a_lo, a_hi = args.action_range
     if not 0 <= a_lo < a_hi <= n_act:
@@ -448,11 +453,250 @@ def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
+    for name, (_, _, t) in want.items():
         if t.device != values.device or not t.is_cuda:
             raise ValueError(f"{name} is on {t.device}; every input must be "
                              f"on the CUDA device of values ({values.device})")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+# The tile planner (csrc/backup6d.cu's Tiles): a block owns R output rows x
+# L lanes and stages in shared memory the table rows they read. A stage is
+# sized for two blocks of 256 threads an SM, or, where the lane reach is
+# too wide for that, one block of 512: 16 warps an SM either way, at most
+# 128 registers a thread.
+TILE_INTS = 65                   # kTileInts
+MAX_GROUPS = MAX_TAPS * MAX_TAPS  # kMaxGroups: live (t0, t1) pairs
+# kRowWeights: the factorized phase's row tap weights a tile row stages
+ROW_WEIGHTS = 3 * MAX_TAPS * MAX_DIGITS
+MAX_TILE_ROWS = 16
+MAX_TILE_LANES = 2048
+SM_THREADS = 512
+# an H100 SM's shared memory and what the card reserves of it per block
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1_024
+# the cost model, in stage reads: one staged value (a copy from L2 or
+# device memory), and the factor on a plan of one block an SM, whose copies
+# no other block's arithmetic overlaps (fitted to tile sweeps of B.5 at
+# 30^3 x 16^3 on an H100; PERF.md §6)
+STAGE_COST = 6
+ONE_BLOCK_COST = 1.2
+
+
+class TilePlan(NamedTuple):
+    """One sweep's tiles: output rows ``[i * rows, (i + 1) * rows)`` x lanes
+    ``[j * lanes, (j + 1) * lanes)`` for block ``(i, j)`` of ``grid``.
+
+    The block's stage row ``s`` (counted over ``groups`` in order) of group
+    ``(delta, n)`` holds table row ``i * rows + table_row0 + delta + (s -
+    the group's first stage row)`` over the table lanes ``[j * lanes -
+    reach_lo, j * lanes - reach_lo + width)``, 0.0 outside the table.
+    Output cell ``(r, c)`` reads row combo k at stage row ``slots[k] + r -
+    i * rows`` and lane combo e at stage column ``c - j * lanes + reach_lo
+    + dl_e``. After the table rows the block keeps each tile row's
+    ``ROW_WEIGHTS`` row tap weights of the factorized phase. ``cube`` is
+    ``slots`` by cube slot p = (i0 * 3 + i1) * 3 + i2 (-1: not live).
+    """
+
+    rows: int
+    lanes: int
+    reach_lo: int
+    reach_hi: int
+    groups: tuple           # ((delta, n_rows), ...) in stage order
+    slots: tuple            # per row combo (args.row_combos order)
+    cube: tuple
+    threads: int
+    n_rows: int             # output rows
+    n_lanes: int
+    n_table_rows: int
+    table_row0: int
+
+    @property
+    def width(self) -> int:
+        return self.lanes + self.reach_lo + self.reach_hi
+
+    @property
+    def n_staged(self) -> int:
+        return sum(n for _, n in self.groups)
+
+    @property
+    def smem_bytes(self) -> int:
+        """The table rows' stage and each tile row's row tap weights."""
+        return 4 * (self.n_staged * self.width + self.rows * ROW_WEIGHTS)
+
+    @property
+    def grid(self) -> tuple:
+        return (-(-self.n_rows // self.rows), -(-self.n_lanes // self.lanes))
+
+    def stage_rows(self, i: int) -> np.ndarray:
+        """The table row of each stage row of row tile ``i`` (int64; outside
+        ``[0, n_table_rows)`` the stage row is zeros)."""
+        return np.concatenate([
+            i * self.rows + self.table_row0 + d + np.arange(n, dtype=np.int64)
+            for d, n in self.groups])
+
+    def cell_offset(self, i: int, j: int) -> int:
+        """The flat output offset of block ``(i, j)``'s first cell."""
+        return i * self.rows * self.n_lanes + j * self.lanes
+
+    def ints(self) -> np.ndarray:
+        """The kernel's int32 array (``fill_tiles`` in csrc/backup6d.cu)."""
+        out = np.zeros(TILE_INTS, np.int32)
+        out[:7] = (self.rows, self.lanes, self.reach_lo, self.reach_hi,
+                   self.width, self.n_staged, len(self.groups))
+        first = 0
+        for g, (d, n) in enumerate(self.groups):
+            out[[7 + g, 7 + MAX_GROUPS + g, 7 + 2 * MAX_GROUPS + g]] = \
+                d, n, first
+            first += n
+        out[7 + 3 * MAX_GROUPS:7 + 3 * MAX_GROUPS + 27] = self.cube
+        out[-4:] = (*self.grid, self.smem_bytes, self.threads)
+        return out
+
+
+def _row_groups(row_combos, row_shape, rows: int) -> tuple:
+    """The stage's row groups for ``rows`` output rows: per live (t0, t1)
+    the run of table rows its t2 taps read, merged where runs meet."""
+    n1, n2 = row_shape[1], row_shape[2]
+    t2s = {}
+    for t0, t1, t2 in row_combos:
+        t2s.setdefault((t0, t1), []).append(t2)
+    spans = sorted(((t0 * n1 + t1) * n2 + min(v),
+                    (t0 * n1 + t1) * n2 + max(v) + rows)
+                   for (t0, t1), v in t2s.items())
+    merged = []
+    for lo, hi in spans:
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return tuple((lo, hi - lo) for lo, hi in merged)
+
+
+def _lane_reach(lane_combos, lane_shape) -> tuple:
+    """The lanes a stage keeps before and after a tile's: the reach of the
+    live lane combos, rounded up to 4 lanes so that the kernel can copy
+    4-lane-aligned chunks."""
+    dl = _flat_shifts(lane_combos, lane_shape)
+    return (-(-max(-min(dl), 0) // 4) * 4, -(-max(max(dl), 0) // 4) * 4)
+
+
+def plan_tiles(args: Backup6DArgs, n_table_rows: int,
+               smem_limit: int) -> TilePlan:
+    """The tiles of one sweep of ``args`` over a table of ``n_table_rows``
+    rows, on a card that lets a block ask for ``smem_limit`` bytes of shared
+    memory: the R x L tile (R <= MAX_TILE_ROWS, L a multiple of 32 up to
+    MAX_TILE_LANES) whose stage fits half an SM (two blocks of 256 threads)
+    or, failing that, one SM (one block of 512), with the least modelled
+    cost: ``STAGE_COST`` a staged value plus one a stage read, over the
+    padded cells, times ``ONE_BLOCK_COST`` for one block an SM. Raises
+    ``ValueError`` when no tile fits."""
+    return _tiles(_plan_key(args), n_table_rows, smem_limit)[0]
+
+
+def _plan_key(args: Backup6DArgs) -> tuple:
+    """What the planner reads of ``args``: the tap structure, the shapes,
+    the output rows and the halo."""
+    return (args.row_combos, args.lane_combos, args.w_taps,
+            tuple(args.row_shape), tuple(args.lane_shape), args.n_rows,
+            tuple(args.halo))
+
+
+@functools.lru_cache(maxsize=256)
+def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
+    """``(plan, plan.ints())`` of :func:`plan_tiles`, once per key."""
+    row_combos, lane_combos, w_taps, row_shape, lane_shape, n_rows, halo = key
+    if n_table_rows != halo[0] + n_rows + halo[1]:
+        raise ValueError(f"a table of {n_table_rows} rows for {n_rows} "
+                         f"output rows and halo {halo}")
+    ne = int(np.prod(lane_shape))
+    reach_lo, reach_hi = _lane_reach(lane_combos, lane_shape)
+    reads = len(row_combos) * len(lane_combos)
+    best = None
+    for blocks in (2, 1):
+        budget = min(smem_limit, SMEM_PER_SM // blocks - SMEM_RESERVED)
+        threads = SM_THREADS // blocks
+        for lanes in range(32, min(-(-ne // 32) * 32, MAX_TILE_LANES) + 1,
+                           32):
+            width = lanes + reach_lo + reach_hi
+            for rows in range(1, MAX_TILE_ROWS + 1):
+                staged = sum(n for _, n in _row_groups(row_combos, row_shape,
+                                                       rows))
+                if 4 * (staged * width + rows * ROW_WEIGHTS) > budget:
+                    break
+                tiles = -(-n_rows // rows) * -(-ne // lanes)
+                passes = -(-rows * lanes // threads)
+                cost = tiles * (STAGE_COST * staged * width
+                                + reads * passes * threads)
+                cost *= 1.0 if blocks == 2 else ONE_BLOCK_COST
+                if best is None or cost < best[0]:
+                    best = (cost, rows, lanes, threads)
+    if best is None:
+        raise ValueError(f"no tile's stage of a {ne}-lane table with lane "
+                         f"reach ({reach_lo}, {reach_hi}) fits {smem_limit} "
+                         "bytes of shared memory")
+    _, rows, lanes, threads = best
+    groups = _row_groups(row_combos, row_shape, rows)
+    if len(groups) > MAX_GROUPS:
+        raise ValueError(f"{len(groups)} row groups exceed the kernel's "
+                         f"{MAX_GROUPS}")
+    starts = np.cumsum([0] + [n for _, n in groups])
+    slots = []
+    for d in _flat_shifts(row_combos, row_shape):
+        g = next(g for g, (gd, n) in enumerate(groups)
+                 if gd <= d and d + rows <= gd + n)
+        slots.append(int(starts[g] + d - groups[g][0]))
+    cube = [-1] * 27
+    for combo, slot in zip(row_combos, slots):
+        p = 0
+        for k, t in enumerate(combo):
+            p = p * 3 + list(w_taps[k]).index(t)
+        cube[p] = slot
+    plan = TilePlan(rows=rows, lanes=lanes, reach_lo=reach_lo,
+                    reach_hi=reach_hi, groups=groups, slots=tuple(slots),
+                    cube=tuple(cube), threads=threads, n_rows=n_rows,
+                    n_lanes=ne, n_table_rows=n_table_rows,
+                    table_row0=halo[0])
+    ints = plan.ints()
+    ints.flags.writeable = False
+    return plan, ints
+
+
+_SMEM_LIMIT = {}
+
+
+def _smem_limit(lib, device: torch.device) -> int:
+    """The shared memory a block may ask for on ``device`` (read once)."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if dev not in _SMEM_LIMIT:
+        with torch.cuda.device(dev):
+            _SMEM_LIMIT[dev] = int(lib.backup6d_smem_limit())
+    return _SMEM_LIMIT[dev]
+
+
+def _tile_ints(lib, values: torch.Tensor, args: Backup6DArgs) -> np.ndarray:
+    """The planner's array for one launch on ``values``'s device."""
+    return _tiles(_plan_key(args), values.shape[0],
+                  _smem_limit(lib, values.device))[1]
+
+
+def tile_occupancy(values: torch.Tensor, args: Backup6DArgs) -> tuple:
+    """``(plan, blocks)``: the :class:`TilePlan` a launch of the kernel on
+    the CUDA tensor ``values`` takes, and how many of its blocks an SM of
+    that card holds (the CUDA occupancy query for the launch's mode, block
+    size and stage)."""
+    from .. import _build
+
+    lib = _build.load()
+    plan = plan_tiles(args, values.shape[0], _smem_limit(lib, values.device))
+    adt, track = _mode_ints(args)
+    with torch.cuda.device(values.device):
+        blocks = lib.backup6d_blocks_per_sm(adt, track,
+                                            int(args.lanes is not None),
+                                            plan.threads, plan.smem_bytes)
+    return plan, blocks
 
 
 def _overlap(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -533,6 +777,7 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
+        _tile_ints(lib, values, args).ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, stream)
     _raise_on(lib, err, "backup6d")
@@ -573,6 +818,7 @@ def backup6d_flat_cuda(values: torch.Tensor, args: Backup6DArgs,
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
+        _tile_ints(lib, values, args).ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, *_mode_ints(args),
         stream)
@@ -614,6 +860,7 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
+        _tile_ints(lib, values, args).ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, *_mode_ints(args),
         int(rec.edge == "clamp"), stream)
@@ -709,6 +956,7 @@ def _launch_block(values, args: Backup6DArgs, out_v, out_a) -> BackupResult:
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a), *rec_ptrs,
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
+        _tile_ints(lib, values, args).ctypes.data,
         *args.row_shape[1:], *args.lane_shape, args.n_actions,
         len(row_combos), len(lane_combos), args.action_digits or 0,
         *_mode_ints(args), int(rec is not None),

@@ -1,0 +1,290 @@
+"""The 6-D kernel's tile planner (``ops/backup6d.py::plan_tiles``): the index
+map every CUDA launch of ``csrc/backup6d.cu`` takes.
+
+A block owns R output rows x L lanes and stages in shared memory the table
+rows its cells read, over a lane window of the lane reach around its lanes;
+each read then comes from the stage. Checked here, on the CPU, with the
+planner's own numbers:
+
+* every read ``(r + table_row0 + D_j, c + dl_e)`` of a tile's cells finds
+  in its stage exactly that table row and lane, which the stage holds as
+  0.0 where it lies outside the table, as the plain version reads it;
+* the stage fits the 227 KB a block may ask for, the grid covers each
+  output cell once, and offsets past 2**31 cells are planned and accepted;
+* a sweep whose lane phase gathers the table through the planner's stages
+  (numpy) equals ``backup6d_plain`` bitwise, values and argmin.
+
+The kernel itself runs only on a card (tests/test_torch_cuda.py).
+"""
+
+import itertools
+
+import numpy as np
+import pytest
+import torch
+
+from ocdp_tpu_torch.models import attitude as tatt
+from ocdp_tpu_torch.ops import backup6d as b6
+from ocdp_tpu_torch.ops.interp import InterpPlan
+
+torch.set_num_threads(2)
+
+SMEM_BLOCK_MAX = 232_448          # 227 KB: the most an H100 block may ask
+CUBE = tuple(itertools.product((-1, 0, 1), repeat=3))
+
+
+def _synthetic(n_w: int, n_q: int, rows=None, halo=(0, 0), actions=None):
+    """Kernel inputs of an ``n_w^3 x n_q^3`` grid with every row and lane
+    combo of the 3 x 3 x 3 tap cube live (the attitude plans' structure);
+    the planner reads only the taps, shapes and halo, so the per-cell
+    tensors are zero-stride views."""
+    nw = rows or n_w**3
+    return b6.Backup6DArgs(
+        row_shape=(n_w,) * 3, lane_shape=(n_q,) * 3,
+        row_off=torch.zeros((), dtype=torch.int32).expand(3, nw, 27),
+        row_frac=None, lane_off=(), lane_frac=(), row_combos=CUBE,
+        lane_combos=CUBE, w_taps=((-1, 0, 1),) * 3, action_digits=3,
+        c_row=None, c_lane=None, c_act=(0.0,) * 27, c_rowact=None,
+        c_rowlane=None, halo=halo, actions=actions)
+
+
+def _backup(case="extrapolate", n_w=5, n_q=4):
+    edge = "clamp" if case == "clamp" else "extrapolate"
+    _, plan, cost = tatt.build_full(
+        tatt.AttitudeConfig(n_mesh_w=n_w, n_mesh_q=n_q), edge=edge,
+        device="cpu")
+    cost = list(cost)
+    if case == "generic":
+        perm = torch.from_numpy(np.random.default_rng(5).permutation(27))
+        plan = InterpPlan(
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.lo),
+            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.frac),
+            plan.grid_shape)
+        cost[2] = cost[2][..., perm]
+    return b6.Backup6D(plan, cost)
+
+
+def _block(bk, r0, r1):
+    """B.7b's inputs for output rows [r0, r1) of ``bk`` and their local
+    table's row count (both halos)."""
+    lo, hi = bk.row_reach()
+    return b6.block_args(bk.args, r0, r1, lo, hi), lo + (r1 - r0) + hi
+
+
+def _table_rows(args) -> int:
+    return args.n_rows + sum(args.halo)
+
+
+def _plan(args):
+    return b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX)
+
+
+# (label, args) of the shapes the main paths run, and the edge cases
+SHAPES = {
+    "11x10": lambda: _synthetic(11, 10),
+    "19x14": lambda: _synthetic(19, 14),
+    "30x16": lambda: _synthetic(30, 16),
+    "50x20": lambda: _synthetic(50, 20),
+    # B.7b: rank 0 of 2 at 11^3 x 10^3, 666 rows of a 932-row local table
+    "b7b-666": lambda: _synthetic(11, 10, rows=666, halo=(133, 133)),
+    # B.7a: one digit slice (9 of 27 actions) over the same rows
+    "b7a-slice": lambda: _synthetic(11, 10, rows=666, halo=(133, 133),
+                                    actions=(9, 18)),
+    "5x4": lambda: _backup().args,
+    "7x5": lambda: _backup(n_w=7, n_q=5).args,
+    "clamp": lambda: _backup("clamp").args,
+    "generic": lambda: _backup("generic").args,
+    "b7b-row0": lambda: _block(_backup(), 40, 90)[0],
+}
+
+
+def _tiles_to_check(plan):
+    """Every tile of a small grid; the corner, edge and middle tiles of a
+    large one."""
+    gi, gj = plan.grid
+    if gi * gj <= 64:
+        return list(itertools.product(range(gi), range(gj)))
+    ii = sorted({0, 1, gi // 2, gi - 2, gi - 1})
+    jj = sorted({0, gj // 2, gj - 1})
+    return list(itertools.product(ii, jj))
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_every_read_lies_in_its_stage(shape):
+    args = SHAPES[shape]()
+    plan = _plan(args)
+    R, L, ne = plan.rows, plan.lanes, plan.n_lanes
+    assert plan.smem_bytes <= SMEM_BLOCK_MAX
+    assert len(plan.groups) <= b6.MAX_GROUPS
+    assert plan.width == L + plan.reach_lo + plan.reach_hi
+    assert L % 32 == 0 and plan.threads in (256, 512)
+    assert plan.table_row0 == args.halo[0]
+    row_d, lane_d = args.row_deltas(), args.lane_deltas()
+    for i, j in _tiles_to_check(plan):
+        r0, c0 = i * R, j * L
+        srows = plan.stage_rows(i)
+        assert len(srows) == plan.n_staged
+        scols = c0 - plan.reach_lo + np.arange(plan.width)
+        r = r0 + np.arange(R)[:, None]
+        c = c0 + np.arange(L)[None, :]
+        live = (r < args.n_rows) & (c < ne)
+        rr, cl = np.broadcast_arrays(r - r0, c - c0)
+        rr, cl = rr[live], cl[live]
+        for slot, d in zip(plan.slots, row_d):
+            srow = slot + rr
+            assert srow.min() >= 0 and srow.max() < plan.n_staged
+            # the stage row holds the table row this combo reads
+            np.testing.assert_array_equal(
+                srows[srow], (r0 + rr) + plan.table_row0 + d)
+        for dl in lane_d:
+            scol = cl + plan.reach_lo + dl
+            assert scol.min() >= 0 and scol.max() < plan.width
+            np.testing.assert_array_equal(scols[scol], c0 + cl + dl)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_grid_covers_each_output_cell_once(shape):
+    args = SHAPES[shape]()
+    plan = _plan(args)
+    gi, gj = plan.grid
+    nw, ne = args.n_rows, plan.n_lanes
+    assert (gi - 1) * plan.rows < nw <= gi * plan.rows
+    assert (gj - 1) * plan.lanes < ne <= gj * plan.lanes
+    if nw * ne <= 10**6:
+        count = np.zeros((gi * plan.rows, gj * plan.lanes), np.int32)
+        for i, j in itertools.product(range(gi), range(gj)):
+            count[i * plan.rows:(i + 1) * plan.rows,
+                  j * plan.lanes:(j + 1) * plan.lanes] += 1
+        assert (count[:nw, :ne] == 1).all()
+
+
+def test_lane_count_not_a_multiple_of_the_tile():
+    plan = _plan(SHAPES["11x10"]())
+    assert plan.n_lanes % plan.lanes != 0     # the last lane tile is cut
+    assert plan.n_rows % plan.rows != 0       # and the last row tile
+
+
+def test_ints_are_the_kernels_layout():
+    args = _backup("generic").args
+    plan = _plan(args)
+    ints = plan.ints()
+    assert ints.shape == (b6.TILE_INTS,) and ints.dtype == np.int32
+    g = len(plan.groups)
+    assert tuple(ints[:7]) == (plan.rows, plan.lanes, plan.reach_lo,
+                               plan.reach_hi, plan.width, plan.n_staged, g)
+    assert tuple(ints[-4:]) == (*plan.grid, plan.smem_bytes, plan.threads)
+    cube = ints[7 + 3 * b6.MAX_GROUPS:7 + 3 * b6.MAX_GROUPS + 27]
+    assert sorted(int(s) for s in cube if s >= 0) == sorted(plan.slots)
+
+
+def test_row_groups_merge_where_runs_meet():
+    # 5 rows a step of the last row axis: with R = 4 rows and taps -1..1
+    # the runs [b - 1, b + 5) of the t1 steps b, b + 5, b + 10 overlap and
+    # merge, one group per t0
+    assert b6._row_groups(CUBE, (5, 5, 5), 4) == ((-31, 16), (-6, 16),
+                                                  (19, 16))
+    # 11 rows a step: nine runs of R + 2 rows
+    groups = b6._row_groups(CUBE, (11, 11, 11), 4)
+    assert len(groups) == 9 and all(n == 6 for _, n in groups)
+
+
+def _tiled_lane_phase(plan_of):
+    """``_lane_phase`` with every table read taken from the stage the
+    planner gives the read's tile: the stage gathered with numpy, 0.0 where
+    it leaves the table; the joint weights and the sums in ``_lane_phase``'s
+    order (every product and sum a separately rounded float32 op)."""
+
+    def lane_phase(values, args):
+        plan = plan_of(args, values.shape[0])
+        v = values.numpy()
+        nw, ne = args.n_rows, v.shape[1]
+        e_taps = [sorted({c[k] for c in args.lane_combos}) for k in range(3)]
+        ew = [{t: b6._tap_weight(args.lane_off[k], args.lane_frac[k], t)
+               for t in e_taps[k]} for k in range(3)]
+        joint = []
+        for combo in args.lane_combos:
+            w = None
+            for k, t in enumerate(combo):
+                w = ew[k][t] if w is None else w * ew[k][t]
+            joint.append(w.numpy())
+        lane_d = args.lane_deltas()
+        out = [np.zeros((nw, ne), np.float32) for _ in args.row_combos]
+        gi, gj = plan.grid
+        for i in range(gi):
+            srows = plan.stage_rows(i)
+            rin = (srows >= 0) & (srows < plan.n_table_rows)
+            for j in range(gj):
+                c0 = j * plan.lanes
+                scols = c0 - plan.reach_lo + np.arange(plan.width)
+                cin = (scols >= 0) & (scols < ne)
+                stage = np.zeros((plan.n_staged, plan.width), np.float32)
+                stage[np.ix_(rin, cin)] = v[np.ix_(srows[rin], scols[cin])]
+                r = np.arange(i * plan.rows, min((i + 1) * plan.rows, nw))
+                c = np.arange(c0, min(c0 + plan.lanes, ne))
+                rr = (r - i * plan.rows)[:, None]
+                cl = (c - c0)[None, :]
+                for k, slot in enumerate(plan.slots):
+                    acc = None
+                    for w, dl in zip(joint, lane_d):
+                        term = w[np.ix_(r, c)] * stage[slot + rr,
+                                                       cl + plan.reach_lo + dl]
+                        acc = term if acc is None else acc + term
+                    out[k][np.ix_(r, c)] = acc
+        return [torch.from_numpy(o) for o in out]
+
+    return lane_phase
+
+
+@pytest.mark.parametrize("case", ["5x4", "7x5", "clamp", "generic",
+                                  "b7b-row0", "b7a-slice-row0"])
+def test_sweep_through_the_stages_equals_plain(case, monkeypatch):
+    rng = np.random.default_rng(17)
+    if case.startswith("b7"):
+        bk = _backup()
+        args, n_table = _block(bk, 40, 90)
+        if case == "b7a-slice-row0":
+            args = b6.slice_args(args, 9, 18)
+    else:
+        bk = _backup(case if case in ("clamp", "generic") else "extrapolate",
+                     *((7, 5) if case == "7x5" else (5, 4)))
+        args, n_table = bk.args, bk.NW
+    v = torch.from_numpy(rng.uniform(0.0, 50.0, (n_table, bk.NE))
+                         .astype(np.float32))
+    want = b6.backup6d_plain(v, args)
+    plans = []
+
+    def plan_of(a, n):
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX))
+        return plans[-1]
+
+    monkeypatch.setattr(b6, "_lane_phase", _tiled_lane_phase(plan_of))
+    got = b6.backup6d_plain(v, args)
+    assert plans and plans[0].grid[0] * plans[0].grid[1] >= 2
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.argmin, want.argmin)
+
+
+def test_offsets_past_2_31_cells_are_planned_and_accepted():
+    """60^3 x 22^3 (2.30B cells): the last tiles start past 2**31 cells,
+    and the input check takes the shape (meta tensors: the check stops only
+    at the device, after every shape)."""
+    n_w, n_q = 60, 22
+    nw, ne = n_w**3, n_q**3
+    assert nw * ne > 2**31
+    args = _synthetic(n_w, n_q)
+    plan = _plan(args)
+    gi, gj = plan.grid
+    assert plan.cell_offset(gi - 1, gj - 1) > 2**31
+    assert plan.cell_offset(gi - 1, gj - 1) < nw * ne < 2**63
+    assert plan.smem_bytes <= SMEM_BLOCK_MAX
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    full = args._replace(
+        row_off=meta((3, nw, 27), torch.int32), row_frac=meta((3, nw, 27)),
+        lane_off=tuple(meta((nw, ne), torch.int32) for _ in range(3)),
+        lane_frac=tuple(meta((nw, ne)) for _ in range(3)),
+        c_row=meta((nw,)), c_lane=meta((ne,)))
+    with pytest.raises(ValueError, match="must be on the CUDA device"):
+        b6._check_cuda_inputs(meta((nw, ne)), full)

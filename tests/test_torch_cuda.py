@@ -1,8 +1,9 @@
 """The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
-carry mode, lane recompute; its row-block and digit-slice modes (B.7) and
-the row-sharded engines over an in-process mesh; the banded 2-D backup with
-its channel batch) vs their plain PyTorch versions, on a card.
+carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
+edges of its shared-memory tiles and a grid past 2**31 cells; the
+row-sharded engines over an in-process mesh; the banded 2-D backup with its
+channel batch) vs their plain PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -229,6 +230,64 @@ def test_backup6d_one_sweep_bitwise(device, case, kw):
     _bitwise(got, bk.plain(v))
     if case == "tie":
         assert int(got.argmin.max()) == 0
+
+
+@pytest.mark.parametrize("case", ["edges", "lanes-cut", "both-halos",
+                                  "ties"])
+def test_backup6d_tiles_bitwise(device, case):
+    """The shared-memory tiles' edges vs the plain version: a block with no
+    halo rows, whose tiles each read past both table edges; an 11^3 x 10^3
+    sweep, whose 1000 lanes the tile does not divide; a block with halo rows
+    of the table on both sides; the exact-tie grid."""
+    kw = dict(n_mesh_w=5, n_mesh_q=4, h=0.0) if case == "ties" else \
+        dict(n_mesh_w=11, n_mesh_q=10)
+    bk = _attitude_backup(device, "tie" if case == "ties" else "extrapolate",
+                          **kw)
+    v = torch.from_numpy(np.random.default_rng(13).uniform(
+        0, 50, (bk.NW, bk.NE)).astype(np.float32)).to(device)
+    lo, hi = bk.row_reach()
+    if case == "edges":
+        args, t = b6.block_args(bk.args, 600, 610, 0, 0), v[600:610]
+    elif case == "both-halos":
+        args = b6.block_args(bk.args, 400, 900, lo, hi)
+        t = v[400 - lo:900 + hi]
+    else:
+        args, t = bk.args, v
+    t = t.contiguous()
+    plan, blocks = b6.tile_occupancy(t, args)
+    assert plan.smem_bytes > 0 and blocks >= 1
+    if case == "edges":
+        assert plan.stage_rows(0).min() < 0 and plan.stage_rows(0).max() >= 10
+    if case == "lanes-cut":
+        assert bk.NE % plan.lanes != 0
+    fn = b6.backup6d_cuda if case in ("lanes-cut", "ties") \
+        else b6.backup6d_block_cuda
+    got = fn(t, args)
+    torch.cuda.synchronize()
+    _bitwise(got, b6.backup6d_plain(t, args))
+    if case == "ties":
+        assert int(got.argmin.max()) == 0
+
+
+def test_backup6d_past_2_31_cells_is_not_refused(device):
+    """The wrapper takes a grid past 2**31 cells (64-bit offsets): its input
+    check passes such shapes (meta tensors stop it only at the device)."""
+    nw, ne = 60**3, 22**3
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device=device)
+    a = b6.Backup6D(plan, cost).args
+
+    def meta(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device="meta")
+
+    big = a._replace(
+        row_shape=(60,) * 3, lane_shape=(22,) * 3,
+        row_off=meta((3, nw, 27), torch.int32), row_frac=meta((3, nw, 27)),
+        lane_off=tuple(meta((nw, ne), torch.int32) for _ in range(3)),
+        lane_frac=tuple(meta((nw, ne)) for _ in range(3)),
+        c_row=meta((nw,)), c_lane=meta((ne,)))
+    with pytest.raises(ValueError, match="must be on the CUDA device"):
+        b6._check_cuda_inputs(meta((nw, ne)), big)
 
 
 def test_solve_full_kernel_equals_plain(device):
