@@ -29,19 +29,30 @@ Coupled position+attitude (kernel ``rowlane_backup``):
 
 7. one sweep of the row/lane kernel vs its plain version for the four
    channels (x, y, z, x_failure) at ``PosAttConfig()`` and ``high_res()``,
-   and on an exact-tie case (every action listed twice): bitwise equal;
-8. the main path, ``pos_att.solve(PosAttConfig(), device='cuda')``: the
-   kernel's launch count goes up by exactly the channels' summed sweeps
-   (4 x 1999), values and argmin equal ``impl='rowlane'`` bitwise, and the
-   x channel at 200 sweeps meets tests/golden/pos_att_channel_golden.npz;
+   each alone and the four in one launch (x_failure's 6 actions among
+   9-action channels), each channel of the batch also against its own
+   launch; 50 sweeps of the four channels replayed as one CUDA graph
+   against the same sweeps as eager launches; an exact-tie case (every
+   action listed twice): bitwise equal;
+8. the main path, ``pos_att.solve(PosAttConfig(), device='cuda')`` (the
+   four channels in lockstep, one launch a sweep, the 50 sweeps between
+   two checks one CUDA graph): the kernel launches exactly 1999 times for
+   7996 channel-sweeps (the channels' summed sweeps) and no other backup
+   kernel runs; values, argmin, sweeps, stop flags and check logs equal
+   ``impl='rowlane'`` (the plain version through the same engine)
+   bitwise, and the x channel at 200 sweeps meets
+   tests/golden/pos_att_channel_golden.npz;
 9. serving: the 10 s rk4 flight, a fleet of 256 seeded flights (lanes equal
    their single flights bitwise), a 1 s ode45 flight; forces in {0, +-0.13}
    and |x| shrinking;
 10. the high-resolution solve (``PosAttConfig.high_res()``, 3 channels)
-    through the kernel, timed;
-11. timing with CUDA events, warm, median of 10: one sweep of the kernel and
-    of the plain version at both sizes, the full reference solve, a 1 s rk4
-    flight and the fleet's flight-seconds per second.
+    through the kernel, timed, its launches and channel-sweeps counted;
+11. timing with CUDA events, warm, median of 10: the four channels' sweep
+    in one launch, the kernel alone (20 launches replayed as a CUDA graph)
+    and through the wrapper, the x channel alone, and the plain version, at
+    both sizes, with the tile plan's dynamic shared memory, the occupancy
+    and each instantiation's ptxas line; the full reference solve, a 1 s
+    rk4 flight and the fleet's flight-seconds per second.
 
 Full 6-D attitude (kernel ``backup6d``), at the reference's historical
 ``AttitudeConfig(n_mesh_w=11, n_mesh_q=10)`` (11^3 x 10^3 cells, 27
@@ -114,25 +125,33 @@ Simplified attitude and position (kernel ``band_backup2d``, B.6):
     ``edge='clamp'`` and ``'extrapolate'``, position's C = 3 channel batch
     at ``PositionConfig()`` (201 x 201), each on a seeded random table and
     on the table after 50 sweeps, and an exact-tie case (h = 0, no cost,
-    each action listed twice): values and argmin bitwise equal;
+    each action listed twice); the three axes in one launch (each axis
+    also against its own launch), position's factorized cost (three
+    terms) against its dense one, and 100 sweeps of the three axes
+    replayed as one CUDA graph against eager launches: values and argmin
+    bitwise equal;
 23. the main path, ``attitude.solve_simplified(AttitudeConfig())`` on the
-    default device (3 x 5999 sweeps): the kernel's launch count goes up by
-    exactly 17,997 and no other backup kernel launches, the values are
-    finite, a 50-sweep solve equals ``impl='plain'`` bitwise, and the
+    default device (the three axes as one batch, 5999 sweeps, replayed
+    100 at a time as CUDA graphs): exactly 5999 launches for 17,997
+    channel-sweeps and no other backup kernel launches, the values are
+    finite, a 250-sweep solve equals ``impl='plain'`` bitwise, and the
     300-sweep ``edge='extrapolate'`` solve meets
     tests/golden/attitude_axis_golden.npz within the JAX package's own
     gather distance;
 24. serving on that policy: the simplified-plant rollout and the rk4 real-
     dynamics rollout over the full horizon, a 200-stage ode45 flight and
     the PD baseline, each timed per stage;
-25. ``position.solve(PositionConfig())``: 5999 sweeps, 5999 launches, a
-    50-sweep solve equal to ``impl='plain'`` bitwise, the 300-sweep golden
+25. ``position.solve(PositionConfig())`` (factorized cost, graphs):
+    5999 sweeps, 5999 launches for 17,997 channel-sweeps, a 250-sweep
+    solve equal to ``impl='plain'`` bitwise, the 300-sweep golden
     (tests/golden/position_golden.npz), and a 1 s RKF45 flight whose
     controls equal a nearest lookup at every stage, timed;
-26. timing with CUDA events, warm, median of 10: the banded kernel and its
-    plain version at 1000 x 300 and at 3 x 201 x 201 beside the bound, the
-    ported row-band backup and the row/lane kernel (B.2) on the same
-    simplified axis, and the two main solves' wall times.
+26. timing with CUDA events, warm, median of 10: the banded kernel alone
+    (20 launches replayed as a CUDA graph) and through the wrapper, and
+    its plain version, for the three axes in one launch, one axis and 3 x
+    201 x 201, beside the bound, the ported row-band backup and the
+    row/lane kernel (B.2) on the same simplified axis, the two main
+    solves' wall times, and the kernel's ptxas lines.
 
 The multi-rank engines (kernel ``backup6d`` in its B.7 modes, wrappers
 ``backup6d_block`` and ``backup6d_slice``) on in-process meshes of ranks on
@@ -190,7 +209,8 @@ import numpy as np
 import torch
 
 from ocdp_tpu_torch import _build, io
-from ocdp_tpu_torch.engine import (value_iteration_converged,
+from ocdp_tpu_torch.engine import (GRAPH_SWEEPS, SweepGraph, ping_pong,
+                                   value_iteration_converged,
                                    value_iteration_finite,
                                    value_iteration_segmented)
 from ocdp_tpu_torch.models import attitude, kirk, pos_att, position
@@ -259,6 +279,43 @@ def kernel_vs_plain(bk, v, label: str) -> float:
     return err
 
 
+def graph_time_ms(fn, n: int = 20, repeats: int = 10) -> float:
+    """Device milliseconds a call of ``fn`` with the host out of the way:
+    ``n`` calls captured into one CUDA graph, its replays timed with CUDA
+    events (median of ``repeats``), over ``n``. ``fn`` must allocate
+    nothing and set no function attribute (call it once first)."""
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    return cuda_time_ms(g.replay, inner=1, repeats=repeats) / n
+
+
+def ptxas_lines(name: str) -> list:
+    """The ptxas line of every instantiation of kernel ``name``."""
+    log = _build.library_path().with_suffix(".log").read_text()
+    out = []
+    for b in log.split("Compiling entry function")[1:]:
+        head = b.split("\n", 1)[0]
+        if name not in head:
+            continue
+        regs = re.search(r"Used (\d+) registers", b)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", b)
+        stack = re.search(r"(\d+) bytes stack frame", b)
+        inst = re.search(r"(ILb[01]ELi\d+|ILi\d+)", head)
+        out.append(f"{name}{'<' + inst.group(1) + '>' if inst else ''}: "
+                   f"{regs.group(1)} registers, "
+                   f"{stack.group(1) if stack else 0} B stack frame, "
+                   f"{spill.group(1)} B spill stores, {spill.group(2)} B "
+                   "spill loads")
+    if not out:
+        raise RuntimeError(f"chip_smoke: {name} not in the build log")
+    return out
+
+
 def main() -> None:
     phase("1. device")
     if not torch.cuda.is_available():
@@ -313,6 +370,8 @@ LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
 def reset_launch_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
+        if hasattr(fn, "channel_sweeps"):
+            fn.channel_sweeps = 0
 
 
 def launch_counts() -> dict:
@@ -523,10 +582,11 @@ def pos_att_phases(device) -> dict:
     ref_cfg = pos_att.PosAttConfig()
     hr_cfg = pos_att.PosAttConfig.high_res()
 
-    phase("7. row/lane kernel vs plain, one sweep")
+    phase("7. row/lane kernel vs plain, one sweep: single, batched, graph")
     max_err = 0.0
     timed = {}
     for size, cfg in (("reference", ref_cfg), ("high_res", hr_cfg)):
+        bks, vs = [], []
         for ch, failure in POS_ATT_CHANNELS:
             p = pos_att.build_channel(cfg, ch, failure=failure,
                                       with_cost=False, device=device)
@@ -538,8 +598,12 @@ def pos_att_phases(device) -> dict:
                      f"actions, {len(bk.row_combos)} row combos, lane taps "
                      f"{bk.e_taps})")
             max_err = max(max_err, rowlane_vs_plain(bk, v, label))
-            if name == "x":
-                timed[size] = (bk, v)
+            bks.append(bk)
+            vs.append(v)
+        max_err = max(max_err, rowlane_batch_vs_plain(bks, vs, size))
+        timed[size] = (bks, vs)
+    max_err = max(max_err, rowlane_graph_vs_eager(*timed["reference"],
+                                                  ref_cfg.check_every))
     tie_bk = tied_rowlane_backup(ref_cfg, device)
     tie_v = torch.from_numpy(rng.uniform(0.0, 80.0, state_shape(ref_cfg))
                              .astype(np.float32)).to(device)
@@ -553,30 +617,42 @@ def pos_att_phases(device) -> dict:
     sol = pos_att.solve(ref_cfg, device=device)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = rl.rowlane_backup_cuda.launches
+    counts = launch_counts()
+    launches = counts.pop("rowlane_backup")
+    channel_sweeps = rl.rowlane_backup_cuda.channel_sweeps
     sweeps = {name: r.num_sweeps for name, r in sol.results.items()}
     print(f"pos_att.solve(PosAttConfig()): {solve_s:.3f} s cold; sweeps per "
-          f"channel {sweeps}; {launches} rowlane launches, "
-          f"{fb.fused_backup2d_cuda.launches} fused_backup2d launches")
-    check(launches == sum(sweeps.values()),
+          f"channel {sweeps}; {launches} rowlane launches for "
+          f"{channel_sweeps} channel-sweeps (the four channels in one launch "
+          f"a sweep, {launches // ref_cfg.check_every} CUDA graph replays of "
+          f"{ref_cfg.check_every}); other kernels {counts}")
+    check(launches == max(sweeps.values()),
           f"rowlane kernel launched {launches} times, want "
+          f"{max(sweeps.values())}")
+    check(channel_sweeps == sum(sweeps.values()),
+          f"rowlane channel-sweeps {channel_sweeps}, want "
           f"{sum(sweeps.values())}")
+    check(not any(counts.values()), "another backup kernel launched")
     check(all(n == ref_cfg.n_stage - 1 for n in sweeps.values()),
           "a reference channel stopped before the sweep cap")
     ref = pos_att.solve(ref_cfg, device=device, impl="rowlane")
     for name, ctrl in sol.controllers.items():
         rc = ref.controllers[name]
+        rr, kr = ref.results[name], sol.results[name]
         same_v = torch.equal(ctrl.values, rc.values)
         same_a = torch.equal(ctrl.argmin, rc.argmin)
+        same_c = torch.equal(kr.checks, rr.checks)
         print(f"{name}: kernel solve vs plain solve: values bitwise "
-              f"{same_v}, argmin identical {same_a}, sweeps "
-              f"{ref.results[name].num_sweeps}")
+              f"{same_v}, argmin identical {same_a}, checks identical "
+              f"{same_c}, sweeps {rr.num_sweeps}, converged {rr.converged}")
         check(bool(torch.isfinite(ctrl.values).all())
               and tuple(ctrl.values.shape) == state_shape(ref_cfg),
               f"{name}: wrong shape or non-finite values")
-        check(same_v and same_a, f"{name}: kernel solve != plain solve")
-        check(ref.results[name].num_sweeps == sweeps[name],
-              f"{name}: plain solve ran another number of sweeps")
+        check(same_v and same_a and same_c,
+              f"{name}: kernel solve != plain solve")
+        check(rr.num_sweeps == sweeps[name] and
+              rr.converged == kr.converged,
+              f"{name}: plain solve stopped elsewhere")
     with np.load(GOLDEN_DIR / "pos_att_channel_golden.npz") as z:
         gold = {k: z[k] for k in z.files}
     _, gres = pos_att.solve_channel(ref_cfg, "x", device=device,
@@ -625,32 +701,56 @@ def pos_att_phases(device) -> dict:
     check_flights("ode45 flight", Xo, Fo)
 
     phase("10. high-resolution solve through the kernel")
-    before = rl.rowlane_backup_cuda.launches
+    reset_launch_counts()
     t0 = time.perf_counter()
     hsol = pos_att.solve(hr_cfg, include_failure=False, device=device)
     torch.cuda.synchronize()
     hr_s = time.perf_counter() - t0
     hsweeps = {name: r.num_sweeps for name, r in hsol.results.items()}
     print(f"pos_att.solve(PosAttConfig.high_res(), include_failure=False): "
-          f"{hr_s:.3f} s; sweeps per channel {hsweeps}")
-    check(rl.rowlane_backup_cuda.launches - before == sum(hsweeps.values()),
+          f"{hr_s:.3f} s; sweeps per channel {hsweeps}; "
+          f"{rl.rowlane_backup_cuda.launches} launches, "
+          f"{rl.rowlane_backup_cuda.channel_sweeps} channel-sweeps")
+    check(rl.rowlane_backup_cuda.launches == max(hsweeps.values())
+          and rl.rowlane_backup_cuda.channel_sweeps
+          == sum(hsweeps.values()),
           "high-res solve: launches != sweeps")
     check(all(bool(torch.isfinite(c.values).all())
               for c in hsol.controllers.values()), "high-res: non-finite")
 
     phase("11. timing (CUDA events, warm, median of 10)")
     ms = {}
-    for size, (bk, v) in timed.items():
-        v2 = v.permute(bk.perm).reshape(bk.NW, bk.NE).contiguous()
-        evals = bk.NW * bk.NE * bk.args.n_actions
-        k_ms = cuda_time_ms(lambda: rl.rowlane_backup_cuda(v2, bk.args),
-                            inner=20)
-        p_ms = cuda_time_ms(lambda: rl.rowlane_backup_plain(v2, bk.args),
-                            inner=5)
+    for size, (bks, vs) in timed.items():
+        tabs = [b.to_table(v) for b, v in zip(bks, vs)]
+        args = [b.args for b in bks]
+        ov = [torch.empty_like(t) for t in tabs]
+        oa = [torch.empty(t.shape, dtype=torch.int32, device=device)
+              for t in tabs]
+        evals = sum(b.NW * b.NE * b.args.n_actions for b in bks)
+
+        def batch():
+            rl.rowlane_backup_cuda(tabs, args, ov, oa)
+
+        k_ms = graph_time_ms(batch)
+        w_ms = cuda_time_ms(batch, inner=20)
+        one_ms = graph_time_ms(lambda: rl.rowlane_backup_cuda(
+            tabs[0], args[0], ov[0], oa[0]))
+        p_ms = cuda_time_ms(lambda: [rl.rowlane_backup_plain(t, a)
+                                     for t, a in zip(tabs, args)], inner=2)
         ms[size] = (k_ms, p_ms)
-        print(f"{size} x-channel sweep, back to back: kernel {k_ms:.4f} ms "
-              f"({evals / k_ms * 1e3:.4e} evals/s), plain {p_ms:.4f} ms "
+        plan, blocks = rl.tile_occupancy(tabs[0], args)
+        print(f"{size}, the four channels in one launch: kernel alone "
+              f"{k_ms:.4f} ms ({evals / k_ms * 1e3:.4e} evals/s), through "
+              f"the wrapper back to back {w_ms:.4f} ms; the x channel alone "
+              f"{one_ms:.4f} ms; plain, four channels {p_ms:.4f} ms "
               f"({evals / p_ms * 1e3:.4e} evals/s)")
+        print(f"  {plan.smem_bytes} B dynamic shared memory a block (tile "
+              f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
+              f"rows x {plan.width} lanes, {plan.threads} threads, kernel "
+              f"kind {plan.kind}, grid {plan.grid}), {blocks} blocks an SM: "
+              f"occupancy {blocks * plan.threads / SM_MAX_THREADS:.0%}")
+    for line in ptxas_lines("rowlane_tiles"):
+        print(line)
     solve_ms = cuda_time_ms(lambda: pos_att.solve(ref_cfg, device=device))
     print(f"pos_att.solve(PosAttConfig()) incl. builds, "
           f"{sum(sweeps.values())} sweeps: {solve_ms:.3f} ms")
@@ -680,9 +780,72 @@ def pos_att_phases(device) -> dict:
     }
 
 
-def rowlane_bound(bk) -> dict:
-    """FP32 operations and bytes of one row/lane sweep, as its plain version
-    does them (``rowlane_backup_plain``), from this plan's tap structure."""
+def rowlane_batch_vs_plain(bks, vs, size: str) -> float:
+    """The channels in one launch against each channel's plain version and
+    its own one-channel launch: bitwise. Returns max |dV|."""
+    tabs = [b.to_table(v) for b, v in zip(bks, vs)]
+    ov = [torch.empty_like(t) for t in tabs]
+    oa = [torch.empty(t.shape, dtype=torch.int32, device=t.device)
+          for t in tabs]
+    rl.rowlane_backup_cuda(tabs, [b.args for b in bks], ov, oa)
+    err = 0.0
+    for b, t, v, a in zip(bks, tabs, ov, oa):
+        want = rl.rowlane_backup_plain(t, b.args)
+        one = rl.rowlane_backup_cuda(t, b.args)
+        torch.cuda.synchronize()
+        err = max(err, float((v - want.values).abs().max()))
+        check(torch.equal(v, want.values) and torch.equal(a, want.argmin),
+              f"{size}: a channel of the batch != its plain version")
+        check(torch.equal(v, one.values) and torch.equal(a, one.argmin),
+              f"{size}: a channel of the batch != its own launch")
+    print(f"{size}, {len(bks)} channels in one launch "
+          f"({[b.args.n_actions for b in bks]} actions): each channel equals "
+          f"its plain version and its own launch bitwise, max |dV| {err}")
+    return err
+
+
+def rowlane_graph_vs_eager(bks, vs, n: int) -> float:
+    """``n`` sweeps of the batch replayed as one CUDA graph against the same
+    sweeps as eager launches: bitwise, and the replay's launches
+    counted."""
+    batch = rl.RowLaneBatch(bks)
+    active = tuple(range(len(bks)))
+    runs = []
+    for graphed in (False, True):
+        cur, nxt, arg = batch.buffers(vs)
+
+        def step(src, dst):
+            batch.sweep(src, dst, arg, active)
+
+        if graphed:
+            batch.prepare(active)
+            before = rl.rowlane_backup_cuda.launches
+            g = SweepGraph(step, cur, nxt, n, (batch.launcher,))
+            check(rl.rowlane_backup_cuda.launches == before,
+                  "a capture counted launches")
+            g.replay()
+            check(rl.rowlane_backup_cuda.launches == before + n,
+                  "a replay did not count its launches")
+        else:
+            ping_pong(step, cur, nxt, n)
+        torch.cuda.synchronize()
+        runs.append((cur, arg))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"{n} sweeps of the batch, one CUDA graph vs eager launches: "
+          f"values and argmin identical {same}")
+    check(same, "graph replay != eager launches")
+    return float((runs[0][0] - runs[1][0]).abs().max())
+
+
+def rowlane_bound(bks) -> dict:
+    """FP32 operations and bytes of one sweep of the channels ``bks`` (one
+    backup or a list), as the plain version does them
+    (``rowlane_backup_plain``), from each plan's tap structure."""
+    if isinstance(bks, (list, tuple)):
+        parts = [rowlane_bound(b) for b in bks]
+        return bound(sum(p["flops"] for p in parts),
+                     sum(p["bytes"] for p in parts))
+    bk = bks
     a = bk.args
     nw, ne, n_act = bk.NW, bk.NE, a.n_actions
     nc, nr = len(a.row_combos), len(a.row_shape)
@@ -1478,10 +1641,12 @@ def band_vs_plain(bk, v, label: str) -> float:
     err = float((got.values - want.values).abs().max())
     same_v = torch.equal(got.values, want.values)
     same_a = torch.equal(got.argmin, want.argmin)
-    st = bk.taps
-    print(f"{label} ({tuple(v.shape)}, {bk.args.n_actions} actions, taps "
-          f"{st.taps}, live {[len(t) for t in st.valid_taps]}): values "
-          f"bitwise {same_v}, argmin identical {same_a}, max |dV| {err}")
+    taps = [(st.taps, [len(t) for t in st.valid_taps])
+            for st in bk.channel_taps]
+    print(f"{label} ({tuple(v.shape)}, {bk.args.n_actions} actions, "
+          f"{len(bk.args.terms)} cost terms, taps and live taps a plan "
+          f"{taps}): values bitwise {same_v}, argmin identical {same_a}, "
+          f"max |dV| {err}")
     check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
     check(same_v and same_a, f"{label}: kernel != plain version")
     return err
@@ -1504,21 +1669,85 @@ def tied_band_backup(device):
 def band_bound(bk) -> dict:
     """The four-corner evaluation's FP32 operations (16 per cell and
     action: two complements, four weight and four value products, four
-    sums, the cost add and the compare) and its bytes (the table, the plan
-    at its broadcast shapes, the dense cost, values and argmin out)."""
-    n_c, n_act = bk.args.cost.shape[:2]
-    n_cells = n_c * bk.args.cost.shape[2] * bk.args.cost.shape[3]
+    sums, the cost add and the compare, and one add a cost term) and its
+    bytes: the table, the plan and each cost term at their broadcast
+    shapes, values and argmin out."""
+    n_c, n1, n2, n_act = bk.args.shape
+    n_cells = n_c * n1 * n2
     plan_bytes = sum(8 * lo.numel() for lo in bk.args.lo)
-    nbytes = 4 * n_cells + plan_bytes + 4 * n_act * n_cells + 8 * n_cells
-    return bound(16.0 * n_cells * n_act, nbytes)
+    term_bytes = sum(4 * t.numel() for t in bk.args.terms)
+    nbytes = 4 * n_cells + plan_bytes + term_bytes + 8 * n_cells
+    ops = (16.0 + len(bk.args.terms)) * n_cells * n_act
+    return bound(ops, nbytes)
 
 
 def band_tap_loop_ops(bk) -> float:
     """FP32 operations of the plain tap loop on the same inputs, per cell
-    and action: 3 per live tap pair, 5 per live tap's weight, the cost add
-    and the compare."""
-    n1, n2 = (len(t) for t in bk.taps.valid_taps)
-    return 3.0 * n1 * n2 + 5.0 * (n1 + n2) + 2.0
+    and action (of the first plan): 3 per live tap pair, 5 per live tap's
+    weight, the cost adds and the compare."""
+    n1, n2 = (len(t) for t in bk.channel_taps[0].valid_taps)
+    return 3.0 * n1 * n2 + 5.0 * (n1 + n2) + 1.0 + len(bk.args.terms)
+
+
+def band_batch_checks(cfg, pp, device, rng) -> float:
+    """The batched and factorized modes against the plain version and the
+    one-axis launches, and a graph replay against eager launches; bitwise.
+    Returns max |dV|."""
+    err = 0.0
+    for edge in ("clamp", "extrapolate"):
+        built = [attitude.build_simplified_axis(cfg, i, edge=edge,
+                                                device=device)
+                 for i in range(3)]
+        bk = bb.BandBackup2D.stack([p for _, p, _ in built],
+                                   [t for _, _, t in built])
+        v = torch.from_numpy(rng.uniform(0.0, 100.0, (3,) + tuple(
+            built[0][1].grid_shape)).astype(np.float32)).to(device)
+        err = max(err, band_vs_plain(bk, v, f"the three axes in one launch, "
+                                     f"edge={edge!r}"))
+        got = bk(v)
+        for i, (_, plan, terms) in enumerate(built):
+            one = bb.BandBackup2D(plan, terms)(v[i].contiguous())
+            check(torch.equal(one.values, got.values[i])
+                  and torch.equal(one.argmin, got.argmin[i]),
+                  f"axis {i} of the batch != its own launch")
+        print(f"edge={edge!r}: each axis of the batch equals its own launch "
+              "bitwise")
+    dense = bb.BandBackup2D(pp.plan, pp.stage_cost)
+    split = bb.BandBackup2D(pp.plan, pp.cost_terms)
+    pv = torch.from_numpy(rng.uniform(0.0, 100.0, pp.plan.grid_shape)
+                          .astype(np.float32)).to(device)
+    a, b = split(pv), dense(pv)
+    check(torch.equal(a.values, b.values) and torch.equal(a.argmin, b.argmin),
+          "position: the factorized cost != the dense one")
+    err = max(err, band_vs_plain(split, pv, "position C=3, factorized cost "
+                                 f"({len(split.args.terms)} terms)"))
+    print("position C=3: factorized (3 terms) and dense cost bitwise equal")
+    # GRAPH_SWEEPS sweeps of the three axes: one graph replay vs eager
+    runs = []
+    for graphed in (False, True):
+        cur = v.clone()
+        nxt = torch.empty_like(cur)
+        arg = torch.zeros(cur.shape, dtype=torch.int32, device=device)
+
+        def step(src, dst):
+            bk.sweep_into(src, dst, arg)
+
+        if graphed:
+            bk.prepare()
+            before = bb.band_backup2d_cuda.launches
+            g = SweepGraph(step, cur, nxt, GRAPH_SWEEPS, (bk.launcher,))
+            g.replay()
+            check(bb.band_backup2d_cuda.launches == before + GRAPH_SWEEPS,
+                  "a replay did not count its launches")
+        else:
+            ping_pong(step, cur, nxt, GRAPH_SWEEPS)
+        torch.cuda.synchronize()
+        runs.append((cur, arg))
+    same = all(torch.equal(x, y) for x, y in zip(*runs))
+    print(f"{GRAPH_SWEEPS} sweeps of the three axes, one CUDA graph vs eager "
+          f"launches: values and argmin identical {same}")
+    check(same, "B.6 graph replay != eager launches")
+    return err
 
 
 def nearest_index(ax: np.ndarray, q: float) -> int:
@@ -1581,6 +1810,7 @@ def band_phases(device) -> dict:
                           .astype(np.float32)).to(device)
     max_err = max(max_err, band_vs_plain(tie, tv, "exact ties"))
     check(int(tie(tv).argmin.max()) == 0, "exact ties: a later action won")
+    max_err = max(max_err, band_batch_checks(cfg, pp, device, rng))
 
     phase("23. main path: attitude.solve_simplified(AttitudeConfig())")
     sweeps = cfg.n_stage - 1
@@ -1591,25 +1821,29 @@ def band_phases(device) -> dict:
     solve_s = time.perf_counter() - t0
     counts = launch_counts()
     launches = counts.pop("band_backup2d")
+    chs = bb.band_backup2d_cuda.channel_sweeps
     print(f"attitude.solve_simplified(AttitudeConfig()): {solve_s:.3f} s for "
           f"3 x {sweeps} sweeps incl. the builds "
-          f"({solve_s / (3 * sweeps) * 1e3:.4f} ms a sweep); band_backup2d "
-          f"launches {launches}, others {counts}")
-    check(launches == 3 * sweeps,
-          f"band_backup2d launched {launches} times, want {3 * sweeps}")
+          f"({solve_s / sweeps * 1e3:.4f} ms a batched sweep); band_backup2d "
+          f"launches {launches} for {chs} channel-sweeps (the three axes in "
+          f"one launch, {sweeps // GRAPH_SWEEPS} CUDA graph replays of "
+          f"{GRAPH_SWEEPS}), others {counts}")
+    check(launches == sweeps and chs == 3 * sweeps,
+          f"band_backup2d launched {launches} times for {chs} channel-"
+          f"sweeps, want {sweeps} for {3 * sweeps}")
     check(not any(counts.values()), "another backup kernel launched")
     check(all(v.is_cuda and tuple(v.shape) == (cfg.n_mesh_w, cfg.n_mesh_t)
               and bool(torch.isfinite(v).all()) for v in sol.values),
           "main path: wrong device, shape or non-finite values")
     print(f"V ranges {[(float(v.min()), float(v.max())) for v in sol.values]}")
-    k50 = attitude.solve_simplified(cfg, num_sweeps=50, impl="kernel")
-    p50 = attitude.solve_simplified(cfg, num_sweeps=50, impl="plain",
+    k50 = attitude.solve_simplified(cfg, num_sweeps=250, impl="kernel")
+    p50 = attitude.solve_simplified(cfg, num_sweeps=250, impl="plain",
                                     device=device)
     same = all(torch.equal(a, b) for a, b in
                zip(k50.values + k50.u_tables, p50.values + p50.u_tables))
-    print(f"50 sweeps, kernel vs plain: values and torque tables identical "
-          f"{same}")
-    check(same, "50-sweep solve: kernel != plain")
+    print(f"250 sweeps (2 graph replays and 50 eager launches), kernel vs "
+          f"plain: values and torque tables identical {same}")
+    check(same, "250-sweep solve: kernel != plain")
     with np.load(GOLDEN_DIR / "attitude_axis_golden.npz") as z:
         gold = {k: z[k] for k in z.files}
     gsol = attitude.solve_simplified(cfg, num_sweeps=int(gold["sweeps"]),
@@ -1676,21 +1910,23 @@ def band_phases(device) -> dict:
     psolve_s = time.perf_counter() - t0
     counts = launch_counts()
     plaunches = counts.pop("band_backup2d")
+    pchs = bb.band_backup2d_cuda.channel_sweeps
     psweeps = pcfg.n_stage - 1
     print(f"position.solve(PositionConfig()): {psolve_s:.3f} s for {psweeps} "
           f"sweeps of 3 channels incl. the build "
           f"({psolve_s / psweeps * 1e3:.4f} ms a sweep); band_backup2d "
-          f"launches {plaunches}, others {counts}")
-    check(plaunches == psweeps and not any(counts.values()),
+          f"launches {plaunches} for {pchs} channel-sweeps, others {counts}")
+    check(plaunches == psweeps and pchs == 3 * psweeps
+          and not any(counts.values()),
           f"position: {plaunches} launches, want {psweeps}")
     check(bool(torch.isfinite(psol.result.values).all()), "position: "
           "non-finite")
-    k50 = position.solve(pcfg, num_sweeps=50)
-    p50 = position.solve(pcfg, num_sweeps=50, impl="plain", device=device)
+    k50 = position.solve(pcfg, num_sweeps=250)
+    p50 = position.solve(pcfg, num_sweeps=250, impl="plain", device=device)
     same = (torch.equal(k50.result.values, p50.result.values)
             and torch.equal(k50.result.argmin, p50.result.argmin))
-    print(f"50 sweeps, kernel vs plain: values and argmin identical {same}")
-    check(same, "position 50-sweep solve: kernel != plain")
+    print(f"250 sweeps, kernel vs plain: values and argmin identical {same}")
+    check(same, "position 250-sweep solve: kernel != plain")
     with np.load(GOLDEN_DIR / "position_golden.npz") as z:
         gold = {k: z[k] for k in z.files}
     gres = position.solve(pcfg, num_sweeps=int(gold["sweeps"])).result
@@ -1716,23 +1952,42 @@ def band_phases(device) -> dict:
           "position flight: non-finite or a control off the lookup")
 
     phase("26. timing (CUDA events, warm, median of 10)")
-    _, plan, terms = attitude.build_simplified_axis(cfg, 0, device=device)
+    built = [attitude.build_simplified_axis(cfg, i, device=device)
+             for i in range(3)]
+    bk3 = bb.BandBackup2D.stack([p for _, p, _ in built],
+                                [t for _, _, t in built])
+    v3 = torch.stack(sol.values).contiguous()
+    o3 = torch.empty_like(v3)
+    a3 = torch.empty(v3.shape, dtype=torch.int32, device=device)
+    k_ms = graph_time_ms(lambda: bb.band_backup2d_cuda(
+        v3, bk3.args, out_v=o3, out_a=a3))
+    w_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(v3, bk3.args),
+                        inner=20)
+    p_ms = cuda_time_ms(lambda: bb.band_backup2d_plain(v3, bk3.args,
+                                                       bk3.channel_taps))
+    _, plan, terms = built[0]
     bk = bb.BandBackup2D(plan, terms)
     v = sol.values[0].contiguous()
-    v3 = v[None]
-    k_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(v3, bk.args), inner=20)
-    p_ms = cuda_time_ms(lambda: bb.band_backup2d_plain(v3, bk.args, bk.taps))
+    v1 = v[None]
+    o1, a1 = torch.empty_like(v1), torch.empty(v1.shape, dtype=torch.int32,
+                                               device=device)
+    one_ms = graph_time_ms(lambda: bb.band_backup2d_cuda(
+        v1, bk.args, out_v=o1, out_a=a1))
+    pbk = bb.BandBackup2D(pp.plan, pp.cost_terms)
     pv3 = psol.result.values.contiguous()
-    pk_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(pv3, pbk.args),
+    po, pa = torch.empty_like(pv3), torch.empty(pv3.shape, dtype=torch.int32,
+                                                device=device)
+    pk_ms = graph_time_ms(lambda: bb.band_backup2d_cuda(
+        pv3, pbk.args, out_v=po, out_a=pa))
+    pw_ms = cuda_time_ms(lambda: bb.band_backup2d_cuda(pv3, pbk.args),
                          inner=20)
     pp_ms = cuda_time_ms(lambda: bb.band_backup2d_plain(pv3, pbk.args,
-                                                        pbk.taps))
+                                                        pbk.channel_taps))
     rb = RowBandBackup2D(plan, terms)
     rb_ms = cuda_time_ms(lambda: rb(v), inner=5)
     rlb = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
     v2 = v.reshape(rlb.NW, rlb.NE)
-    rl_ms = cuda_time_ms(lambda: rl.rowlane_backup_cuda(v2, rlb.args),
-                         inner=20)
+    rl_ms = graph_time_ms(lambda: rl.rowlane_backup_cuda(v2, rlb.args))
     rl_err = rowlane_vs_plain(rlb, v, "B.2 on simplified axis 0 "
                               f"({len(rlb.row_combos)} row combos, lane taps "
                               f"{rlb.e_taps})")
@@ -1744,22 +1999,35 @@ def band_phases(device) -> dict:
     solve_ms = cuda_time_ms(lambda: attitude.solve_simplified(cfg),
                             repeats=3)
     psolve_ms = cuda_time_ms(lambda: position.solve(pcfg), repeats=3)
-    bnd = band_bound(bk)
+    bnd = band_bound(bk3)
+    bnd1 = band_bound(bk)
     pbnd = band_bound(pbk)
-    print(f"1000x300 sweep: B.6 {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-          f"{bnd['bound_ms']:.5f} ms ({bnd['bound_by']}; the plain tap loop "
-          f"does {band_tap_loop_ops(bk) / 16:.1f}x the four-corner "
-          f"operations); row-band {rb_ms:.4f} ms; B.2 (rowlane) "
-          f"{rl_ms:.4f} ms")
-    print(f"3x201x201 sweep: B.6 {pk_ms:.4f} ms, plain {pp_ms:.4f} ms, "
-          f"bound {pbnd['bound_ms']:.5f} ms ({pbnd['bound_by']}: "
+    print(f"3 x 1000 x 300 in one launch (the main path's): kernel alone "
+          f"{k_ms:.5f} ms, through the wrapper back to back {w_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, bound {bnd['bound_ms']:.5f} ms "
+          f"({bnd['bound_by']}: {bnd['flops']:.4e} operations, "
+          f"{bnd['bytes']:.4e} bytes; the plain tap loop does "
+          f"{band_tap_loop_ops(bk3) / (16 + len(bk3.args.terms)):.1f}x the "
+          f"four-corner operations)")
+    print(f"one 1000 x 300 axis: kernel alone {one_ms:.5f} ms, bound "
+          f"{bnd1['bound_ms']:.5f} ms; row-band {rb_ms:.4f} ms; B.2 "
+          f"(rowlane) kernel alone {rl_ms:.4f} ms")
+    print(f"3x201x201 (factorized cost): kernel alone {pk_ms:.5f} ms, "
+          f"through the wrapper {pw_ms:.4f} ms, plain {pp_ms:.4f} ms, bound "
+          f"{pbnd['bound_ms']:.5f} ms ({pbnd['bound_by']}: "
           f"{pbnd['flops']:.4e} operations, {pbnd['bytes']:.4e} bytes); "
           f"position launches on its main path {plaunches}")
     print(f"solve_simplified(AttitudeConfig()) {solve_ms / 1e3:.3f} s warm "
-          f"({solve_s:.3f} s cold), {solve_ms / (3 * sweeps):.4f} ms a sweep; "
-          f"position.solve(PositionConfig()) {psolve_ms / 1e3:.3f} s warm "
-          f"({psolve_s:.3f} s cold), {psolve_ms / psweeps:.4f} ms a sweep")
-    print(f"band_sweep: {kernel_registers('band_sweep')}")
+          f"({solve_s:.3f} s cold), {solve_ms / sweeps:.4f} ms a sweep of "
+          f"the three axes; position.solve(PositionConfig()) "
+          f"{psolve_ms / 1e3:.3f} s warm ({psolve_s:.3f} s cold), "
+          f"{psolve_ms / psweeps:.4f} ms a sweep")
+    for line in ptxas_lines("band_sweep"):
+        print(line)
+    blocks = _build.load().band_backup2d_blocks_per_sm(bk3.args.n_actions)
+    print(f"band_sweep<3>: no dynamic shared memory, 256 threads a block, "
+          f"{blocks} blocks an SM: occupancy "
+          f"{blocks * 256 / SM_MAX_THREADS:.0%}")
     return {
         "name": "band_backup2d",
         "route": "cuda",

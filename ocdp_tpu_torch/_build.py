@@ -32,11 +32,14 @@ NVCC_FLAGS = (*_ARCH, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # name -> (restype, argtypes); every pointer and the stream are c_void_p
 _SIGNATURES = {
-    "band_backup2d_f32": (_I, [_P] * 8 + [_I] * 10 + [_P]),
+    "band_backup2d_f32": (_I, [_P] * 3),
+    "band_backup2d_blocks_per_sm": (_I, [_I]),
     "band_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "fused_backup2d_f32": (_I, [_P] * 12 + [_I] * 4 + [_P]),
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
-    "rowlane_backup_f32": (_I, [_P] * 17 + [_I] * 8 + [_P]),
+    "rowlane_backup_f32": (_I, [_I] + [_P] * 5),
+    "rowlane_backup_configure": (_I, [_I] * 2),
+    "rowlane_backup_blocks_per_sm": (_I, [_I] * 2),
     "rowlane_backup_error_string": (ctypes.c_char_p, [_I]),
     "backup6d_f32": (_I, [_P] * 21 + [_I] * 10 + [_P]),
     "backup6d_flat_f32": (_I, [_P] * 21 + [_I] * 12 + [_P]),

@@ -1,7 +1,8 @@
 """Backward value-iteration engines (counterpart of ``ocdp_tpu/engine.py``).
 
-Two engines mirror the reference's two loop shapes, and a third runs the
-finite one in host-visible segments:
+Two engines mirror the reference's two loop shapes, a third runs the
+finite one in host-visible segments, and a fourth runs the converged one
+over a batch of channels in lockstep:
 
 * :func:`value_iteration_finite` — fixed number of backward sweeps with an
   optional per-sweep policy store; the Kirk finite-horizon loop
@@ -13,11 +14,26 @@ finite one in host-visible segments:
 * :func:`value_iteration_segmented` — the finite engine in segments, with
   host-streamed policies, a checkpoint per segment, resume, and the
   converged engine's stop rule at its own check sweeps.
+* :func:`value_iteration_converged_batch` — the converged engine over the
+  channels of a batched backup (:class:`~ocdp_tpu_torch.ops.rowlane.
+  RowLaneBatch`), one launch a sweep, each channel with its own checks and
+  stop; each channel's result equals the converged engine's alone.
 
 Each is a Python loop over sweeps; the device work of a sweep is the
 backup's. Policies go into one preallocated tensor. The finite loop never
 waits for the device unless a per-sweep callback is given; the converged
-loop reads one checksum per check.
+loops read one checksum per check.
+
+CUDA graphs: a backup that declares itself ``graph_safe`` (it sweeps into
+the caller's buffers with :meth:`sweep_into`, allocating nothing and
+setting no function attribute) runs in the finite engine, when no policies,
+probes or per-sweep callback are asked for, as ``GRAPH_SWEEPS`` sweeps over
+ping-pong buffers captured once into a :class:`torch.cuda.CUDAGraph` and
+replayed; the remainder runs eagerly. The batched converged engine replays
+the ``check_every`` sweeps between two checks the same way. On the CPU the
+same schedule runs eagerly (the graphs' eager twin). A capture or replay
+error raises; nothing falls back to eager launches. Each replay adds the
+launches it captured to the kernel's launch and channel-sweep counters.
 
 Stage-loop semantics: sweep ``j=0`` is the backup from the terminal cost
 (the reference's ``k = 1`` / ``k_s = N-1``), so for a finite-horizon rollout
@@ -36,13 +52,21 @@ from .ops.backup import bellman_backup
 from .ops.interp import InterpPlan
 
 __all__ = [
+    "GRAPH_SWEEPS",
     "SolveResult",
+    "SweepGraph",
+    "converged_schedule",
+    "finite_schedule",
     "value_iteration_finite",
     "value_iteration_converged",
+    "value_iteration_converged_batch",
     "value_iteration_segmented",
     "policy_dtype_for",
     "convergence_stop",
 ]
+
+# sweeps a finite-engine CUDA graph replays
+GRAPH_SWEEPS = 100
 
 
 def convergence_stop(err_f: float, fsum: float, tol: float,
@@ -106,6 +130,92 @@ def _sync_for_callback(values: torch.Tensor) -> None:
         torch.cuda.synchronize(values.device)
 
 
+def ping_pong(step, cur: torch.Tensor, nxt: torch.Tensor, n: int) -> None:
+    """``n`` sweeps ``step(src, dst)`` alternating between ``cur`` and
+    ``nxt``, starting from ``cur``; the result ends in ``cur`` (an odd
+    ``n`` ends with one copy back)."""
+    src, dst = cur, nxt
+    for _ in range(n):
+        step(src, dst)
+        src, dst = dst, src
+    if n % 2:
+        cur.copy_(nxt)
+
+
+class SweepGraph:
+    """``n`` sweeps of :func:`ping_pong` over fixed buffers, captured once
+    into a CUDA graph and replayed.
+
+    ``launchers``: the kernels' wrappers whose ``launches`` and
+    ``channel_sweeps`` counters the capture moves;
+    the capture's counts are taken back and each :meth:`replay` adds them,
+    so the counters count the launches that ran. Call only after the
+    kernels are built and configured (the backups' ``prepare``): the
+    capture must set no function attribute. Any capture or replay error
+    raises.
+    """
+
+    COUNTERS = ("launches", "channel_sweeps")
+
+    def __init__(self, step, cur, nxt, n: int, launchers=()):
+        before = [[getattr(f, k) for k in self.COUNTERS] for f in launchers]
+        self.graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(self.graph):
+                ping_pong(step, cur, nxt, n)
+        finally:
+            after = [[getattr(f, k) for k in self.COUNTERS]
+                     for f in launchers]
+            for f, b in zip(launchers, before):
+                for k, v in zip(self.COUNTERS, b):
+                    setattr(f, k, v)
+        self.counts = [(f, [a - b for a, b in zip(aa, bb)])
+                       for f, aa, bb in zip(launchers, after, before)]
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for f, deltas in self.counts:
+            for k, d in zip(self.COUNTERS, deltas):
+                setattr(f, k, getattr(f, k) + d)
+
+
+def finite_schedule(num_sweeps: int, k: int = GRAPH_SWEEPS) -> list:
+    """The finite graph engine's runs: ``num_sweeps // k`` runs of ``k``
+    (each a graph replay on a card), then the remainder (eager)."""
+    runs = [k] * (num_sweeps // k)
+    return runs + [num_sweeps % k] if num_sweeps % k else runs
+
+
+def _finite_graphed(plan, backup, num_sweeps, init_values,
+                    narrow_argmin_result) -> SolveResult:
+    """The finite engine through a graph-safe backup: ping-pong tables and
+    one int32 argmin buffer allocated once, runs of ``GRAPH_SWEEPS`` sweeps
+    replayed as one CUDA graph on a card (run eagerly on the CPU, the same
+    schedule), the remainder eager."""
+    v0 = _initial_values(plan, init_values)
+    cur = v0.clone()
+    nxt = torch.empty_like(cur)
+    argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=cur.device)
+
+    def step(src, dst):
+        backup.sweep_into(src, dst, argmin)
+
+    graph = None
+    for n in finite_schedule(num_sweeps, GRAPH_SWEEPS):
+        if cur.is_cuda and n == GRAPH_SWEEPS:
+            if graph is None:
+                backup.prepare()
+                graph = SweepGraph(step, cur, nxt, n, (backup.launcher,))
+            graph.replay()
+        else:
+            ping_pong(step, cur, nxt, n)
+    pdt = policy_dtype_for(plan.query_shape[-1])
+    return SolveResult(
+        values=cur,
+        argmin=argmin.to(pdt) if narrow_argmin_result else argmin,
+        policies=None, num_sweeps=num_sweeps, converged=False)
+
+
 def value_iteration_finite(
     plan: InterpPlan,
     stage_cost,
@@ -150,6 +260,10 @@ def value_iteration_finite(
     if not store_policies and getattr(backup, "carry_padded", False):
         return _finite_carry(plan, backup, num_sweeps, init_values,
                              probe_window, narrow_argmin_result, on_sweep)
+    if (getattr(backup, "graph_safe", False) and not store_policies
+            and probe_window is None and on_sweep is None):
+        return _finite_graphed(plan, backup, num_sweeps, init_values,
+                               narrow_argmin_result)
     v = _initial_values(plan, init_values)
     n_actions = plan.query_shape[-1]
     pdt = policy_dtype or policy_dtype_for(n_actions)
@@ -315,6 +429,120 @@ def value_iteration_converged(
         converged=converged,
         checks=checks.to(v.device),
     )
+
+
+def converged_schedule(max_sweeps: int, check_every: int) -> list:
+    """The converged engine's runs of sweeps: ``(n, k_s, check)`` for each
+    run of ``n`` sweeps whose last sweep has countdown ``k_s``, ``check``
+    whether the stop rule is evaluated right after it (``k_s`` a multiple
+    of ``check_every``). Pos-att's 1999 sweeps at ``check_every=50``: 39
+    runs of 50, each ending at a check, then 49."""
+    runs = []
+    k = max_sweeps                        # the countdown of the next sweep
+    while k >= 1:
+        last = (k // check_every) * check_every
+        if last >= 1:
+            runs.append((k - last + 1, last, True))
+            k = last - 1
+        else:
+            runs.append((k, 1, False))
+            k = 0
+    return runs
+
+
+def value_iteration_converged_batch(
+    batch,
+    max_sweeps: int,
+    *,
+    check_every: int = 50,
+    tol: float = 1e-2,
+    tol_mode: str = "abs",
+    init_values=None,
+    on_check=None,
+    narrow_argmin_result: bool = False,
+) -> list:
+    """:func:`value_iteration_converged` for every channel of ``batch`` at
+    once (a :class:`~ocdp_tpu_torch.ops.rowlane.RowLaneBatch`): one launch
+    a sweep over the channels still running, in the backup's own table
+    layout, with ping-pong tables and an argmin buffer allocated once.
+
+    Each channel keeps its own countdown, checks and stop: at a check its
+    table and argmin are taken into the natural state order as contiguous
+    tensors and summed there, as the one-channel engine sums them; a
+    channel that stops leaves the batch with the values and argmin of its
+    stop sweep. The runs between two checks (``check_every`` sweeps) are
+    one CUDA graph a set of running channels on a card, replayed; other
+    runs, and every run on the CPU, are eager launches. ``init_values``
+    and ``on_check`` are per channel (sequences, entries may be None).
+
+    Returns one :class:`SolveResult` a channel, each equal to
+    :func:`value_iteration_converged` of that channel alone: values,
+    argmin, ``num_sweeps``, ``converged`` and ``checks``.
+    """
+    convergence_stop(0.0, 0.0, tol, tol_mode)     # validate tol_mode early
+    n_ch = len(batch)
+    cur, nxt, argmin = batch.buffers(init_values)
+    on_check = list(on_check) if on_check is not None else [None] * n_ch
+    n_checks = max(max_sweeps // check_every, 1)
+    checks = [torch.zeros((n_checks, 3), dtype=torch.float32)
+              for _ in range(n_ch)]
+    prev = [(torch.zeros((), dtype=torch.float32),) * 2] * n_ch
+    c_idx = 0
+    results = [None] * n_ch
+    active = tuple(range(n_ch))
+    graphs = {}
+
+    def step(src, dst):
+        batch.sweep(src, dst, argmin, active)
+
+    def finish(c, num_sweeps, converged, v=None, a=None):
+        v = batch.to_natural(c, cur[c]) if v is None else v
+        a = batch.to_natural(c, argmin[c]) if a is None else a
+        pdt = (policy_dtype_for(batch.backups[c].args.n_actions)
+               if narrow_argmin_result else torch.int32)
+        results[c] = SolveResult(values=v, argmin=a.to(pdt), policies=None,
+                                 num_sweeps=num_sweeps, converged=converged,
+                                 checks=checks[c].to(v.device))
+
+    for n, k_s, is_check in converged_schedule(max_sweeps, check_every):
+        if batch.launcher is not None and n == check_every:
+            if active not in graphs:
+                batch.prepare(active)
+                graphs[active] = SweepGraph(step, cur, nxt, n,
+                                            (batch.launcher,))
+            graphs[active].replay()
+        else:
+            ping_pong(step, cur, nxt, n)
+        if not is_check:
+            continue
+        # each channel's sums from its own natural-order copy, brought to
+        # the host together: one wait for the device a check
+        nat = {c: (batch.to_natural(c, cur[c]), batch.to_natural(c, argmin[c]))
+               for c in active}
+        sums = torch.stack([x.sum(dtype=torch.float32)
+                            for c in active for x in nat[c]]).cpu()
+        still = []
+        for i, c in enumerate(active):
+            v, a = nat[c]
+            fsum, usum = sums[2 * i], sums[2 * i + 1]
+            err_f, err_u = fsum - prev[c][0], usum - prev[c][1]
+            stop = convergence_stop(float(err_f), float(fsum), tol, tol_mode)
+            checks[c][c_idx] = torch.stack(
+                [torch.tensor(float(k_s)), err_f, err_u])
+            if on_check[c] is not None:
+                on_check[c](k_s, float(err_f), float(err_u))
+            prev[c] = (fsum, usum)
+            if stop:
+                finish(c, max_sweeps - k_s + 1, True, v, a)
+            else:
+                still.append(c)
+        c_idx += 1
+        active = tuple(still)
+        if not active:
+            break
+    for c in active:
+        finish(c, max_sweeps, False)
+    return results
 
 
 def _is_check_sweep(sweep: int, num_sweeps: int, check_every: int) -> bool:

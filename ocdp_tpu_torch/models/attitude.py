@@ -4,14 +4,14 @@ coupled 6-D solve, their rollouts and the PD baseline.
 Counterpart of ``ocdp_tpu/models/attitude.py``.
 
 The simplified solve (Solver_attitude.m:196-259) is 3 independent
-(omega_i, theta_i) 2-D problems with diagonal-inertia torque dynamics, one
-after another. The reference's RK4_t feeds omega back through the theta
-derivative, giving theta' = theta + h*omega*(1 + h/2 + h^2/6 + h^3/24)
-(``rk4_t_parity``). Each sweep runs through
-:class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D`, a CUDA kernel on
-the card. Its rollouts fly the three per-axis torque tables on the
-simplified plant, on the full nonlinear rigid body, and the quaternion PD
-baseline (:835-925, :508-591).
+(omega_i, theta_i) 2-D problems with diagonal-inertia torque dynamics, which
+the reference solves one after another. The reference's RK4_t feeds omega
+back through the theta derivative, giving theta' = theta + h*omega*(1 + h/2
++ h^2/6 + h^3/24) (``rk4_t_parity``). The three axes run as one batch
+through :class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D`, one CUDA
+kernel launch a sweep on the card. Its rollouts fly the three per-axis
+torque tables on the simplified plant, on the full nonlinear rigid body,
+and the quaternion PD baseline (:835-925, :508-591).
 
 The full 6-D part (attitude-control/Solver_attitude.m:261-506, 744-833):
 the state grid is (omega1, omega2, omega3, yaw, pitch, roll) with the 27
@@ -249,18 +249,21 @@ def solve_simplified(
     verbose: bool = False,
     device="cuda",
 ) -> SimplifiedSolution:
-    """3 decoupled (omega, theta) solves (:196-259), one after another, on
-    ``device``: the card unless the caller asks for ``"cpu"``; raises
-    without a card. ``num_sweeps`` defaults to ``n_stage - 1``.
+    """3 decoupled (omega, theta) solves (:196-259) on ``device``: the card
+    unless the caller asks for ``"cpu"``; raises without a card.
+    ``num_sweeps`` defaults to ``n_stage - 1``.
 
     ``impl``: ``'auto'`` (the banded 2-D backup of
-    :class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D`: its CUDA
-    kernel on a CUDA device, its plain version on the CPU), ``'kernel'``
-    (the same, CUDA devices only), ``'plain'`` (the plain version, any
-    device), ``'rowband'`` (the row-band backup, the JAX package's auto
-    path), ``'rowlane'`` (the row/lane backup: kernel B.2 on a CUDA device,
-    its plain version on the CPU) or ``'gather'`` (the gather oracle with
-    the dense cost). The JAX package's XLA stencil is not ported.
+    :class:`~ocdp_tpu_torch.ops.band_backup2d.BandBackup2D` over the three
+    axes as one batch: its CUDA kernel on a CUDA device, one launch a
+    sweep, the sweeps replayed as CUDA graphs; its plain version on the
+    CPU), ``'kernel'`` (the same, CUDA devices only), ``'plain'`` (the
+    plain version of the same batch, any device), ``'rowband'`` (the
+    row-band backup, the JAX package's auto path), ``'rowlane'`` (the
+    row/lane backup: kernel B.2 on a CUDA device, its plain version on the
+    CPU) or ``'gather'`` (the gather oracle with the dense cost); the last
+    three solve the axes one after another. Each axis's result is its own
+    solve's, bitwise. The JAX package's XLA stencil is not ported.
 
     ``edge='clamp'`` (default) projects out-of-grid next states onto the
     grid boundary, which keeps value iteration stable; ``'extrapolate'`` is
@@ -274,15 +277,26 @@ def solve_simplified(
     sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
     on_sweep = sweep_callback(verbose)
     u_vec = torch.as_tensor(cfg.u_vector, device=device)
-    axes_out, tables, values = [], [], []
-    for i in range(3):
-        grid, plan, terms = build_simplified_axis(cfg, i, edge=edge,
-                                                  device=device)
+    built = [build_simplified_axis(cfg, i, edge=edge, device=device)
+             for i in range(3)]
+    axes_out = [grid.axes for grid, _, _ in built]
+    if impl in ("kernel", "plain"):
+        bk = BandBackup2D.stack([p for _, p, _ in built],
+                                [t for _, _, t in built])
+        n1, n2 = built[0][1].grid_shape
+        shape = PlanShape((3, n1, n2), (3, n1, n2, len(cfg.u_vector)),
+                          device)
+        res = value_iteration_finite(
+            shape, None, sweeps, backup=bk if impl == "kernel" else bk.plain,
+            on_sweep=on_sweep)
+        tables = [u_vec[res.argmin[i].long()] for i in range(3)]
+        values = [res.values[i] for i in range(3)]
+        return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),
+                                  tuple(values), edge)
+    tables, values = [], []
+    for _, plan, terms in built:
         cost = backup = None
-        if impl in ("kernel", "plain"):
-            bk = BandBackup2D(plan, terms)
-            backup = bk if impl == "kernel" else bk.plain
-        elif impl == "rowband":
+        if impl == "rowband":
             backup = RowBandBackup2D(plan, terms)
         elif impl == "rowlane":
             # (omega, theta) is row/lane separable as it stands: omega'
@@ -292,7 +306,6 @@ def solve_simplified(
             cost = terms[0] + terms[1] + terms[2]
         res = value_iteration_finite(plan, cost, sweeps, backup=backup,
                                      on_sweep=on_sweep)
-        axes_out.append(grid.axes)
         tables.append(u_vec[res.argmin.long()])
         values.append(res.values)
     return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),

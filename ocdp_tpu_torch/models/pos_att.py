@@ -24,9 +24,12 @@ Reference parity:
   equations unscaled (:804-823 + :699-707): ``accel_scale=1.0``.
 
 The builds and solves run on the card unless the caller asks for
-``device="cpu"``; without a card they raise. The channel solves run one
-after another, each with its own action set (6 actions for x_failure). The
-rollouts run on the solution's device, or on the device a caller names.
+``device="cpu"``; without a card they raise. The channels, each with its own
+action set (6 actions for x_failure), run in lockstep as one batch through
+the batched converged engine (one row/lane kernel launch a sweep on the
+card), each with its own checks and stop; a one-channel solve is the batch
+of one. The rollouts run on the solution's device, or on the device a
+caller names.
 """
 
 from __future__ import annotations
@@ -41,12 +44,13 @@ import torch
 
 from ..dynamics.orbital import target_orbit_R0V0
 from ..dynamics.relmotion import cw_relative_rates, target_states
-from ..engine import SolveResult, value_iteration_converged
+from ..engine import (SolveResult, value_iteration_converged,
+                      value_iteration_converged_batch)
 from ..grids import Grid, sym_linspace_exact
 from ..io import ChannelController, save_channel_controller
 from ..ops.interp import (AffineAxes, InterpPlan, affine_axes, build_plan,
                           nearest_cell_index)
-from ..ops.rowlane import RowLaneBackup
+from ..ops.rowlane import RowLaneBackup, RowLaneBatch
 from ..profiling import sweep_callback
 from ..utils.frames import cross, matvec, rsw_to_eci_matrix
 from ..utils.device import resolve_device, resolve_impl
@@ -256,7 +260,7 @@ def solve_channel(
     verbose: bool = False,
 ) -> tuple[ChannelController, SolveResult]:
     """Early-stopping value iteration for one channel (:268-289) on
-    ``device``.
+    ``device``: :func:`solve`'s batch of one.
 
     ``impl``: ``'kernel'`` (the rowlane CUDA kernel; CUDA devices only),
     ``'rowlane'`` (its plain PyTorch version, any device), ``'gather'``
@@ -266,24 +270,43 @@ def solve_channel(
     ``verbose`` prints the reference's per-check 'stage %d ... errorF %f -
     errorU %f' lines (Solver_pos_att.m:272-279).
     """
+    name = channel + ("_failure" if failure else "")
+    sol = _solve_jobs(cfg, [(name, channel, failure)], device=device,
+                      impl=impl, max_sweeps=max_sweeps, tol_mode=tol_mode,
+                      verbose=verbose)
+    return sol.controllers[name], sol.results[name]
+
+
+def _solve_jobs(cfg, jobs, *, device, impl, max_sweeps, tol_mode, verbose):
+    """The channels ``jobs`` (``(name, channel, failure)``) solved on
+    ``device``: with ``impl='gather'`` one after another through the
+    converged engine, else as one batch of row/lane backups (the kernel or
+    its plain version) through the batched converged engine."""
     device = resolve_device(device)
     impl = resolve_impl(impl, device, IMPLS, cpu_auto="rowlane")
     sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
-    problem = build_channel(cfg, channel, failure=failure,
-                            with_cost=impl == "gather", device=device)
-    backup = None
-    if impl != "gather":
-        bk = build_channel_rowlane_backup(cfg, problem)
-        backup = bk if impl == "kernel" else bk.plain
-    # the timer starts after the build, so the first line reports sweeps
-    result = value_iteration_converged(
-        problem.plan, problem.stage_cost, sweeps, check_every=cfg.check_every,
-        tol=cfg.tol, tol_mode=tol_mode, backup=backup,
-        on_check=sweep_callback(verbose, kind="check"))
-    ctrl = ChannelController(axes=tuple(problem.grid.axes),
-                             values=result.values, argmin=result.argmin,
-                             forces=problem.forces)
-    return ctrl, result
+    problems = [build_channel(cfg, ch, failure=failure,
+                              with_cost=impl == "gather", device=device)
+                for _, ch, failure in jobs]
+    # the timers start after the builds, so the first lines report sweeps
+    on_check = [sweep_callback(verbose, kind="check") for _ in jobs]
+    if impl == "gather":
+        results = [value_iteration_converged(
+            p.plan, p.stage_cost, sweeps, check_every=cfg.check_every,
+            tol=cfg.tol, tol_mode=tol_mode, on_check=cb)
+            for p, cb in zip(problems, on_check)]
+    else:
+        batch = RowLaneBatch([build_channel_rowlane_backup(cfg, p)
+                              for p in problems], plain=impl == "rowlane")
+        results = value_iteration_converged_batch(
+            batch, sweeps, check_every=cfg.check_every, tol=cfg.tol,
+            tol_mode=tol_mode, on_check=on_check)
+    controllers = {
+        name: ChannelController(axes=tuple(p.grid.axes), values=r.values,
+                                argmin=r.argmin, forces=p.forces)
+        for (name, _, _), p, r in zip(jobs, problems, results)}
+    return PosAttSolution(cfg, controllers,
+                          {name: r for (name, _, _), r in zip(jobs, results)})
 
 
 class PosAttSolution(NamedTuple):
@@ -308,25 +331,23 @@ def solve(
     tol_mode: str = "abs",
     verbose: bool = False,
 ) -> PosAttSolution:
-    """Solve all channels (+ x-failure), the reference's ``simplified_run``:
-    x, y, z and x_failure one after another (Solver_pos_att.m:217-240), each
-    through :func:`solve_channel`. ``save_dir`` writes each controller as
-    ``channel_<name>_controller_1.npz``."""
-    device = resolve_device(device)
+    """Solve all channels (+ x-failure), the reference's ``simplified_run``
+    (Solver_pos_att.m:217-240): x, y, z and x_failure in lockstep, one
+    batch (``impl`` as in :func:`solve_channel`), each channel's result
+    equal to its own :func:`solve_channel`. ``save_dir`` writes each
+    controller as ``channel_<name>_controller_1.npz``."""
     jobs = [(ch, ch, False) for ch in CHANNELS]
     if include_failure:
         jobs.append(("x_failure", "x", True))
-    controllers, results = {}, {}
-    for name, ch, failure in jobs:
-        controllers[name], results[name] = solve_channel(
-            cfg, ch, device=device, failure=failure, impl=impl,
-            max_sweeps=max_sweeps, tol_mode=tol_mode, verbose=verbose)
+    sol = _solve_jobs(cfg, jobs, device=device, impl=impl,
+                      max_sweeps=max_sweeps, tol_mode=tol_mode,
+                      verbose=verbose)
     if save_dir is not None:
-        for name, ctrl in controllers.items():
+        for name, ctrl in sol.controllers.items():
             save_channel_controller(
                 os.path.join(save_dir, f"channel_{name}_controller_1.npz"),
                 ctrl)
-    return PosAttSolution(cfg, controllers, results)
+    return sol
 
 
 def solve_channel_sharded(

@@ -106,6 +106,9 @@ class PositionProblem(NamedTuple):
     grid: Grid                  # (channel, x, v) axes
     plan: InterpPlan            # queries (C, nx, nv, nu)
     stage_cost: torch.Tensor    # (C, nx, nv, nu)
+    # (Qx x^2, Qv v^2, R u^2), each (C, ., ., .), whose sum in that order
+    # is stage_cost: the banded backup's factorized cost
+    cost_terms: tuple = ()
 
 
 class PositionSolution(NamedTuple):
@@ -134,7 +137,8 @@ def _x_step_coeff(h: float, parity: bool) -> float:
 def build(config: PositionConfig = PositionConfig(), *,
           device="cuda") -> PositionProblem:
     """Grids, next states (a plan over (channel, x, v) whose channel
-    queries never move) and the dense stage cost, on ``device``. The next
+    queries never move), the stage cost's terms and their dense sum, on
+    ``device``. The next
     states keep the JAX package's operation order and float32 rounding;
     the thrust divides by a float32 tensor (PyTorch on a CUDA device would
     multiply by the reciprocal of a Python-scalar divisor)."""
@@ -157,9 +161,10 @@ def build(config: PositionConfig = PositionConfig(), *,
     x_next = x + cfg.h * v * _x_step_coeff(cfg.h, cfg.rk4_x_parity)
     v_next = v + cfg.h * u / mass
     plan = build_plan(grid.axes, (c, x_next, v_next))
-    stage_cost = (col(cfg.Qx, 0) * x**2 + col(cfg.Qv, 0) * v**2
-                  + col(cfg.R, 0) * u**2)
-    return PositionProblem(cfg, grid, plan, stage_cost)
+    terms = (col(cfg.Qx, 0) * x**2, col(cfg.Qv, 0) * v**2,
+             col(cfg.R, 0) * u**2)
+    stage_cost = terms[0] + terms[1] + terms[2]
+    return PositionProblem(cfg, grid, plan, stage_cost, terms)
 
 
 def solve(
@@ -174,8 +179,9 @@ def solve(
     ``device``: the card unless the caller asks for ``"cpu"``; raises
     without a card. ``num_sweeps`` defaults to ``n_stage - 1``.
 
-    ``impl``: ``'auto'`` (the banded backup with the channels as its batch:
-    the CUDA kernel on a CUDA device, its plain version on the CPU),
+    ``impl``: ``'auto'`` (the banded backup with the channels as its batch
+    and the factorized cost: the CUDA kernel on a CUDA device, its sweeps
+    replayed as CUDA graphs, its plain version on the CPU),
     ``'kernel'`` (CUDA devices only), ``'plain'`` (any device) or
     ``'gather'`` (the gather oracle on the 3-D plan). The JAX package's XLA
     stencil is not ported. ``verbose`` prints the reference's per-stage
@@ -187,7 +193,7 @@ def solve(
     sweeps = (config.n_stage - 1) if num_sweeps is None else num_sweeps
     backup = None
     if impl != "gather":
-        bk = BandBackup2D(problem.plan, problem.stage_cost)
+        bk = BandBackup2D(problem.plan, problem.cost_terms)
         backup = bk if impl == "kernel" else bk.plain
     result = value_iteration_finite(problem.plan, problem.stage_cost, sweeps,
                                     backup=backup,

@@ -35,7 +35,9 @@ reads 0.0 and always carries an exactly zero weight.
 
 from __future__ import annotations
 
+import functools
 import itertools
+import math
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -44,8 +46,8 @@ import torch
 from .backup import BackupResult
 from .interp import InterpPlan
 
-__all__ = ["RowLaneArgs", "RowLaneBackup", "rowlane_backup_cuda",
-           "rowlane_backup_plain"]
+__all__ = ["RowLaneArgs", "RowLaneBackup", "RowLaneBatch", "RowLaneTiles",
+           "plan_tiles", "rowlane_backup_cuda", "rowlane_backup_plain"]
 
 # the kernel's fixed capacities (kMaxLaneTaps, kMaxRowCombos, kMaxActions in
 # csrc/rowlane_backup.cu); the high-res y channel has 17 row combos
@@ -226,7 +228,9 @@ def rowlane_backup_plain(values: torch.Tensor,
     return BackupResult(out, arg)
 
 
-def _check_cuda_inputs(values, args: RowLaneArgs) -> None:
+def _check_args(args: RowLaneArgs) -> None:
+    """Shapes, types, device and layout of a plan's fixed inputs; checked
+    once, when :class:`RowLaneBackup` builds them."""
     if len(args.row_shape) != 2 or len(args.lane_shape) != 2:
         raise ValueError(
             f"the rowlane kernel takes 2 row and 2 lane axes, got rows "
@@ -235,8 +239,7 @@ def _check_cuda_inputs(values, args: RowLaneArgs) -> None:
     if nw * ne >= 2**31:
         raise ValueError(f"{nw}x{ne} cells exceed the kernel's int32 index")
     n_act = args.n_actions
-    want = {"values": ((nw, ne), torch.float32, values),
-            "row_off": ((2, nw, n_act), torch.int32, args.row_off),
+    want = {"row_off": ((2, nw, n_act), torch.int32, args.row_off),
             "row_frac": ((2, nw, n_act), torch.float32, args.row_frac),
             "c_row": ((nw,), torch.float32, args.c_row),
             "c_lane": ((ne,), torch.float32, args.c_lane)}
@@ -248,58 +251,406 @@ def _check_cuda_inputs(values, args: RowLaneArgs) -> None:
         want["c_rowact"] = ((nw, n_act), torch.float32, args.c_rowact)
     if args.c_rowlane is not None:
         want["c_rowlane"] = ((nw, ne), torch.float32, args.c_rowlane)
+    dev = args.row_off.device
     for name, (shape, dtype, t) in want.items():
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
                              f"{tuple(t.shape)}")
-        if t.device != values.device or not t.is_cuda:
-            raise ValueError(f"{name} is on {t.device}; every input must be "
-                             f"on the CUDA device of values ({values.device})")
+        if t.device != dev:
+            raise ValueError(f"{name} is on {t.device}, the row plan on "
+                             f"{dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
 
-def rowlane_backup_cuda(values: torch.Tensor,
-                        args: RowLaneArgs) -> BackupResult:
-    """Launch the CUDA kernel for one sweep of the ``(NW, NE)`` table on
-    PyTorch's current stream. Raises on inputs it does not take and on a
-    launch the device refuses. The tap structure must fit the kernel's
-    capacities, which :class:`RowLaneBackup` checks when it is built."""
+# the kernel's layout of one launch (csrc/rowlane_backup.cu): channels,
+# stage row groups, ints a channel (Chan), ints of the tile (Batch)
+MAX_BATCH = 4
+MAX_GROUPS = 8
+CHAN_INTS = 12 + 3 * MAX_GROUPS + 3 * MAX_ROW_COMBOS + 2 * MAX_LANE_TAPS
+TILE_INTS = 12
+THREADS = 256
+# the instantiations (kernel_of in csrc/rowlane_backup.cu): kinds 0 and 1
+# take lane taps of exactly TAPS3 on both axes and at most 12 or 20 row
+# combos, kind 2 any taps and at most 32 combos
+TAPS3 = (-1, 0, 1)
+KIND_COMBOS = (12, 20, 32)
+# the planner's budget: four blocks of 256 threads an SM (of its 228 KB,
+# 1 KB reserved a block) on the 132 SMs of an H100. Its cost model (fitted
+# to tile sweeps of the four pos-att channels at both sizes on an H100,
+# PERF.md §6): the rounds of BLOCKS_PER_SM blocks the busiest SM runs,
+# each the time of one block's cells (1 a cell), its stage (STAGE_COST a
+# staged value) and its row and lane weights (WEIGHT_COST each)
+SMEM_PER_SM = 233_472
+SMEM_RESERVED = 1024
+BLOCKS_PER_SM = 4
+SM_COUNT = 132
+MAX_TILE_ROWS = 8
+MAX_TILE_LANES = 1024
+STAGE_COST = 0.1
+WEIGHT_COST = 1.0
+
+
+class RowLaneTiles(NamedTuple):
+    """One launch's tiles: block ``(i, j, ch)`` owns rows ``[i * rows, (i +
+    1) * rows)`` x lanes ``[j * lanes, (j + 1) * lanes)`` of channel ``ch``.
+
+    Channel ``ch``'s stage row ``s`` of its group ``(delta, n)`` (its
+    ``groups[ch]``, in stage order) holds table row ``i * rows + delta + (s
+    - the group's first stage row)`` over the table lanes ``[j * lanes -
+    reach_lo, j * lanes - reach_lo + width)``, 0.0 outside the table. Cell
+    ``(r, c)`` reads row combo k at stage row ``slots[ch][k] + r - i *
+    rows`` and lane shift s at stage column ``c - j * lanes + reach_lo +
+    s``. After the stages (``rw_at`` floats) each tile row's joint row
+    weights ``[action][combo, padded to 4]``, and from ``lw_at`` its lane
+    tap weights ``[tap][slot]`` of the tile's lane coordinates
+    (:func:`_lane_slots`), lane axis 0 then 1.
+    """
+
+    rows: int
+    lanes: int
+    reach_lo: int
+    reach_hi: int
+    groups: tuple        # per channel: ((delta, n_rows), ...)
+    slots: tuple         # per channel: one stage row per row combo
+    rw_at: int
+    lw_at: int
+    smem_bytes: int
+    grid: tuple          # (row tiles, lane tiles, channels)
+    kind: int
+
+    @property
+    def width(self) -> int:
+        return self.lanes + self.reach_lo + self.reach_hi
+
+    @property
+    def n_staged(self) -> int:
+        return max(sum(n for _, n in g) for g in self.groups)
+
+    @property
+    def threads(self) -> int:
+        return THREADS
+
+    def stage_rows(self, ch: int, i: int) -> np.ndarray:
+        """The table row of each stage row of channel ``ch``'s row tile
+        ``i`` (outside ``[0, NW)`` the stage row is zeros)."""
+        return np.concatenate([i * self.rows + d + np.arange(n)
+                               for d, n in self.groups[ch]])
+
+
+def _round4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
+def _lane_slots(lane_shape, lanes: int) -> tuple:
+    """The lane coordinates a tile of ``lanes`` lanes keeps tap weights of:
+    on axis 0 the at most ``(lanes - 1) // n_l1 + 2`` its lanes span, on
+    axis 1 all ``n_l1`` when a tile spans a whole run of them, else one a
+    tile lane."""
+    n_l0, n_l1 = lane_shape
+    return (min(n_l0, (lanes - 1) // n_l1 + 2),
+            n_l1 if lanes >= n_l1 else lanes)
+
+
+def _row_deltas(combos, row_shape) -> list:
+    return [t0 * row_shape[1] + t1 for t0, t1 in combos]
+
+
+def _lane_shifts(lane_taps, lane_shape) -> list:
+    return [t0 * lane_shape[1] + t1 for t0 in lane_taps[0]
+            for t1 in lane_taps[1]]
+
+
+def _row_groups(combos, row_shape, rows: int) -> tuple:
+    """The stage's row groups for ``rows`` tile rows: per live row-axis-0
+    tap the run of table rows its row-axis-1 taps read, merged where runs
+    meet."""
+    t1s = {}
+    for t0, t1 in combos:
+        t1s.setdefault(t0, []).append(t1)
+    spans = sorted((t0 * row_shape[1] + min(v), t0 * row_shape[1] + max(v)
+                    + rows) for t0, v in t1s.items())
+    merged = []
+    for lo, hi in spans:
+        if merged and lo <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], hi)
+        else:
+            merged.append([lo, hi])
+    return tuple((lo, hi - lo) for lo, hi in merged)
+
+
+def _plan_key(args: RowLaneArgs) -> tuple:
+    """What the planner and the launch's ints read of one channel's
+    ``args``: its shapes, actions, tap structure and action costs."""
+    return (tuple(args.row_shape), tuple(args.lane_shape), args.n_actions,
+            tuple(args.row_combos), tuple(tuple(t) for t in args.lane_taps),
+            tuple(float(c) for c in args.c_act))
+
+
+def _kind(keys) -> int:
+    """The kernel instantiation a launch over the channels ``keys`` takes
+    (``kernel_of`` in csrc/rowlane_backup.cu)."""
+    combos = max(len(k[3]) for k in keys)
+    if all(tuple(k[4]) == (TAPS3, TAPS3)
+           and 2 * k[1][1] <= MAX_TILE_LANES for k in keys):
+        for kind in (0, 1):
+            if combos <= KIND_COMBOS[kind]:
+                return kind
+    return 2
+
+
+def plan_tiles(keys, smem_limit: int) -> RowLaneTiles:
+    """The tiles of one launch over the channels ``keys`` (:func:`_plan_key`
+    of each), on a card that lets a block ask for ``smem_limit`` bytes of
+    shared memory: the R x L tile (R <= MAX_TILE_ROWS, L up to
+    MAX_TILE_LANES, a multiple of :func:`lane_step`) whose stage fits
+    ``BLOCKS_PER_SM`` blocks an SM, with the least modelled time: the
+    rounds of ``BLOCKS_PER_SM`` blocks the busiest SM runs, each a block's
+    padded cells, ``STAGE_COST`` a staged value and ``WEIGHT_COST`` a row or
+    lane weight. Raises ``ValueError`` when no tile fits."""
+    return _tiles(tuple(keys), smem_limit)[0]
+
+
+def lane_step(keys) -> int:
+    """What a tile's lane count is a multiple of. A thread takes two cells
+    of a tile row: in the (-1, 0, 1)-tap kernels lanes c and c + n_l1,
+    whose axis-1 passes overlap (so a tile holds whole runs of 2 n_l1
+    lanes, and 8 for the 16-byte stage copies), else lanes l and l + L/2
+    (64)."""
+    if _kind(keys) == 2:
+        return 64
+    return math.lcm(8, *(2 * k[1][1] for k in keys))
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles(keys: tuple, smem_limit: int) -> tuple:
+    """``(plan, chan_ints, c_act, tile_ints)`` of :func:`plan_tiles`, once
+    per key."""
+    if not 1 <= len(keys) <= MAX_BATCH:
+        raise ValueError(f"{len(keys)} channels in one launch; the kernel "
+                         f"takes 1 to {MAX_BATCH}")
+    nw = max(int(np.prod(k[0])) for k in keys)
+    ne = max(int(np.prod(k[1])) for k in keys)
+    shifts = [s for k in keys for s in _lane_shifts(k[4], k[1])]
+    reach_lo = _round4(max(-min(shifts), 0))
+    reach_hi = _round4(max(max(shifts), 0))
+    budget = min(smem_limit, SMEM_PER_SM // BLOCKS_PER_SM - SMEM_RESERVED)
+
+    def layout(rows, lanes):
+        groups = [_row_groups(k[3], k[0], rows) for k in keys]
+        staged = max(sum(n for _, n in g) for g in groups)
+        rw_at = staged * (lanes + reach_lo + reach_hi)
+        lw_at = rw_at + _round4(rows * max(k[2] * _round4(len(k[3]))
+                                           for k in keys))
+        end = lw_at + rows * max(
+            len(k[4][0]) * n0 + len(k[4][1]) * n1
+            for k in keys for n0, n1 in [_lane_slots(k[1], lanes)])
+        return groups, rw_at, lw_at, 4 * _round4(end), staged, end - rw_at
+
+    best = None
+    step = lane_step(keys)
+    for lanes in range(step, min(-(-ne // step) * step, MAX_TILE_LANES) + 1,
+                       step):
+        width = lanes + reach_lo + reach_hi
+        for rows in range(1, MAX_TILE_ROWS + 1):
+            *_, smem, staged, weights = layout(rows, lanes)
+            if smem > budget:
+                break
+            blocks = -(-nw // rows) * -(-ne // lanes) * len(keys)
+            rounds = -(-(-(-blocks // SM_COUNT)) // BLOCKS_PER_SM)
+            cost = rounds * (rows * lanes + STAGE_COST * staged * width
+                             + WEIGHT_COST * weights)
+            if best is None or cost < best[0]:
+                best = (cost, rows, lanes)
+    if best is None:
+        raise ValueError(f"no tile's stage of a {ne}-lane table with lane "
+                         f"reach ({reach_lo}, {reach_hi}) fits {budget} "
+                         "bytes of shared memory")
+    _, rows, lanes = best
+    width = lanes + reach_lo + reach_hi
+    groups, rw_at, lw_at, smem, _, _ = layout(rows, lanes)
+    if max(len(g) for g in groups) > MAX_GROUPS:
+        raise ValueError(f"more than {MAX_GROUPS} stage row groups")
+    slots = []
+    for k, g in zip(keys, groups):
+        starts = np.cumsum([0] + [n for _, n in g])
+        slot = []
+        for d in _row_deltas(k[3], k[0]):
+            i = next(i for i, (gd, n) in enumerate(g)
+                     if gd <= d and d + rows <= gd + n)
+            slot.append(int(starts[i] + d - g[i][0]))
+        slots.append(tuple(slot))
+    plan = RowLaneTiles(
+        rows=rows, lanes=lanes, reach_lo=reach_lo, reach_hi=reach_hi,
+        groups=tuple(groups), slots=tuple(slots), rw_at=rw_at, lw_at=lw_at,
+        smem_bytes=smem, grid=(-(-nw // rows), -(-ne // lanes), len(keys)),
+        kind=_kind(keys))
+    ints = np.zeros((len(keys), CHAN_INTS), np.int32)
+    c_act = np.zeros((len(keys), MAX_ACTIONS), np.float32)
+    for ch, (k, g, sl) in enumerate(zip(keys, groups, slots)):
+        (n_r0, n_r1), (n_l0, n_l1), n_act, combos, taps, costs = k
+        row = ints[ch]
+        row[:12] = (n_r0, n_r1, n_l0, n_l1, n_act, len(combos), len(taps[0]),
+                    len(taps[1]), _round4(len(combos)), len(g),
+                    *_lane_slots((n_l0, n_l1), lanes))
+        at = 12
+        for i, (d, n) in enumerate(g):
+            row[at + i] = d
+            row[at + MAX_GROUPS + i] = n
+            row[at + 2 * MAX_GROUPS + i] = int(sum(m for _, m in g[:i]))
+        at += 3 * MAX_GROUPS
+        for j, (t0, t1) in enumerate(combos):
+            row[at + j] = t0
+            row[at + MAX_ROW_COMBOS + j] = t1
+            row[at + 2 * MAX_ROW_COMBOS + j] = sl[j]
+        at += 3 * MAX_ROW_COMBOS
+        row[at:at + len(taps[0])] = taps[0]
+        row[at + MAX_LANE_TAPS:at + MAX_LANE_TAPS + len(taps[1])] = taps[1]
+        c_act[ch, :n_act] = costs
+    tile = np.zeros(TILE_INTS, np.int32)
+    tile[:11] = (rows, lanes, reach_lo, reach_hi, width, rw_at, lw_at, smem,
+                 plan.grid[0], plan.grid[1], plan.kind)
+    for a in (ints, c_act, tile):
+        a.flags.writeable = False
+    return plan, ints, c_act, tile
+
+
+_CONFIGURED = {}
+
+
+def _smem_limit(lib, device: torch.device) -> int:
+    from .backup6d import _smem_limit as limit
+
+    return limit(lib, device)
+
+
+def configure(lib, device: torch.device, plan: RowLaneTiles) -> None:
+    """Raise the dynamic shared memory limit of ``plan``'s kernel on
+    ``device`` to its stage, once: before a launch and before a CUDA graph
+    captures one (a capture then sets no attribute)."""
+    dev = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if _CONFIGURED.get((dev, plan.kind), -1) >= plan.smem_bytes:
+        return
+    with torch.cuda.device(dev):
+        err = lib.rowlane_backup_configure(plan.kind, plan.smem_bytes)
+    if err != 0:
+        msg = lib.rowlane_backup_error_string(err).decode()
+        raise RuntimeError(
+            f"rowlane_backup: {plan.smem_bytes} B of shared memory refused: "
+            f"CUDA error {err} ({msg})")
+    _CONFIGURED[(dev, plan.kind)] = plan.smem_bytes
+
+
+def launch_plan(values: torch.Tensor, args) -> RowLaneTiles:
+    """The :class:`RowLaneTiles` a launch over the channels ``args`` takes
+    on ``values``' CUDA device, with that device's kernel configured for
+    it."""
     from .. import _build
 
-    _check_cuda_inputs(values, args)
     lib = _build.load()
-    nw, ne = values.shape
-    out_v = torch.empty((nw, ne), dtype=torch.float32, device=values.device)
-    out_a = torch.empty((nw, ne), dtype=torch.int32, device=values.device)
-    combos = np.ascontiguousarray(args.row_combos, dtype=np.int32)
-    taps0 = np.ascontiguousarray(args.lane_taps[0], dtype=np.int32)
-    taps1 = np.ascontiguousarray(args.lane_taps[1], dtype=np.int32)
-    c_act = np.ascontiguousarray(args.c_act, dtype=np.float32)
+    plan = _tiles(tuple(_plan_key(a) for a in args),
+                  _smem_limit(lib, values.device))[0]
+    configure(lib, values.device, plan)
+    return plan
 
-    def ptr(t):
-        return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.rowlane_backup_f32(
-        ptr(values), ptr(args.row_off), ptr(args.row_frac),
-        ptr(args.lane_off[0]), ptr(args.lane_frac[0]),
-        ptr(args.lane_off[1]), ptr(args.lane_frac[1]),
-        ptr(args.c_row), ptr(args.c_lane), ptr(args.c_rowact),
-        ptr(args.c_rowlane), ptr(out_v), ptr(out_a),
-        combos.ctypes.data, taps0.ctypes.data, taps1.ctypes.data,
-        c_act.ctypes.data,
-        *args.row_shape, *args.lane_shape, args.n_actions, len(combos),
-        len(taps0), len(taps1), stream)
+def tile_occupancy(values: torch.Tensor, args) -> tuple:
+    """``(plan, blocks)``: the :class:`RowLaneTiles` a launch over the
+    channels ``args`` on the CUDA tensor ``values`` takes, and how many of
+    its blocks an SM of that card holds (the CUDA occupancy query)."""
+    from .. import _build
+
+    plan = launch_plan(values, args)
+    with torch.cuda.device(values.device):
+        blocks = _build.load().rowlane_backup_blocks_per_sm(plan.kind,
+                                                            plan.smem_bytes)
+    return plan, blocks
+
+
+def _check_table(name, t, shape, dtype, device) -> None:
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} is on {t.device}; every table must be on "
+                         f"the CUDA device of the plan ({device})")
+    if tuple(t.shape) != shape or t.dtype != dtype:
+        raise ValueError(f"{name}: want {dtype} {shape}, got {t.dtype} "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def rowlane_backup_cuda(values, args, out_v=None, out_a=None):
+    """Launch the CUDA kernel for one sweep on PyTorch's current stream.
+
+    One channel: ``values`` an ``(NW, NE)`` table, ``args`` its
+    :class:`RowLaneArgs`; returns a :class:`BackupResult` in new tensors or
+    in the caller's ``out_v``/``out_a``. A batch (one launch): sequences of
+    up to ``MAX_BATCH`` tables, of their args and of the caller's output
+    tables, which the launch fills; returns ``BackupResult(out_v, out_a)``.
+    An output may not be its input table. Per call only the tables are
+    checked (the args were checked when :class:`RowLaneBackup` built them);
+    raises on tables it does not take and on a launch the device refuses.
+    Given its outputs the launch allocates nothing, and it sets no function
+    attribute (:func:`launch_plan` does, first), so a CUDA graph may capture
+    it. ``rowlane_backup_cuda.launches`` counts launches and
+    ``.channel_sweeps`` the channels they swept."""
+    from .. import _build
+
+    single = isinstance(values, torch.Tensor)
+    if single:
+        values, args = (values,), (args,)
+        nw, ne = int(np.prod(args[0].row_shape)), int(np.prod(
+            args[0].lane_shape))
+        dev = args[0].row_off.device
+        out_v = (torch.empty((nw, ne), dtype=torch.float32, device=dev)
+                 if out_v is None else out_v,)
+        out_a = (torch.empty((nw, ne), dtype=torch.int32, device=dev)
+                 if out_a is None else out_a,)
+    values, args = tuple(values), tuple(args)
+    if not (len(values) == len(args) == len(out_v) == len(out_a)):
+        raise ValueError("give one table, args and output pair a channel")
+    for i, (v, a, ov, oa) in enumerate(zip(values, args, out_v, out_a)):
+        shape = (int(np.prod(a.row_shape)), int(np.prod(a.lane_shape)))
+        dev = a.row_off.device
+        _check_table(f"values[{i}]", v, shape, torch.float32, dev)
+        _check_table(f"out_v[{i}]", ov, shape, torch.float32, dev)
+        _check_table(f"out_a[{i}]", oa, shape, torch.int32, dev)
+        if ov.data_ptr() == v.data_ptr():
+            raise ValueError(f"out_v[{i}] is its input table")
+    lib = _build.load()
+    dev = values[0].device
+    plan, ints, c_act, tile = _tiles(tuple(_plan_key(a) for a in args),
+                                     _smem_limit(lib, dev))
+    configure(lib, dev, plan)
+    ptrs = np.array([
+        p for v, a, ov, oa in zip(values, args, out_v, out_a)
+        for p in (v.data_ptr(), ov.data_ptr(), oa.data_ptr(),
+                  a.row_off.data_ptr(), a.row_frac.data_ptr(),
+                  a.lane_off[0].data_ptr(), a.lane_frac[0].data_ptr(),
+                  a.lane_off[1].data_ptr(), a.lane_frac[1].data_ptr(),
+                  a.c_row.data_ptr(), a.c_lane.data_ptr(), _ptr(a.c_rowact),
+                  _ptr(a.c_rowlane))], dtype=np.int64)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.rowlane_backup_f32(len(values), ptrs.ctypes.data,
+                                 ints.ctypes.data, c_act.ctypes.data,
+                                 tile.ctypes.data, stream)
     if err != 0:
         msg = lib.rowlane_backup_error_string(err).decode()
         raise RuntimeError(f"rowlane_backup launch failed: CUDA error {err} "
                            f"({msg})")
     rowlane_backup_cuda.launches += 1
-    return BackupResult(out_v, out_a)
+    rowlane_backup_cuda.channel_sweeps += len(values)
+    if single:
+        return BackupResult(out_v[0], out_a[0])
+    return BackupResult(tuple(out_v), tuple(out_a))
 
 
 rowlane_backup_cuda.launches = 0
+rowlane_backup_cuda.channel_sweeps = 0
 
 
 def _as_numpy(a, dtype=None):
@@ -507,15 +858,23 @@ class RowLaneBackup:
             c_act=tuple(float(x) for x in c_act),
             c_rowact=up(c_rowact, torch.float32),
             c_rowlane=up(c_rowlane, torch.float32))
+        _check_args(self.args)
+
+    def to_table(self, values: torch.Tensor) -> torch.Tensor:
+        """Natural-order values as the kernel's contiguous ``(NW, NE)``
+        table."""
+        return values.permute(self.perm).reshape(self.NW, self.NE) \
+            .contiguous()
+
+    def to_natural(self, table: torch.Tensor) -> torch.Tensor:
+        """A kernel-layout ``(NW, NE)`` table (or argmin) as a contiguous
+        tensor in the natural state order."""
+        return table.reshape(self.state_shape).permute(self.inv).contiguous()
 
     def _run(self, fn, values: torch.Tensor) -> BackupResult:
-        v2 = values.permute(self.perm).reshape(self.NW, self.NE).contiguous()
-        res = fn(v2, self.args)
-
-        def back(a):
-            return a.reshape(self.state_shape).permute(self.inv).contiguous()
-
-        return BackupResult(back(res.values), back(res.argmin))
+        res = fn(self.to_table(values), self.args)
+        return BackupResult(self.to_natural(res.values),
+                            self.to_natural(res.argmin))
 
     def __call__(self, values: torch.Tensor) -> BackupResult:
         if values.is_cuda:
@@ -528,3 +887,69 @@ class RowLaneBackup:
         """The plain PyTorch version on any device (the ``'rowlane'`` impl
         of the pos-att solves)."""
         return self._run(rowlane_backup_plain, values)
+
+
+class RowLaneBatch:
+    """Channels of one grid shape swept together: on a CUDA device one
+    kernel launch a sweep over the active channels, each with its own plan,
+    tap structure, action count and costs; on the CPU, or with ``plain``
+    on any device, each channel's plain version in turn. The tables stay
+    in the kernel's ``(NW, NE)`` layout; :meth:`to_natural` gives a
+    channel's table in the natural state order.
+
+    ``backups``: the channels' :class:`RowLaneBackup` objects, at most
+    ``MAX_BATCH``, of one ``(NW, NE)`` shape.
+    """
+
+    def __init__(self, backups, *, plain: bool = False):
+        self.backups = tuple(backups)
+        if not 1 <= len(self.backups) <= MAX_BATCH:
+            raise ValueError(f"{len(self.backups)} channels; a batch takes "
+                             f"1 to {MAX_BATCH}")
+        shapes = {(b.NW, b.NE) for b in self.backups}
+        if len(shapes) != 1:
+            raise ValueError(f"channels of different shapes {shapes}")
+        self.NW, self.NE = shapes.pop()
+        self.device = self.backups[0].args.row_off.device
+        self.kernel = self.device.type == "cuda" and not plain
+        self.launcher = rowlane_backup_cuda if self.kernel else None
+
+    def __len__(self) -> int:
+        return len(self.backups)
+
+    def buffers(self, init_values=None) -> tuple:
+        """``(cur, nxt, argmin)``: the ping-pong tables and the argmin,
+        ``(C, NW, NE)`` each, allocated once; ``cur`` holds each channel's
+        ``init_values`` (natural order; zeros when None)."""
+        shape = (len(self), self.NW, self.NE)
+        cur = torch.zeros(shape, dtype=torch.float32, device=self.device)
+        if init_values is not None:
+            for c, b in enumerate(self.backups):
+                cur[c] = b.to_table(torch.as_tensor(
+                    init_values[c], dtype=torch.float32, device=self.device))
+        return (cur, torch.empty_like(cur),
+                torch.zeros(shape, dtype=torch.int32, device=self.device))
+
+    def prepare(self, active) -> None:
+        """Build and configure the kernel for a launch over ``active``
+        before a CUDA graph captures one."""
+        if self.kernel:
+            launch_plan(torch.empty(0, device=self.device),
+                        [self.backups[c].args for c in active])
+
+    def sweep(self, cur, nxt, argmin, active) -> None:
+        """One sweep of the ``active`` channels from ``cur`` into ``nxt``
+        and ``argmin``."""
+        if self.kernel:
+            rowlane_backup_cuda([cur[c] for c in active],
+                                [self.backups[c].args for c in active],
+                                [nxt[c] for c in active],
+                                [argmin[c] for c in active])
+            return
+        for c in active:
+            res = rowlane_backup_plain(cur[c], self.backups[c].args)
+            nxt[c].copy_(res.values)
+            argmin[c].copy_(res.argmin)
+
+    def to_natural(self, c: int, table: torch.Tensor) -> torch.Tensor:
+        return self.backups[c].to_natural(table)

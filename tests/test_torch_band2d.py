@@ -148,15 +148,24 @@ def test_cost_terms_sum_like_one_array():
     tp = to_port(plan)
     split = BandBackup2D(tp, terms)
     dense = BandBackup2D(tp, (terms[0] + terms[1]) + terms[2])
-    assert torch.equal(split.args.cost, dense.args.cost)
-    assert split.args.cost.shape == (1, 3, 17, 40)
+    assert torch.equal(split.args.dense_cost(), dense.args.dense_cost())
+    assert split.args.dense_cost().shape == (1, 3, 17, 40)
+    # the factorized cost is kept as its three terms, and a sweep through
+    # it equals the sweep through the dense sum bitwise
+    assert [tuple(t.shape) for t in split.args.terms] == \
+        [(1, 17, 1, 1), (1, 1, 40, 1), (1, 1, 1, 3)]
+    v = torch.from_numpy(np.random.default_rng(4).normal(
+        size=grid.shape).astype(np.float32))
+    got, want = split(v), dense(v)
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.argmin, want.argmin)
 
 
 def test_channel_batch_equals_single_channels():
     p = tpos.build(tpos.PositionConfig(n_mesh_x=24, n_mesh_v=24),
                    device="cpu")
     bk = BandBackup2D(p.plan, p.stage_cost)
-    assert bk.batched and bk.args.cost.shape == (3, 3, 25, 25)
+    assert bk.batched and bk.args.dense_cost().shape == (3, 3, 25, 25)
     v = torch.from_numpy(np.random.default_rng(1).uniform(
         0.0, 50.0, p.plan.grid_shape).astype(np.float32))
     got = bk(v)

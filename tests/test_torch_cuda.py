@@ -1,9 +1,11 @@
-"""The CUDA kernels (fused 2-D backup, row/lane backup, 6-D coupled-lane
+"""The CUDA kernels (fused 2-D backup, row/lane backup with its channel
+batch, tile map and CUDA graph replay, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells; the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
-channel batch) vs their plain PyTorch versions, on a card.
+channel batch, factorized cost and CUDA graph replay) vs their plain
+PyTorch versions, on a card.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -162,18 +164,24 @@ def test_channel_plan_on_card_equals_cpu(device):
 
 
 def test_pos_att_solve_launches_and_equals_plain(device):
+    """The four channels run in lockstep, one launch a sweep (the sweeps
+    between two checks replayed as a CUDA graph): launches = the longest
+    channel's sweeps, channel-sweeps = their sum."""
     cfg = pos_att.PosAttConfig(n_mesh_x=12, n_mesh_v=12, n_mesh_t=8,
                                n_mesh_w=7, T_final=2.0)
     before = rl.rowlane_backup_cuda.launches
+    before_ch = rl.rowlane_backup_cuda.channel_sweeps
     sk = pos_att.solve(cfg, device=device, impl="kernel")
-    n = sum(r.num_sweeps for r in sk.results.values())
-    assert rl.rowlane_backup_cuda.launches == before + n
+    n = [r.num_sweeps for r in sk.results.values()]
+    assert rl.rowlane_backup_cuda.launches == before + max(n)
+    assert rl.rowlane_backup_cuda.channel_sweeps == before_ch + sum(n)
     sp = pos_att.solve(cfg, device=device, impl="rowlane")
-    assert rl.rowlane_backup_cuda.launches == before + n
+    assert rl.rowlane_backup_cuda.launches == before + max(n)
     for name, ck in sk.controllers.items():
         assert torch.equal(ck.values, sp.controllers[name].values)
         assert torch.equal(ck.argmin, sp.controllers[name].argmin)
         assert sk.results[name].num_sweeps == sp.results[name].num_sweeps
+        assert torch.equal(sk.results[name].checks, sp.results[name].checks)
 
 
 def test_fleet_member_equals_single_flight(device):
@@ -390,8 +398,10 @@ def test_band_wide_band_runs_the_kernel(device):
     t_lo, t_hi = bk.taps.taps[0]
     assert t_hi - t_lo + 2 > 64
     before = bb.band_backup2d_cuda.launches
+    before_ch = bb.band_backup2d_cuda.channel_sweeps
     sol = attitude.solve_simplified(cfg, num_sweeps=3)
-    assert bb.band_backup2d_cuda.launches == before + 9
+    assert bb.band_backup2d_cuda.launches == before + 3
+    assert bb.band_backup2d_cuda.channel_sweeps == before_ch + 9
     assert all(bool(torch.isfinite(v).all()) for v in sol.values)
 
 
@@ -432,13 +442,17 @@ def test_band_exact_ties_take_the_first_action(device):
 
 
 def test_solve_simplified_kernel_equals_plain(device):
+    """The three axes in one launch a sweep, 220 sweeps: two CUDA graph
+    replays of GRAPH_SWEEPS and 20 eager launches."""
     cfg = attitude.AttitudeConfig(n_mesh_w=101, n_mesh_t=40)
     before = bb.band_backup2d_cuda.launches
-    sk = attitude.solve_simplified(cfg, num_sweeps=20)    # the card, B.6
-    assert bb.band_backup2d_cuda.launches == before + 60
-    sp = attitude.solve_simplified(cfg, num_sweeps=20, impl="plain",
+    before_ch = bb.band_backup2d_cuda.channel_sweeps
+    sk = attitude.solve_simplified(cfg, num_sweeps=220)    # the card, B.6
+    assert bb.band_backup2d_cuda.launches == before + 220
+    assert bb.band_backup2d_cuda.channel_sweeps == before_ch + 660
+    sp = attitude.solve_simplified(cfg, num_sweeps=220, impl="plain",
                                    device=device)
-    assert bb.band_backup2d_cuda.launches == before + 60
+    assert bb.band_backup2d_cuda.launches == before + 220
     for i in range(3):
         assert sk.values[i].is_cuda
         assert torch.equal(sk.values[i], sp.values[i])
@@ -466,6 +480,146 @@ def test_position_solve_kernel_equals_plain(device):
     assert bb.band_backup2d_cuda.launches == before + 20
     sp = position.solve(cfg, num_sweeps=20, impl="plain", device=device)
     _bitwise(sk.result, sp.result)
+
+
+def _pos_att_batch(cfg, device):
+    bks = []
+    for ch, failure in (("x", False), ("y", False), ("z", False),
+                        ("x", True)):
+        p = pos_att.build_channel(cfg, ch, failure=failure, with_cost=False,
+                                  device=device)
+        bks.append(pos_att.build_channel_rowlane_backup(cfg, p))
+    vs = [_seeded(b.state_shape, device, seed=13 + i).permute(b.inv)
+          .contiguous() for i, b in enumerate(bks)]
+    return bks, vs
+
+
+@pytest.mark.parametrize("size", ["reference", "high_res"])
+def test_rowlane_batch_equals_per_channel_launches(device, size):
+    """The four channels (x_failure's 6 actions among 9) in one launch
+    equal four one-channel launches and the plain version bitwise."""
+    cfg = pos_att.PosAttConfig() if size == "reference" \
+        else pos_att.PosAttConfig.high_res()
+    bks, vs = _pos_att_batch(cfg, device)
+    tabs = [b.to_table(v) for b, v in zip(bks, vs)]
+    ov = [torch.empty_like(t) for t in tabs]
+    oa = [torch.empty(t.shape, dtype=torch.int32, device=device)
+          for t in tabs]
+    before = rl.rowlane_backup_cuda.launches
+    rl.rowlane_backup_cuda(tabs, [b.args for b in bks], ov, oa)
+    assert rl.rowlane_backup_cuda.launches == before + 1
+    for b, t, v, a in zip(bks, tabs, ov, oa):
+        one = rl.rowlane_backup_cuda(t, b.args)
+        torch.cuda.synchronize()
+        assert torch.equal(v, one.values) and torch.equal(a, one.argmin)
+        want = rl.rowlane_backup_plain(t, b.args)
+        assert torch.equal(v, want.values) and torch.equal(a, want.argmin)
+
+
+def test_rowlane_graph_replay_equals_eager(device):
+    """50 sweeps of the four channels captured as one CUDA graph and
+    replayed equal 50 eager launches bitwise; the replay counts its 50
+    launches and 200 channel-sweeps, the capture none."""
+    from ocdp_tpu_torch.engine import SweepGraph, ping_pong
+
+    bks, vs = _pos_att_batch(pos_att.PosAttConfig(), device)
+    batch = rl.RowLaneBatch(bks)
+    active = (0, 1, 2, 3)
+    out = []
+    for graphed in (False, True):
+        cur, nxt, arg = batch.buffers(vs)
+
+        def step(src, dst):
+            batch.sweep(src, dst, arg, active)
+
+        if graphed:
+            batch.prepare(active)
+            before = (rl.rowlane_backup_cuda.launches,
+                      rl.rowlane_backup_cuda.channel_sweeps)
+            g = SweepGraph(step, cur, nxt, 50, (batch.launcher,))
+            assert (rl.rowlane_backup_cuda.launches,
+                    rl.rowlane_backup_cuda.channel_sweeps) == before
+            g.replay()
+            assert rl.rowlane_backup_cuda.launches == before[0] + 50
+            assert rl.rowlane_backup_cuda.channel_sweeps == before[1] + 200
+        else:
+            ping_pong(step, cur, nxt, 50)
+        torch.cuda.synchronize()
+        out.append((cur, arg))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_band_graph_replay_equals_eager(device):
+    """GRAPH_SWEEPS sweeps of the three simplified axes as one CUDA graph
+    equal eager launches bitwise, and the finite engine's graph path equals
+    its allocating loop (the plain version's solve)."""
+    from ocdp_tpu_torch.engine import GRAPH_SWEEPS, SweepGraph, ping_pong
+
+    cfg = attitude.AttitudeConfig(n_mesh_w=101, n_mesh_t=40)
+    built = [attitude.build_simplified_axis(cfg, i, device=device)
+             for i in range(3)]
+    bk = bb.BandBackup2D.stack([p for _, p, _ in built],
+                               [t for _, _, t in built])
+    v = _seeded((3, 101, 40), device)
+    out = []
+    for graphed in (False, True):
+        cur, nxt = v.clone(), torch.empty_like(v)
+        arg = torch.zeros(v.shape, dtype=torch.int32, device=device)
+
+        def step(src, dst):
+            bk.sweep_into(src, dst, arg)
+
+        if graphed:
+            bk.prepare()
+            g = SweepGraph(step, cur, nxt, GRAPH_SWEEPS, (bk.launcher,))
+            g.replay()
+        else:
+            ping_pong(step, cur, nxt, GRAPH_SWEEPS)
+        torch.cuda.synchronize()
+        out.append((cur, arg))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_band_stack_equals_per_axis_launches(device):
+    cfg = attitude.AttitudeConfig()
+    built = [attitude.build_simplified_axis(cfg, i, device=device)
+             for i in range(3)]
+    bk = bb.BandBackup2D.stack([p for _, p, _ in built],
+                               [t for _, _, t in built])
+    v = _seeded((3, 1000, 300), device)
+    got = _band_vs_plain(bk, v)
+    for i, (_, plan, terms) in enumerate(built):
+        one = bb.BandBackup2D(plan, terms)(v[i].contiguous())
+        assert torch.equal(one.values, got.values[i])
+        assert torch.equal(one.argmin, got.argmin[i])
+
+
+@pytest.mark.parametrize("fault", ["slot", "reach"])
+def test_rowlane_kernel_refuses_a_plan_that_misses_a_read(device, fault,
+                                                          monkeypatch):
+    """A tile map whose combo slot is one stage row off, or whose lane
+    window is 4 lanes short, misses a read: the launch refuses it
+    (cudaErrorInvalidValue) and counts nothing."""
+    from ocdp_tpu_torch import _build
+
+    bks, vs = _pos_att_batch(pos_att.PosAttConfig(), device)
+    t = bks[0].to_table(vs[0])
+    keys = (rl._plan_key(bks[0].args),)
+    plan, ints, c_act, tile = rl._tiles(
+        keys, rl._smem_limit(_build.load(), device))
+    ints, tile = ints.copy(), tile.copy()
+    if fault == "slot":
+        ints[0, 12 + 3 * rl.MAX_GROUPS + 2 * rl.MAX_ROW_COMBOS] += 1
+    else:
+        tile[2] -= 4          # reach_lo
+        tile[4] -= 4          # width
+    monkeypatch.setattr(rl, "_tiles", lambda *_: (plan, ints, c_act, tile))
+    before = rl.rowlane_backup_cuda.launches
+    with pytest.raises(RuntimeError, match="invalid argument"):
+        rl.rowlane_backup_cuda(t, bks[0].args)
+    assert rl.rowlane_backup_cuda.launches == before
 
 
 B7_KINDS = {"broadcast": {}, "flat": {"flat": True},
