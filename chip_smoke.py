@@ -186,6 +186,28 @@ the one card (NCCL across cards is not exercised here):
     slice call beside their plain versions and bounds, with their shared
     memory and occupancy, and one halo6 sweep on 2 ranks and on 2 x 3.
 
+The surface (``profiling.trace``, ``graft_entry``, the CLI, the bench):
+
+33. ``profiling.trace`` around the full Kirk solve: the Chrome trace holds
+    as many ``backup_partial`` kernel events (B.1) as its launch counter
+    counts, 199;
+34. ``graft_entry.entry()`` on the card: its step launches B.1 once a call
+    and equals the plain version on the same inputs bitwise (the zero
+    table and a seeded one);
+35. the CLI in subprocesses: ``solve kirk`` prints the in-process solve's
+    ``values_sum``; ``solve attitude-full --n-mesh-w 11 --n-mesh-q 10
+    --segment-size 50 --checkpoint ...`` stopped after its first segment
+    (``--sweeps 50``) and resumed with ``--sweeps 100 --resume`` equals the
+    straight 100-sweep run bitwise; ``--resume`` without ``--checkpoint``
+    exits non-zero;
+36. ``python -m ocdp_tpu_torch.bench`` over six families (all but the two
+    with long flights), run beside phase 35's processes (its times are
+    not measurements here): exit 0, the last line parses with the
+    contract's keys, no family holds an ``error`` and each family's kernel
+    launched;
+37. the Kirk rollout ``kirk.optimal_path`` from (2, 1) timed on the card
+    (warm, median of 5), golden and full configurations.
+
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (each input read once, each output written once) over
@@ -198,17 +220,19 @@ result.
 import contextlib
 import io as _io
 import json
+import os
 import re
 import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 
-from ocdp_tpu_torch import _build, io
+from ocdp_tpu_torch import _build, graft_entry, io, profiling
 from ocdp_tpu_torch.engine import (GRAPH_SWEEPS, SweepGraph, ping_pong,
                                    value_iteration_converged,
                                    value_iteration_finite,
@@ -344,6 +368,8 @@ def main() -> None:
     kernels.append(band_phases(device))
     free_cuda()
     kernels += multirank_phases(device)
+    free_cuda()
+    surface_phases(device)
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
@@ -2407,6 +2433,189 @@ def multirank_phases(device) -> list:
 def state_shape(cfg) -> tuple:
     return (cfg.n_mesh_x, cfg.n_mesh_v, cfg.n_mesh_t, cfg.n_mesh_w)
 
+
+BENCH_FAMILIES = ("kirk,attitude_axis,position,pos_att_channel,attitude_6d,"
+                  "attitude_6d_converged")
+BENCH_KEYS = {"metric", "value", "unit", "vs_baseline", "workload", "wall_s",
+              "baseline_evals_per_s", "families", "device", "build_s"}
+
+
+def cli(*argvs) -> list:
+    """``python -m ocdp_tpu_torch <argv>`` from the repository root, one
+    process for each ``argv``, all at once: ``(returncode, stdout,
+    stderr)`` for each. Every process is waited for, or killed."""
+    procs = [subprocess.Popen([sys.executable, "-m", "ocdp_tpu_torch", *a],
+                              cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    results = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=600)
+            results.append((p.returncode, out, err))
+        return results
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def cli_json(result, argv) -> dict:
+    rc, out, err = result
+    check(rc == 0, f"CLI {' '.join(argv)} exited {rc}:\n{err}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def surface_phases(device) -> None:
+    """Phases 33-37: the trace, the entry point, the CLI, the bench and the
+    Kirk rollout's time. Phase 36's bench process starts before phase 35's
+    CLI processes and runs beside them, so its times are not measurements;
+    phase 37 starts after it has ended."""
+    sol = trace_phase(device)
+    entry_phase(device)
+    bench = subprocess.Popen(
+        [sys.executable, "-m", "ocdp_tpu_torch.bench"], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "BENCH_FAMILIES": BENCH_FAMILIES})
+    try:
+        cli_phase(sol)
+        bench_phase(bench)
+    finally:
+        if bench.poll() is None:
+            bench.kill()
+            bench.wait()
+    kirk_rollout_phase(device, sol)
+
+
+def trace_phase(device):
+    """Phase 33; returns the traced full Kirk solve."""
+    phase("33. profiling.trace around the full Kirk solve")
+    cfg = kirk.KirkConfig()
+    reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as t:
+            sol = kirk.solve(cfg, device=device)
+            torch.cuda.synchronize()
+        events = json.loads(t.path.read_text())["traceEvents"]
+    launches = fb.fused_backup2d_cuda.launches
+    kernel_events = Counter(e.get("name", "") for e in events
+                            if e.get("cat") == "kernel")
+    n_partial = sum(n for name, n in kernel_events.items()
+                    if "backup_partial" in name)
+    top = [(name.replace("(anonymous namespace)::", "").split("(")[0][-48:],
+            n) for name, n in kernel_events.most_common(4)]
+    print(f"trace: {len(events)} events, {sum(kernel_events.values())} "
+          f"kernel events; backup_partial {n_partial}, launch counter "
+          f"{launches}; top kernels {top}")
+    check(launches == cfg.N - 1 and n_partial == launches,
+          f"trace holds {n_partial} B.1 kernel events for {launches} launches")
+    return sol
+
+
+def entry_phase(device) -> None:
+    """Phase 34."""
+    phase("34. graft_entry.entry() on the card")
+    step, (v0,) = graft_entry.entry()
+    check(v0.is_cuda and not bool(v0.any()), "entry: v0 not a zero CUDA table")
+    v1 = torch.from_numpy(np.random.default_rng(SEED).uniform(
+        0.0, 400.0, tuple(v0.shape)).astype(np.float32)).to(device)
+    reset_launch_counts()
+    for label, v in (("zero table", v0), ("seeded table", v1)):
+        vals, arg = step(v)
+        want = fb.fused_backup2d_plain(*kernel_args(step.backup, v))
+        same = (torch.equal(vals, want.values)
+                and torch.equal(arg, want.argmin))
+        print(f"entry step, {label}: kernel == plain bitwise {same}")
+        check(same, f"entry step ({label}) != plain version")
+    check(fb.fused_backup2d_cuda.launches == 2,
+          "entry: B.1 launched "
+          f"{fb.fused_backup2d_cuda.launches} times for 2 steps")
+
+
+def cli_phase(sol) -> None:
+    """Phase 35, against phase 33's in-process Kirk solve ``sol``."""
+    phase("35. the CLI in subprocesses: solve kirk, attitude-full resume")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ck, straight = str(Path(tmp, "ck.npz")), str(Path(tmp, "st.npz"))
+        common = ("--n-mesh-w", "11", "--n-mesh-q", "10", "--segment-size",
+                  "50", "--quiet")
+        argvs = [("solve", "kirk", "--quiet"),
+                 ("solve", "attitude-full", "--sweeps", "50", "--checkpoint",
+                  ck, *common),
+                 ("solve", "attitude-full", "--sweeps", "100",
+                  "--checkpoint", straight, *common),
+                 ("solve", "attitude-full", "--resume", "--quiet")]
+        res = cli(*argvs)
+        out, first, whole = (cli_json(r, a) for r, a in zip(res, argvs[:3]))
+        resume = ("solve", "attitude-full", "--sweeps", "100",
+                  "--checkpoint", ck, "--resume", *common)
+        resumed = cli_json(cli(resume)[0], resume)
+        got, want = io.load_values(ck), io.load_values(straight)
+    want_sum = float(sol.result.values.cpu().numpy().sum())
+    print(f"solve kirk: values_sum {out['values_sum']} (in process "
+          f"{want_sum})")
+    check(out["values_sum"] == want_sum, "CLI solve kirk != in-process solve")
+    same = torch.equal(got.values, want.values)
+    print(f"attitude-full: first segment {first}; resumed {resumed}; "
+          f"straight {whole}; checkpoints at sweep {got.sweep_index} / "
+          f"{want.sweep_index}, bitwise {same}")
+    check(first["sweep_index"] == 50 and resumed["sweeps"] == 50
+          and resumed["sweep_index"] == whole["sweep_index"] == 100
+          and got.sweep_index == want.sweep_index == 100,
+          "attitude-full resume: sweep counts")
+    check(same and resumed["values_sum"] == whole["values_sum"],
+          "attitude-full: resumed run != straight run")
+    bad_rc, _, bad_err = res[3]
+    print(f"--resume without --checkpoint: exit {bad_rc}, "
+          f"{bad_err.strip().splitlines()[-1:]}")
+    check(bad_rc != 0 and "--checkpoint" in bad_err,
+          "--resume without --checkpoint did not fail")
+    print(f"phase 35 in {time.perf_counter() - t0:.1f} s")
+
+
+def bench_phase(bench: subprocess.Popen) -> None:
+    """Phase 36: waits for the bench process and reads its last line."""
+    phase("36. python -m ocdp_tpu_torch.bench (six families)")
+    t0 = time.perf_counter()
+    stdout, stderr = bench.communicate(timeout=600)
+    lines = stdout.strip().splitlines()
+    print(lines[-1] if lines else "(no output)")
+    check(bench.returncode == 0,
+          f"bench exited {bench.returncode}:\n{stderr[-3000:]}")
+    line = json.loads(lines[-1])
+    check(BENCH_KEYS <= set(line), f"bench line lacks {BENCH_KEYS - set(line)}")
+    fams = line["families"]
+    check(list(fams) == BENCH_FAMILIES.split(","), "bench families")
+    for name, f in fams.items():
+        check("error" not in f, f"bench {name}: {f.get('error')}")
+        check(f["launches"] > 0, f"bench {name}: its kernel never launched")
+        print(f"bench {name}: {f['launches']} launches, {f['impl']}")
+    print(f"bench: device {line['device']}; waited "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def kirk_rollout_phase(device, sol) -> None:
+    """Phase 37, on phase 33's full solve ``sol`` and a golden one."""
+    phase("37. the Kirk rollout on the card (warm, median of 5)")
+    for label, ksol in (("golden", None), ("full", sol)):
+        ksol = ksol or kirk.solve(kirk.KirkConfig.golden(), device=device)
+        X, U = kirk.optimal_path(ksol, (2.0, 1.0))     # warm-up
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            X, U = kirk.optimal_path(ksol, (2.0, 1.0))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        dt = float(np.median(times))
+        stages = int(U.shape[0])
+        print(f"kirk.optimal_path ({label}, {stages} stages): {dt * 1e3:.3f} "
+              f"ms, {dt / stages * 1e3:.4f} ms a stage; max |X[-1]| "
+              f"{float(X[-1].abs().max())}")
+        check(bool(torch.isfinite(X).all()) and bool(torch.isfinite(U).all()),
+              f"kirk rollout ({label}): non-finite")
 
 if __name__ == "__main__":
     main()

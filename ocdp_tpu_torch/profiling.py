@@ -1,21 +1,64 @@
-"""Sweep timing hooks (counterpart of ``ocdp_tpu/profiling.py``).
+"""Tracing and sweep timing hooks (counterpart of ``ocdp_tpu/profiling.py``).
 
 The reference wraps every backup stage in ``tic``/``toc`` prints
 (Dynamic_Solver.m:87,101; Solver_pos_att.m:271,278). :class:`SweepTimer`
 prints the reference's per-stage line shape from the engines' callbacks.
 The engines synchronize a CUDA device before each per-sweep callback, so
 the times it prints are those of completed sweeps. :func:`cuda_time_ms`
-times device work with CUDA events.
+times device work with CUDA events. :func:`trace` records everything inside
+a block with ``torch.profiler`` and writes a Chrome trace (the JAX
+package's ``jax.profiler`` trace).
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 import statistics
 import time
+from pathlib import Path
+from typing import Optional
 
 import torch
 
-__all__ = ["SweepTimer", "sweep_callback", "cuda_time_ms"]
+__all__ = ["trace", "Trace", "SweepTimer", "sweep_callback", "cuda_time_ms"]
+
+
+class Trace:
+    """What :func:`trace` yields: ``profile``, the running
+    ``torch.profiler.profile`` (``key_averages()`` once the block is left),
+    and ``path``, the Chrome trace file, set when the block is left."""
+
+    def __init__(self, profile):
+        self.profile = profile
+        self.path: Optional[Path] = None
+
+
+@contextlib.contextmanager
+def trace(log_dir):
+    """Profile everything inside the block and write a Chrome trace
+    (``chrome://tracing``, Perfetto) into ``log_dir`` on leaving it.
+
+    Records CPU activity always and CUDA activity (kernels, copies, CUDA
+    graph replays' kernels) when a CUDA device is present. Yields a
+    :class:`Trace`, whose ``path`` names the written file::
+
+        with trace("traces") as t:
+            kirk.solve(kirk.KirkConfig())
+        print(t.path)
+    """
+    from torch.profiler import ProfilerActivity, profile
+
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        handle = Trace(prof)
+        yield handle
+    handle.path = log_dir / f"trace-{os.getpid()}-{time.time_ns()}.json"
+    prof.export_chrome_trace(str(handle.path))
 
 
 class SweepTimer:

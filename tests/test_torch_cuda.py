@@ -5,7 +5,8 @@ carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells; the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
-PyTorch versions, on a card.
+PyTorch versions, on a card; and the surface's step through B.1
+(``graft_entry.entry``) and its trace (``profiling.trace``).
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -716,3 +717,37 @@ def test_dryrun_on_the_card(device):
     from ocdp_tpu_torch.parallel.dryrun import dryrun_multichip
 
     assert len(dryrun_multichip(8)) == 9
+
+
+def test_entry_step_is_one_b1_launch_equal_to_plain(device):
+    from ocdp_tpu_torch import graft_entry
+
+    step, (v0,) = graft_entry.entry()
+    assert v0.is_cuda
+    bk = step.backup
+    v = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.0, 400.0, tuple(v0.shape)).astype(np.float32)).to(device)
+    before = fb.fused_backup2d_cuda.launches
+    vals, arg = step(v)
+    assert fb.fused_backup2d_cuda.launches == before + 1
+    want = fb.fused_backup2d_plain(v, bk.lo0, bk.lo1, bk.f0, bk.f1, bk.cost,
+                                   bk.state_cost, bk.action_cost)
+    assert torch.equal(vals, want.values)
+    assert torch.equal(arg, want.argmin)
+
+
+def test_trace_holds_each_b1_launch(device, tmp_path):
+    import json
+
+    from ocdp_tpu_torch import profiling
+
+    cfg = kirk.KirkConfig.golden()
+    before = fb.fused_backup2d_cuda.launches
+    with profiling.trace(tmp_path) as t:
+        kirk.solve(cfg, device=device)
+        torch.cuda.synchronize()
+    launches = fb.fused_backup2d_cuda.launches - before
+    events = json.loads(t.path.read_text())["traceEvents"]
+    partial = [e for e in events if e.get("cat") == "kernel"
+               and "backup_partial" in e.get("name", "")]
+    assert launches == cfg.N - 1 == len(partial)
