@@ -9,21 +9,30 @@ the CUDA toolkit (nvcc). Phases, each of which raises on failure:
 1. check the device and print its name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``ocdp_tpu_torch/csrc`` (timed);
 
-Kirk ch.3 (kernel ``fused_backup2d``):
+Kirk ch.3 (kernel ``fused_backup2d``, B.1, in two modes: plan-streamed, and
+affine-query, the main path's, which forms ``x' = A x + B u`` in the
+kernel, one launch a sweep):
 
-3. one sweep of the fused kernel vs its plain PyTorch version on the same
-   inputs, at the golden and the full Kirk size and on a crafted exact-tie
-   case: values and argmin bitwise equal;
+3. one sweep of each mode vs its plain PyTorch version on the same inputs,
+   and the affine kernel vs the streamed kernel on ``kirk.build``'s plan, at
+   the golden and the full Kirk size, at a full size with negative ``B``
+   and one with a zero ``B`` entry and negated ``A``, on a crafted
+   exact-tie plan (streamed) and on the golden controls listed twice
+   (affine): values and argmin bitwise, the affine argmin also as int16 and
+   uint8;
 4. the full solve, ``kirk.solve(KirkConfig(), device='cuda')`` (100x100
-   states, 1000 controls, 199 sweeps): the kernel's launch count goes up by
-   exactly 199, and values and every stored policy equal ``impl='gather'``
-   bitwise;
+   states, 1000 controls, 199 sweeps, policies stored): the affine kernel
+   launches exactly 199 times and no other backup kernel runs, and values
+   and every stored policy equal ``impl='gather'`` bitwise; then the
+   plan-streamed mode through the same engine the same way (199 launches);
 5. the golden solve on the card against MATLAB truth
    (tests/golden/obj1_reference.npz, tests/test_golden.py's tolerances) and
    the stored golden solve and rollout (tests/golden/kirk_golden.npz);
-6. timing with CUDA events, warm, median of 10: one full-size sweep of the
-   kernel and of the plain version (back-to-back calls), the 199-sweep
-   loop, and the full solve.
+6. timing with CUDA events, warm, median of 10: one full-size sweep of each
+   mode and of its plain version (back-to-back calls), the affine launch
+   replayed as a CUDA graph, the 199-sweep loops (policies stored; and the
+   affine one without policies, through CUDA graphs), and the full solves
+   with their builds.
 
 Coupled position+attitude (kernel ``rowlane_backup``):
 
@@ -189,11 +198,11 @@ the one card (NCCL across cards is not exercised here):
 The surface (``profiling.trace``, ``graft_entry``, the CLI, the bench):
 
 33. ``profiling.trace`` around the full Kirk solve: the Chrome trace holds
-    as many ``backup_partial`` kernel events (B.1) as its launch counter
-    counts, 199;
-34. ``graft_entry.entry()`` on the card: its step launches B.1 once a call
-    and equals the plain version on the same inputs bitwise (the zero
-    table and a seeded one);
+    as many ``affine_sweep`` kernel events (B.1's affine mode) as its launch
+    counter counts, 199, and no ``combine_splits`` event;
+34. ``graft_entry.entry()`` on the card: its step launches B.1's affine
+    mode once a call and equals the plain version on the same inputs
+    bitwise (the zero table and a seeded one);
 35. the CLI in subprocesses: ``solve kirk`` prints the in-process solve's
     ``values_sum``; ``solve attitude-full --n-mesh-w 11 --n-mesh-q 10
     --segment-size 50 --checkpoint ...`` stopped after its first segment
@@ -204,7 +213,7 @@ The surface (``profiling.trace``, ``graft_entry``, the CLI, the bench):
     with long flights), run beside phase 35's processes (its times are
     not measurements here): exit 0, the last line parses with the
     contract's keys, no family holds an ``error`` and each family's kernel
-    launched;
+    launched (``kirk``: the affine mode, 199 launches);
 37. the Kirk rollout ``kirk.optimal_path`` from (2, 1) timed on the card
     (warm, median of 5), golden and full configurations.
 
@@ -218,6 +227,7 @@ result.
 """
 
 import contextlib
+import dataclasses
 import io as _io
 import json
 import os
@@ -361,7 +371,7 @@ def main() -> None:
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s")
 
-    kernels = [kirk_phases(device), pos_att_phases(device)]
+    kernels = [*kirk_phases(device), pos_att_phases(device)]
     b3 = attitude_phases(device)
     kernels += [b3, *envelope_phases(device, b3)]
     free_cuda()
@@ -384,6 +394,7 @@ def main() -> None:
 
 
 LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
+             "fused_backup2d_affine": fb.fused_backup2d_affine_cuda,
              "rowlane_backup": rl.rowlane_backup_cuda,
              "backup6d": b6.backup6d_cuda,
              "backup6d_flat": b6.backup6d_flat_cuda,
@@ -404,14 +415,78 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
-def kirk_phases(device) -> dict:
-    """Phases 3-6; returns the fused kernel's entry of the kernels line."""
-    phase("3. kernel vs plain, one sweep")
+def affine_vs(aff, bk, v, label: str) -> float:
+    """One sweep of the affine kernel (B.1's affine-query mode) against its
+    plain version and against the plan-streamed kernel on the same inputs:
+    ``bk``'s plan (``kirk.build``'s), or, with ``bk`` None, the plan the
+    affine mode forms (``fb.affine_plan``). Values and argmin bitwise, the
+    argmin also in each narrower width the kernel writes. Returns max |dV|
+    against the plain version."""
+    args = aff.args
+    got = fb.fused_backup2d_affine_cuda(v, args)
+    want = fb.fused_backup2d_affine_plain(v, args)
+    if bk is None:
+        streamed = fb.fused_backup2d_cuda(
+            v, *fb.affine_plan(args, v.device),
+            state_cost=args.state_cost, action_cost=args.action_cost)
+    else:
+        streamed = fb.fused_backup2d_cuda(*kernel_args(bk, v))
+    narrow = [torch.int16] + ([torch.uint8] if args.n_actions <= 256 else [])
+    same_narrow = True
+    for dt in narrow:
+        ov = torch.empty_like(v)
+        oa = torch.empty(v.shape, dtype=dt, device=v.device)
+        fb.fused_backup2d_affine_cuda(v, args, ov, oa)
+        same_narrow &= (torch.equal(ov, want.values)
+                        and torch.equal(oa.to(torch.int32), want.argmin))
+    torch.cuda.synchronize()
+    err = float((got.values - want.values).abs().max())
+    same = (torch.equal(got.values, want.values)
+            and torch.equal(got.argmin, want.argmin))
+    same_s = (torch.equal(got.values, streamed.values)
+              and torch.equal(got.argmin, streamed.argmin))
+    print(f"{label}, affine mode ({args.row0.numel()} blocks of "
+          f"{args.threads} threads, up to {args.max_rows} table rows "
+          f"staged): == plain bitwise {same}, == streamed kernel bitwise "
+          f"{same_s}, argmin as {[str(d) for d in narrow]} too "
+          f"{same_narrow}, max |dV| {err}")
+    check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
+    check(same and same_s and same_narrow,
+          f"{label}: affine kernel != plain version or streamed kernel")
+    return err
+
+
+def affine_bound(args) -> dict:
+    """The affine sweep's least time from its shapes. Operations: 26 an
+    evaluation (the two queries' sums 2; the walk's edge compares 4; two
+    numerators and two divides 4; the complements 2; four weights, four
+    weighted corners and three sums 11; the cost's two sums 2; the compare
+    1), 6 a cell for its two P_k and its splits' compares, and the 2 * A
+    products b_k * u of each block. Bytes: the table, the axes, the
+    controls, the two cost parts and the row plan read once; the values and
+    the int32 argmin written."""
+    n0, n1 = args.grid_shape
+    s, a, blocks = n0 * n1, args.n_actions, args.row0.numel()
+    flops = 26.0 * s * a + (6 + args.n_splits - 1) * s + 2.0 * a * blocks
+    nbytes = 4 * (s + n0 + n1 + a + s + a) + 8 * blocks + 8 * s
+    return bound(flops, nbytes)
+
+
+def kirk_phases(device) -> list:
+    """Phases 3-6; returns the kernels line's entries of B.1's two modes,
+    the plan-streamed one and the affine one (the main path's)."""
+    phase("3. B.1 vs plain, one sweep: the plan-streamed and affine modes")
     rng = np.random.default_rng(SEED)
-    max_err = 0.0
+    max_err = aff_err = 0.0
     full_cfg = kirk.KirkConfig()
-    for label, cfg in (("golden 35x35x100", kirk.KirkConfig.golden()),
-                       ("full 100x100x1000", full_cfg)):
+    for label, cfg in (
+            ("golden 35x35x100", kirk.KirkConfig.golden()),
+            ("full 100x100x1000", full_cfg),
+            ("full, negative B", dataclasses.replace(full_cfg,
+                                                     B=(-0.0013, -0.0539))),
+            ("full, zero B0 and negative A", dataclasses.replace(
+                full_cfg, A=((-0.9974, 0.0539), (0.1078, -1.1591)),
+                B=(0.0, 0.0539)))):
         p = kirk.build(cfg, device=device)
         v = torch.from_numpy(rng.uniform(0.0, 400.0, (cfg.dx, cfg.dx))
                              .astype(np.float32)).to(device)
@@ -422,6 +497,9 @@ def kirk_phases(device) -> dict:
         max_err = max(max_err, kernel_vs_plain(bk, v, label))
         max_err = max(max_err, kernel_vs_plain(
             fb.FusedBackup2D(p.plan, p.stage_cost), v, label + " full cost"))
+        aff_err = max(aff_err, affine_vs(kirk.affine_backup(cfg, device), bk,
+                                         v, label))
+        del p, bk
     # exact ties: actions 40..79 duplicate 0..39, so every minimum is tied
     axis = np.linspace(-1.0, 1.0, 6).astype(np.float32)
     base = rng.uniform(-1.2, 1.2, (2, 6, 6, 40)).astype(np.float32)
@@ -434,18 +512,36 @@ def kirk_phases(device) -> dict:
     max_err = max(max_err, kernel_vs_plain(tie_bk, tie_v, "exact ties"))
     tie_arg = fb.fused_backup2d_cuda(*kernel_args(tie_bk, tie_v)).argmin
     check(int(tie_arg.max()) < 40, "exact ties: a duplicate action won")
+    # the affine exact ties: the golden controls listed forwards, then
+    # backwards, so every query repeats and the walk turns back
+    gcfg = kirk.KirkConfig.golden()
+    s_r, u = kirk._meshes(gcfg)
+    s_c, a_c = kirk._separable_cost_terms(gcfg, device=device)
+    tie_aff = fb.AffineBackup2D(
+        (s_r, s_r), np.concatenate([u, u[::-1]]), gcfg.A, gcfg.B, s_c,
+        torch.cat([a_c, a_c.flip(0)]))
+    tie_v = torch.from_numpy(rng.uniform(0.0, 400.0, (gcfg.dx, gcfg.dx))
+                             .astype(np.float32)).to(device)
+    aff_err = max(aff_err, affine_vs(tie_aff, None, tie_v,
+                                     "affine exact ties"))
+    tie_arg = fb.fused_backup2d_affine_cuda(tie_v, tie_aff.args).argmin
+    check(int(tie_arg.max()) < gcfg.du,
+          "affine exact ties: a duplicate action won")
 
-    phase("4. full solve through the kernel (main path)")
+    phase("4. full solve through the kernel (main path), and the streamed "
+          "mode's solve")
     reset_launch_counts()
     t0 = time.perf_counter()
     sol = kirk.solve(full_cfg, device=device)
     torch.cuda.synchronize()
     solve_s = time.perf_counter() - t0
-    launches = fb.fused_backup2d_cuda.launches
-    print(f"kirk.solve(KirkConfig()): {solve_s:.3f} s cold, "
-          f"{launches} kernel launches")
+    counts = launch_counts()
+    launches = counts.pop("fused_backup2d_affine")
+    print(f"kirk.solve(KirkConfig()): {solve_s:.3f} s cold, {launches} "
+          f"affine-mode launches, others {counts}")
     check(launches == full_cfg.N - 1,
-          f"kernel launched {launches} times, want {full_cfg.N - 1}")
+          f"affine kernel launched {launches} times, want {full_cfg.N - 1}")
+    check(not any(counts.values()), "another backup kernel launched")
     res = sol.result
     n = full_cfg.dx
     check(tuple(res.values.shape) == (n, n)
@@ -459,9 +555,23 @@ def kirk_phases(device) -> dict:
           f"all {full_cfg.N - 1} policies identical {same_p}")
     check(same_v and same_p, "full solve: kernel != gather")
     max_err = max(max_err, float((res.values - ref.values).abs().max()))
+    p = kirk.build(full_cfg, device=device)
+    bk = separable_backup(p, full_cfg, device)
+    reset_launch_counts()
+    st = value_iteration_finite(p.plan, p.stage_cost, full_cfg.N - 1,
+                                store_policies=True, backup=bk)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    streamed_launches = counts.pop("fused_backup2d")
+    same = (torch.equal(st.values, ref.values)
+            and torch.equal(st.policies, ref.policies))
+    print(f"plan-streamed solve: {streamed_launches} launches, others "
+          f"{counts}; == gather bitwise {same}")
+    check(streamed_launches == full_cfg.N - 1 and not any(counts.values())
+          and same, "streamed solve: launches or values")
+    del st, ref, p, bk
 
     phase("5. golden solve vs MATLAB truth and the stored golden")
-    gcfg = kirk.KirkConfig.golden()
     gsol = kirk.solve(gcfg, device=device)
     with np.load(GOLDEN_DIR / "obj1_reference.npz") as z:
         mat = {k: z[k] for k in z.files}
@@ -470,10 +580,9 @@ def kirk_phases(device) -> dict:
     vals = gsol.result.values.cpu().numpy()
     np.testing.assert_allclose(vals, mat["J_star"][:, :, 0],
                                rtol=1e-4, atol=1e-2)
-    gp = kirk.build(gcfg, device=device)
     probes = value_iteration_finite(
-        gp.plan, gp.stage_cost, gcfg.N - 1,
-        backup=separable_backup(gp, gcfg, device),
+        gsol.problem.plan, None, gcfg.N - 1,
+        backup=kirk.affine_backup(gcfg, device),
         probe_window=((0, gcfg.dx), (0, gcfg.dx))).probes.cpu().numpy()
     np.testing.assert_allclose(
         probes, np.moveaxis(mat["J_star"][:, :, :gcfg.N - 1], 2, 0)[::-1],
@@ -502,44 +611,80 @@ def kirk_phases(device) -> dict:
     phase("6. timing (CUDA events, warm, median of 10)")
     p = kirk.build(full_cfg, device=device)
     bk = separable_backup(p, full_cfg, device)
+    aff = kirk.affine_backup(full_cfg, device)
+    args = aff.args
     v = res.values.contiguous()
+    ov, oa = torch.empty_like(v), torch.empty(v.shape, dtype=torch.int32,
+                                              device=device)
     evals = full_cfg.dx * full_cfg.dx * full_cfg.du
     kernel_ms = cuda_time_ms(
         lambda: fb.fused_backup2d_cuda(*kernel_args(bk, v)), inner=20)
     plain_ms = cuda_time_ms(
         lambda: fb.fused_backup2d_plain(*kernel_args(bk, v)), inner=5)
-    print(f"full sweep, back to back: kernel {kernel_ms:.4f} ms "
-          f"({evals / kernel_ms * 1e3:.4e} evals/s), plain "
-          f"{plain_ms:.4f} ms ({evals / plain_ms * 1e3:.4e} evals/s)")
-    sweeps_ms = cuda_time_ms(lambda: value_iteration_finite(
-        p.plan, p.stage_cost, full_cfg.N - 1, store_policies=True,
-        backup=bk))
+    aff_ms = cuda_time_ms(
+        lambda: fb.fused_backup2d_affine_cuda(v, args, ov, oa), inner=20)
+    aff_plain_ms = cuda_time_ms(
+        lambda: fb.fused_backup2d_affine_plain(v, args), inner=5)
+    aff_graph_ms = graph_time_ms(
+        lambda: fb.fused_backup2d_affine_cuda(v, args, ov, oa))
+    print(f"full sweep, back to back: plan-streamed {kernel_ms:.4f} ms "
+          f"({evals / kernel_ms * 1e3:.4e} evals/s), its plain version "
+          f"{plain_ms:.4f} ms; affine {aff_ms:.4f} ms "
+          f"({evals / aff_ms * 1e3:.4e} evals/s; {aff_graph_ms:.4f} ms a "
+          f"launch replayed as a CUDA graph), its plain version "
+          f"{aff_plain_ms:.4f} ms")
+    lib, params = fb._affine_launch(args)
+    print(f"affine launch: {args.row0.numel()} blocks of {args.threads} "
+          f"threads, {args.smem_bytes} B dynamic shared memory, "
+          f"{lib.fused_backup2d_affine_blocks_per_sm(params)} blocks an SM")
+    for line in ptxas_lines("affine_sweep"):
+        print(line)
+    shape = PlanShape((full_cfg.dx,) * 2, (full_cfg.dx,) * 2 + (full_cfg.du,),
+                      device)
+    sweeps = full_cfg.N - 1
+    loop_ms = cuda_time_ms(lambda: value_iteration_finite(
+        shape, None, sweeps, store_policies=True, backup=aff))
+    graphed_ms = cuda_time_ms(lambda: value_iteration_finite(
+        shape, None, sweeps, backup=aff))
+    streamed_loop_ms = cuda_time_ms(lambda: value_iteration_finite(
+        p.plan, p.stage_cost, sweeps, store_policies=True, backup=bk))
     solve_ms = cuda_time_ms(lambda: kirk.solve(full_cfg, device=device))
-    print(f"{full_cfg.N - 1}-sweep loop (plan built): {sweeps_ms:.3f} ms; "
-          f"kirk.solve(KirkConfig()) incl. build: {solve_ms:.3f} ms")
+
+    def streamed_solve():
+        q = kirk.build(full_cfg, device=device)
+        return value_iteration_finite(
+            q.plan, q.stage_cost, sweeps, store_policies=True,
+            backup=separable_backup(q, full_cfg, device))
+
+    solve_st_ms = cuda_time_ms(streamed_solve)
+    print(f"{sweeps} sweeps, policies stored: affine {loop_ms:.3f} ms, "
+          f"streamed {streamed_loop_ms:.3f} ms (plans built); affine without "
+          f"policies, through CUDA graphs: {graphed_ms:.3f} ms; "
+          f"the full solve incl. builds: kirk.solve(KirkConfig()) (affine) "
+          f"{solve_ms:.3f} ms, kirk.build + the plan-streamed mode "
+          f"{solve_st_ms:.3f} ms")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           " MiB")
 
-    # per eval: 4 corners, each weight (1 - f where needed: 4 subtractions
-    # in all) a product of 2 factors, times its corner value, summed (3
-    # adds); the state + action cost (2 adds) and one compare: 18
+    # streamed, per eval: 4 corners, each weight (1 - f where needed: 4
+    # subtractions in all) a product of 2 factors, times its corner value,
+    # summed (3 adds); the state + action cost (2 adds) and one compare: 18
     # operations. Bytes: the table, the action-major plan (2 int32 + 2 f32
     # per eval), the two cost parts, the values and argmin written.
     n_cells, n_act = bk.lo0.shape[1], bk.lo0.shape[0]
     nbytes = 4 * n_cells + 16 * n_cells * n_act + 4 * (n_cells + n_act) \
         + 8 * n_cells
-    return {
-        "name": "fused_backup2d",
-        "route": "cuda",
-        "source": "ocdp_tpu_torch/csrc/fused_backup2d.cu",
-        "replaces": "ocdp_tpu/ops/pallas_shear.py:237",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        **bound(18.0 * n_cells * n_act, nbytes),
-        "library_ms": None,
-    }
+    common = {"route": "cuda", "source": "ocdp_tpu_torch/csrc/fused_backup2d.cu",
+              "replaces": "ocdp_tpu/ops/pallas_shear.py:237",
+              "library_ms": None}
+    return [
+        {"name": "fused_backup2d", **common, "launches": streamed_launches,
+         "max_abs_err": max_err, "ms": kernel_ms, "plain_ms": plain_ms,
+         **bound(18.0 * n_cells * n_act, nbytes)},
+        {"name": "fused_backup2d_affine", **common, "launches": launches,
+         "max_abs_err": aff_err, "ms": aff_ms, "plain_ms": aff_plain_ms,
+         **affine_bound(args)},
+    ]
 
 
 POS_ATT_CHANNELS = (("x", False), ("y", False), ("z", False), ("x", True))
@@ -2498,18 +2643,20 @@ def trace_phase(device):
             sol = kirk.solve(cfg, device=device)
             torch.cuda.synchronize()
         events = json.loads(t.path.read_text())["traceEvents"]
-    launches = fb.fused_backup2d_cuda.launches
+    launches = fb.fused_backup2d_affine_cuda.launches
     kernel_events = Counter(e.get("name", "") for e in events
                             if e.get("cat") == "kernel")
-    n_partial = sum(n for name, n in kernel_events.items()
-                    if "backup_partial" in name)
+    n_affine, n_split = (sum(n for name, n in kernel_events.items()
+                             if key in name)
+                         for key in ("affine_sweep", "combine_splits"))
     top = [(name.replace("(anonymous namespace)::", "").split("(")[0][-48:],
             n) for name, n in kernel_events.most_common(4)]
     print(f"trace: {len(events)} events, {sum(kernel_events.values())} "
-          f"kernel events; backup_partial {n_partial}, launch counter "
-          f"{launches}; top kernels {top}")
-    check(launches == cfg.N - 1 and n_partial == launches,
-          f"trace holds {n_partial} B.1 kernel events for {launches} launches")
+          f"kernel events; affine_sweep {n_affine}, combine_splits "
+          f"{n_split}, launch counter {launches}; top kernels {top}")
+    check(launches == cfg.N - 1 and n_affine == launches and n_split == 0,
+          f"trace holds {n_affine} B.1 affine events and {n_split} combine "
+          f"events for {launches} launches")
     return sol
 
 
@@ -2523,14 +2670,15 @@ def entry_phase(device) -> None:
     reset_launch_counts()
     for label, v in (("zero table", v0), ("seeded table", v1)):
         vals, arg = step(v)
-        want = fb.fused_backup2d_plain(*kernel_args(step.backup, v))
+        want = fb.fused_backup2d_affine_plain(v, step.backup.args)
         same = (torch.equal(vals, want.values)
                 and torch.equal(arg, want.argmin))
         print(f"entry step, {label}: kernel == plain bitwise {same}")
         check(same, f"entry step ({label}) != plain version")
-    check(fb.fused_backup2d_cuda.launches == 2,
-          "entry: B.1 launched "
-          f"{fb.fused_backup2d_cuda.launches} times for 2 steps")
+    counts = launch_counts()
+    check(counts.pop("fused_backup2d_affine") == 2
+          and not any(counts.values()),
+          f"entry: B.1 launched {launch_counts()} for 2 steps")
 
 
 def cli_phase(sol) -> None:
@@ -2592,6 +2740,12 @@ def bench_phase(bench: subprocess.Popen) -> None:
         check("error" not in f, f"bench {name}: {f.get('error')}")
         check(f["launches"] > 0, f"bench {name}: its kernel never launched")
         print(f"bench {name}: {f['launches']} launches, {f['impl']}")
+    kirk_f = fams["kirk"]
+    print(f"bench kirk: {kirk_f['wall_s']} s warm, alternatives "
+          f"{kirk_f['alternatives']}")
+    check(kirk_f["impl"] == "fused_backup2d_affine"
+          and kirk_f["launches"] == kirk.KirkConfig().N - 1,
+          "bench kirk: not the affine mode, one launch a sweep")
     print(f"bench: device {line['device']}; waited "
           f"{time.perf_counter() - t0:.1f} s")
 

@@ -37,6 +37,10 @@ _SIGNATURES = {
     "band_backup2d_error_string": (ctypes.c_char_p, [_I]),
     "fused_backup2d_f32": (_I, [_P] * 12 + [_I] * 4 + [_P]),
     "fused_backup2d_error_string": (ctypes.c_char_p, [_I]),
+    "fused_backup2d_affine_f32": (_I, [_P] * 4 + [_I, _P]),
+    "fused_backup2d_affine_configure": (_I, [_P]),
+    "fused_backup2d_affine_params_size": (_I, []),
+    "fused_backup2d_affine_blocks_per_sm": (_I, [_P]),
     "rowlane_backup_f32": (_I, [_I] + [_P] * 5),
     "rowlane_backup_configure": (_I, [_I] * 2),
     "rowlane_backup_blocks_per_sm": (_I, [_I] * 2),

@@ -10,8 +10,10 @@ and ``value`` are the Kirk ch.3 full workload (100x100 states x 1000
 controls x 199 sweeps ~= 2e9 state-action evaluations,
 test/Dynamic_Solver.m:49-63); ``families`` carries every family:
 
-* ``kirk``            — full finite-horizon solve through kernel B.1
-                        (``fused_backup2d``); alternative: the gather oracle
+* ``kirk``            — full finite-horizon solve through kernel B.1 in its
+                        affine-query mode (``fused_backup2d_affine``, CUDA
+                        graphs of 100 sweeps); alternatives: B.1 streaming
+                        the plan, and the gather oracle
 * ``attitude_axis``   — one clamped simplified yaw axis, 1000x300x3 x 5999
                         sweeps (Solver_attitude.m:108,116,143-144), kernel
                         B.6 (``band_backup2d``); alternative: ``rowband``
@@ -82,7 +84,7 @@ from .engine import (value_iteration_converged,
 from .models import attitude, kirk, pos_att, position
 from .ops.backup6d import Backup6D, backup6d_cuda
 from .ops.band_backup2d import BandBackup2D, band_backup2d_cuda
-from .ops.fused_backup2d import FusedBackup2D, fused_backup2d_cuda
+from .ops.fused_backup2d import FusedBackup2D, fused_backup2d_affine_cuda
 from .ops.rowband import RowBandBackup2D
 from .ops.rowlane import RowLaneBatch, rowlane_backup_cuda
 from .utils.device import resolve_device
@@ -181,25 +183,29 @@ def bench_kirk(device="cuda", cfg=None):
     evals = cfg.dx * cfg.dx * cfg.du * sweeps
     # the backup kirk.solve(impl='kernel') builds; the engine call timed
     # without stored policies, as the root bench.py times it
-    bk = FusedBackup2D(p.plan, p.stage_cost,
-                       cost_terms=kirk._separable_cost_terms(cfg,
-                                                             device=device))
+    bk = kirk.affine_backup(cfg, device)
 
     def run(backup):
         return lambda: value_iteration_finite(
             p.plan, p.stage_cost, sweeps, store_policies=False, backup=backup)
 
     dt, compile_s, _, launches = _time_cold_warm(
-        run(bk), device, launcher=fused_backup2d_cuda)
-    dt_g, _, _, _ = _time_cold_warm(run(None), device)
+        run(bk), device, launcher=fused_backup2d_affine_cuda)
+    alts = {"fused_backup2d_affine": round(dt, 6)}
+    if device.type == "cuda":
+        streamed = FusedBackup2D(
+            p.plan, p.stage_cost,
+            cost_terms=kirk._separable_cost_terms(cfg, device=device))
+        alts["fused_backup2d"] = round(
+            _time_cold_warm(run(streamed), device)[0], 6)
+    alts["gather"] = round(_time_cold_warm(run(None), device)[0], 6)
     return {
         "evals_per_s": round(evals / dt, 1),
         "wall_s": round(dt, 6),
         "compile_s": round(compile_s, 6),
-        "impl": _impl("fused_backup2d", device),
+        "impl": _impl("fused_backup2d_affine", device),
         "launches": launches,
-        "alternatives": {"fused_backup2d": round(dt, 6),
-                         "gather": round(dt_g, 6)},
+        "alternatives": alts,
         "workload": f"kirk dx={cfg.dx} du={cfg.du} N={cfg.N} "
                     f"({evals:.3g} evals)",
     }

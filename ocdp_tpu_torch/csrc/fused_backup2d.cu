@@ -11,13 +11,12 @@
 //
 // and nothing of its TPU machinery. The shear-gather layout (band windows,
 // the jj == pair select chain) exists on the TPU only because per-query
-// gathers are slow there. Here the whole value table (40 KB at 100 x 100)
-// is staged in shared memory and each (cell, action) reads its four corners
-// straight from the plan's (lo0, lo1, f0, f1).
+// gathers are slow there. Here the table rows a block reads are staged in
+// shared memory and each (cell, action) reads its four corners there.
 //
-// Layout: the plan and a full cost are action-major, (A, S) with
-// S = n0 * n1, so neighbouring threads of a warp read neighbouring cells at
-// the same action (coalesced 4 B loads).
+// Layout (plan-streamed mode): the plan and a full cost are action-major,
+// (A, S) with S = n0 * n1, so neighbouring threads of a warp read
+// neighbouring cells at the same action (coalesced 4 B loads).
 //
 // Arithmetic, bitwise equal to ocdp_tpu_torch/ops/interp.py::interp_apply
 // followed by the cost add:
@@ -33,9 +32,10 @@
 //     would differ from PyTorch's separately rounded ops in the last bit.
 //
 // Minimum and ties: each thread scans its action range in order with a
-// strict '<' (the first minimum of the range wins). The action axis is split
-// across blockIdx.y to fill the card (full Kirk has only 10^4 cells); the
-// combine pass walks the splits in order, again with a strict '<', so a later
+// strict '<' (the first minimum of the range wins). The plan-streamed mode
+// splits the action axis across blockIdx.y to fill the card (full Kirk has
+// only 10^4 cells) and stages the whole table in each block; its combine
+// pass walks the splits in order, again with a strict '<', so a later
 // split wins only when strictly smaller. Together that is exactly the serial
 // strict-'<' scan over all actions, i.e. torch.min's first-minimum index.
 //
@@ -49,13 +49,19 @@
 // extrapolation); lo is the clamped cell index, so the corner reads stay in
 // the table.
 //
-// What bounds it: the plan stream. Each (cell, action) reads 16 B of plan
-// (two int32 indices, two float fracs) that are used once per sweep:
-// 160 MB per full-Kirk sweep (10^4 cells x 1000 actions), above the 50 MB L2,
-// so every sweep streams it from HBM. The table reads hit shared memory.
-// Later work (ROADMAP B.1): recompute the affine queries in-kernel instead of
-// streaming the plan, tune occupancy, and capture the sweep loop in a CUDA
-// graph.
+// Two modes share that arithmetic:
+//
+// * the plan-streamed mode (backup_partial + combine_splits), for any 2-D
+//   plan: each (cell, action) reads 16 B of plan (two int32 indices, two
+//   float fracs) used once per sweep, 160 MB per full-Kirk sweep (10^4 cells
+//   x 1000 actions), above the 50 MB L2, so every sweep streams it from HBM:
+//   the bytes bound it;
+// * the affine-query mode (affine_sweep, below), for dynamics x' = A x + B u
+//   (Kirk): each thread forms its queries, locates them and takes their
+//   fracs itself, so a sweep reads only the table, the axes, the controls
+//   and the two cost parts (about 100 KB at full Kirk) and writes 80 KB. The
+//   operations bound it. One launch a sweep: a block owns a run of cells and
+//   all their action splits, and reduces the splits in shared memory.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -169,6 +175,325 @@ extern "C" int fused_backup2d_f32(const float* values, const int* lo0,
   if (err != cudaSuccess || n_splits == 1) return static_cast<int>(err);
   combine_splits<<<(n_cells + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       part_v, part_a, n_cells, n_splits, out_v, out_a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// Affine-query mode.
+//
+// Inputs: the two state axes g0 (n0,) and g1 (n1,), strictly ascending; the
+// controls u (A,); A = [[a00, a01], [a10, a11]] and B = (b0, b1) as the f32
+// values PyTorch uses for the Python scalars (the double rounded to nearest);
+// the separable cost. Cell (i, j) sits at (x0, x1) = (g0[i], g1[j]).
+//
+// Queries, in the rounding steps of ocdp_tpu_torch/models/kirk.py::build
+// (x1n = a11 * x1 + a12 * x2 + b1 * u, PyTorch's eager ops left to right):
+//   P_k = __fadd_rn(__fmul_rn(a_k0, x0), __fmul_rn(a_k1, x1))   once a cell
+//   B_k[a] = __fmul_rn(b_k, u[a])             once a block, in shared memory
+//   q_k = __fadd_rn(P_k, B_k[a])                               each action
+// Locate, as ocdp_tpu_torch/ops/interp.py::axis_locate:
+//   lo_k = searchsorted(g_k, q_k, right=True) - 1 clamped to [0, n_k - 2];
+//   frac_k = __fdiv_rn(__fsub_rn(q_k, g[lo]), __fsub_rn(g[lo+1], g[lo]))
+//     (two rounded differences and an IEEE-rounded divide; fracs outside
+//     [0, 1] are kept: MATLAB's linear extrapolation).
+// Then the streamed mode's bilinear sum and cost add. Every step is an
+// explicitly rounded intrinsic, never contracted into an FMA, so the result
+// equals the streamed mode on the plan kirk.build makes, bitwise. The host
+// refuses inputs whose queries could overflow f32, so no query is NaN.
+//
+// The locate: a thread binary-searches the first query of its action range,
+// then moves lo from each query to the next (walk). Each cell keeps g[lo-1]
+// .. g[lo+2] and the cell's edges in registers, so the common move, one cell
+// up or down, costs a few register moves and one shared load whose result
+// only a later move reads; a move of more than one cell takes a loop. For a
+// fixed sign of b_k, q_k is monotone in u (rounding is monotone), so on
+// Kirk's ascending controls lo moves a cell every ~20 actions. The walk is
+// exact from any start, so a negative or zero b_k, or unsorted controls,
+// cost steps, not correctness.
+//
+// Table rows: a block stages only the rows its queries reach, which the host
+// planner (ops/fused_backup2d.py::plan_rows) finds from the same affine map
+// at the controls' extremes: row0[block], n_rows[block] (~8 rows of 100 at
+// full Kirk, against the 100-row table each streamed-mode block stages).
+//
+// Work: a block owns cells_per_block consecutive cells and n_splits action
+// ranges of each, a thread one cell and one range.
+//
+// Minimum and ties: a thread scans its action range
+// [s * per, (s + 1) * per) in order with a strict '<'; after a barrier the
+// split-0 thread of each cell walks the splits in order with a strict '<'.
+// That is the serial strict-'<' scan over all actions, with the streamed
+// mode's NaN rule.
+//
+// What bounds it: operations (about 26 an evaluation, an IEEE divide on
+// each axis among them); the bytes are the table rows, the axes, the
+// controls and costs, and the outputs, ~170 KB a sweep at full Kirk. On an
+// H100 it runs at ~11x that bound, held by a long chain of dependent
+// instructions an evaluation (the walk's checks and moves, two IEEE
+// divides, the bilinear sum); the alternatives tried were no faster
+// (PERF.md, B.1).
+
+struct AffineParams {
+  const float* g0;           // (n0,) axis 0
+  const float* g1;           // (n1,) axis 1
+  const float* u;            // (n_actions,) controls
+  const float* state_cost;   // (n0 * n1,)
+  const float* action_cost;  // (n_actions,)
+  const int* row0;           // (n_blocks,) first table row a block stages
+  const int* n_rows;         // (n_blocks,) rows it stages
+  int n0, n1, n_actions;
+  int cells_per_block, n_splits, actions_per_split, max_rows, n_blocks;
+  float a00, a01, a10, a11, b0, b1;
+};
+
+namespace {
+
+constexpr int kAffineMaxThreads = 512;
+
+// searchsorted(g, q, right=True) - 1, clamped to [0, n - 2]
+__device__ __forceinline__ int locate(const float* g, int n, float q) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (!(g[mid] > q)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return min(max(lo - 1, 0), n - 2);
+}
+
+// Past one cell: the cell of q from lo, by a loop (rare).
+__device__ __noinline__ int walk_far(const float* g, int n, int lo, float q) {
+  while (lo < n - 2 && !(g[lo + 1] > q)) ++lo;
+  while (lo > 0 && g[lo] > q) --lo;
+  return lo;
+}
+
+// One axis's located cell. The cell is q's when !(q >= up_edge) and
+// !(down_edge > q): up_edge is g[lo + 1], or +inf at the top cell;
+// down_edge is g[lo], or -inf at the bottom one.
+struct AxisCell {
+  int lo;
+  float below, g_lo, g_hi, above;  // g[lo-1], g[lo], g[lo+1], g[lo+2]
+  float width;                     // __fsub_rn(g_hi, g_lo)
+  float up_edge, down_edge;
+};
+
+__device__ __forceinline__ void set_edges(int n, AxisCell& c) {
+  c.width = __fsub_rn(c.g_hi, c.g_lo);
+  c.up_edge = c.lo < n - 2 ? c.g_hi : CUDART_INF_F;
+  c.down_edge = c.lo > 0 ? c.g_lo : -CUDART_INF_F;
+}
+
+__device__ __forceinline__ void load_cell(const float* g, int n, int lo,
+                                          AxisCell& c) {
+  c.lo = lo;
+  c.below = g[max(lo - 1, 0)];
+  c.g_lo = g[lo];
+  c.g_hi = g[lo + 1];
+  c.above = g[min(lo + 2, n - 1)];
+  set_edges(n, c);
+}
+
+// Move c to q's cell, and the table offset t_off by stride a cell moved.
+__device__ __forceinline__ void walk(const float* g, int n, float q,
+                                     AxisCell& c, int& t_off, int stride) {
+  const int lo = c.lo;
+  if (q >= c.up_edge) {
+    c.lo = lo + 1;
+    c.below = c.g_lo;
+    c.g_lo = c.g_hi;
+    c.g_hi = c.above;
+    c.above = g[min(lo + 3, n - 1)];
+    set_edges(n, c);
+    if (q >= c.up_edge) load_cell(g, n, walk_far(g, n, lo + 1, q), c);
+    t_off += (c.lo - lo) * stride;
+  } else if (c.down_edge > q) {
+    c.lo = lo - 1;
+    c.above = c.g_hi;
+    c.g_hi = c.g_lo;
+    c.g_lo = c.below;
+    c.below = g[max(lo - 2, 0)];
+    set_edges(n, c);
+    if (c.down_edge > q) load_cell(g, n, walk_far(g, n, lo - 1, q), c);
+    t_off += (c.lo - lo) * stride;
+  }
+}
+
+template <typename ArgT>
+__global__ void __launch_bounds__(kAffineMaxThreads)
+affine_sweep(const AffineParams p, const float* __restrict__ values,
+             float* __restrict__ out_v, ArgT* __restrict__ out_a) {
+  extern __shared__ float4 smem4[];
+  // the table rows first, so a corner's shared address is its offset
+  float* tab = reinterpret_cast<float*>(smem4);  // max_rows x n1 rows
+  float4* act = smem4 + (p.max_rows * p.n1 + 3) / 4;  // (B_0, B_1, cost, 0)
+  float* sg0 = reinterpret_cast<float*>(act + p.n_actions);
+  float* sg1 = sg0 + p.n0;
+  float* red_v = sg1 + p.n1;                    // a slot a thread
+  int* red_a = reinterpret_cast<int*>(red_v + blockDim.x);
+
+  const int tid = threadIdx.x;
+  const int r0 = p.row0[blockIdx.x];
+  const int n_stage = p.n_rows[blockIdx.x] * p.n1;
+  const int n1 = p.n1;
+  for (int i = tid; i < p.n_actions; i += blockDim.x) {
+    const float u = p.u[i];
+    act[i] = make_float4(__fmul_rn(p.b0, u), __fmul_rn(p.b1, u),
+                         p.action_cost[i], 0.0f);
+  }
+  for (int i = tid; i < p.n0; i += blockDim.x) sg0[i] = p.g0[i];
+  for (int i = tid; i < n1; i += blockDim.x) sg1[i] = p.g1[i];
+  const float* rows = values + static_cast<long long>(r0) * n1;
+  for (int i = tid; i < n_stage; i += blockDim.x) tab[i] = rows[i];
+  __syncthreads();
+
+  const int n_cells = p.n0 * n1;
+  const int local = tid % p.cells_per_block;
+  const int split = tid / p.cells_per_block;
+  const int cell = blockIdx.x * p.cells_per_block + local;
+  const int a_begin = split * p.actions_per_split;
+  const int a_end = min(a_begin + p.actions_per_split, p.n_actions);
+
+  float best_v = CUDART_INF_F;
+  int best_a = a_begin;
+  if (cell < n_cells && a_begin < a_end) {
+    const int i = cell / n1;
+    const float x0 = sg0[i];
+    const float x1 = sg1[cell - i * n1];
+    // a_k0 * x0 + a_k1 * x1: two rounded products, one rounded sum
+    const float base0 = __fadd_rn(__fmul_rn(p.a00, x0), __fmul_rn(p.a01, x1));
+    const float base1 = __fadd_rn(__fmul_rn(p.a10, x0), __fmul_rn(p.a11, x1));
+    const float s_cost = p.state_cost[cell];
+    const float4 first = act[a_begin];
+    AxisCell c0, c1;
+    load_cell(sg0, p.n0, locate(sg0, p.n0, __fadd_rn(base0, first.x)), c0);
+    load_cell(sg1, n1, locate(sg1, n1, __fadd_rn(base1, first.y)), c1);
+    int t_off = (c0.lo - r0) * n1 + c1.lo;  // corner (0, 0) in the rows
+    for (int a = a_begin; a < a_end; ++a) {
+      const float4 ab = act[a];
+      // + b_k * u: one rounded sum
+      const float q0 = __fadd_rn(base0, ab.x);
+      const float q1 = __fadd_rn(base1, ab.y);
+      walk(sg0, p.n0, q0, c0, t_off, n1);
+      walk(sg1, n1, q1, c1, t_off, 1);
+      const float g0 = __fdiv_rn(__fsub_rn(q0, c0.g_lo), c0.width);
+      const float g1 = __fdiv_rn(__fsub_rn(q1, c1.g_lo), c1.width);
+      const float h0 = __fsub_rn(1.0f, g0);
+      const float h1 = __fsub_rn(1.0f, g1);
+      const float* t4 = tab + t_off;
+      float t = __fmul_rn(__fmul_rn(h0, h1), t4[0]);
+      t = __fadd_rn(t, __fmul_rn(__fmul_rn(h0, g1), t4[1]));
+      t = __fadd_rn(t, __fmul_rn(__fmul_rn(g0, h1), t4[n1]));
+      t = __fadd_rn(t, __fmul_rn(__fmul_rn(g0, g1), t4[n1 + 1]));
+      t = __fadd_rn(t, __fadd_rn(s_cost, ab.z));
+      if (t < best_v) {  // strict: the first minimum of the range wins
+        best_v = t;
+        best_a = a;
+      }
+    }
+  }
+  red_v[tid] = best_v;
+  red_a[tid] = best_a;
+  __syncthreads();
+  if (split != 0 || cell >= n_cells) return;
+  for (int s = 1; s < p.n_splits; ++s) {
+    const int o = s * p.cells_per_block + local;
+    const float v = red_v[o];
+    if (v < best_v) {  // strict: an earlier split wins ties
+      best_v = v;
+      best_a = red_a[o];
+    }
+  }
+  out_v[cell] = best_v;
+  out_a[cell] = static_cast<ArgT>(best_a);
+}
+
+size_t affine_smem_bytes(const AffineParams& p) {
+  const size_t rows = (static_cast<size_t>(p.max_rows) * p.n1 + 3) / 4 * 4;
+  return sizeof(float) * rows +
+         sizeof(float4) * static_cast<size_t>(p.n_actions) +
+         sizeof(float) * (static_cast<size_t>(p.n0) + p.n1) +
+         (sizeof(float) + sizeof(int)) *
+             static_cast<size_t>(p.cells_per_block) * p.n_splits;
+}
+
+// Raise the kernel's dynamic shared memory limit to smem, never lower it:
+// the limit belongs to the function, and backups of other launch shapes
+// may need more.
+template <typename ArgT>
+cudaError_t allow_smem(int smem) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, affine_sweep<ArgT>);
+  if (err != cudaSuccess || attr.maxDynamicSharedSizeBytes >= smem) {
+    return err;
+  }
+  return cudaFuncSetAttribute(affine_sweep<ArgT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem);
+}
+
+}  // namespace
+
+extern "C" int fused_backup2d_affine_params_size() {
+  return static_cast<int>(sizeof(AffineParams));
+}
+
+// Check the launch shape and let the kernels take its dynamic shared
+// memory; call once for each parameter block before its first launch (it
+// may set function attributes, so never inside a CUDA graph capture).
+// Returns 0 or a CUDA error.
+extern "C" int fused_backup2d_affine_configure(const AffineParams* p) {
+  if (p->cells_per_block < 1 || p->n_splits < 1 ||
+      p->cells_per_block * p->n_splits > kAffineMaxThreads || p->n0 < 2 ||
+      p->n1 < 2 || p->max_rows < 2 || p->max_rows > p->n0 ||
+      p->n_blocks < 1 || p->actions_per_split < 1 || p->n_actions < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int smem = static_cast<int>(affine_smem_bytes(*p));
+  cudaError_t err = allow_smem<unsigned char>(smem);
+  if (err == cudaSuccess) err = allow_smem<short>(smem);
+  if (err == cudaSuccess) err = allow_smem<int>(smem);
+  return static_cast<int>(err);
+}
+
+// Blocks of the launch shape one SM holds at once (the int32-argmin
+// instantiation; the others match it); -1 on an error.
+extern "C" int fused_backup2d_affine_blocks_per_sm(const AffineParams* p) {
+  int blocks = -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, affine_sweep<int>, p->cells_per_block * p->n_splits,
+          affine_smem_bytes(*p)) != cudaSuccess) {
+    return -1;
+  }
+  return blocks;
+}
+
+// One sweep in one launch: values (n0, n1) -> out_v (n0, n1) and the argmin
+// into out_a as argmin_bytes-wide integers (1: uint8, 2: int16, 4: int32).
+// values must not alias out_v (blocks stage rows while others write).
+// Returns cudaGetLastError() after the launch.
+extern "C" int fused_backup2d_affine_f32(const AffineParams* p,
+                                         const float* values, float* out_v,
+                                         void* out_a, int argmin_bytes,
+                                         void* stream) {
+  const int threads = p->cells_per_block * p->n_splits;
+  const size_t smem = affine_smem_bytes(*p);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (argmin_bytes == 1) {
+    affine_sweep<unsigned char><<<p->n_blocks, threads, smem, s>>>(
+        *p, values, out_v, static_cast<unsigned char*>(out_a));
+  } else if (argmin_bytes == 2) {
+    affine_sweep<short><<<p->n_blocks, threads, smem, s>>>(
+        *p, values, out_v, static_cast<short*>(out_a));
+  } else if (argmin_bytes == 4) {
+    affine_sweep<int><<<p->n_blocks, threads, smem, s>>>(
+        *p, values, out_v, static_cast<int*>(out_a));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,6 +35,12 @@ same schedule runs eagerly (the graphs' eager twin). A capture or replay
 error raises; nothing falls back to eager launches. Each replay adds the
 launches it captured to the kernel's launch and channel-sweep counters.
 
+A backup that lists the policy dtype in its ``argmin_dtypes`` (the fused
+2-D backup's affine mode) runs the finite engine's eager loop through
+:meth:`sweep_into` over ping-pong tables, its argmin written straight into
+the sweep's policy slot (or one int32 buffer): no allocation or copy a
+sweep.
+
 Stage-loop semantics: sweep ``j=0`` is the backup from the terminal cost
 (the reference's ``k = 1`` / ``k_s = N-1``), so for a finite-horizon rollout
 at forward stage ``k`` (0-based) the policy to use is ``policies[N-2-k]``.
@@ -288,15 +294,26 @@ def value_iteration_finite(
                             device=v.device) if store_policies else None)
 
     argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
+    into = (pdt if policies is not None else torch.int32) in \
+        getattr(backup, "argmin_dtypes", ())
+    if into:
+        v, spare = v.clone(), torch.empty_like(v)
     for i in range(num_sweeps):
-        v, argmin = backup(v)
-        if policies is not None:
-            policies[i] = argmin
+        if into:
+            backup.sweep_into(v, spare,
+                              policies[i] if policies is not None else argmin)
+            v, spare = spare, v
+        else:
+            v, argmin = backup(v)
+            if policies is not None:
+                policies[i] = argmin
         if probes is not None:
             probes[i] = v[window]
         if on_sweep is not None:
             _sync_for_callback(v)
             on_sweep(i)
+    if into and policies is not None and num_sweeps:
+        argmin = policies[num_sweeps - 1].clone()
     argmin = argmin.to(pdt if narrow_argmin_result else torch.int32)
     return SolveResult(
         values=v,

@@ -13,7 +13,6 @@ from __future__ import annotations
 import torch
 
 from .models import kirk
-from .ops.fused_backup2d import FusedBackup2D
 from .parallel.dryrun import dryrun_multichip
 from .utils.device import resolve_device
 
@@ -25,24 +24,20 @@ def entry(device="cuda"):
     backup on ``KirkConfig.golden()`` (35 x 35 states, 100 controls) and
     ``v0`` the zero terminal table.
 
-    The backup is :class:`~ocdp_tpu_torch.ops.fused_backup2d.FusedBackup2D`
-    with the separable stage cost, the way :func:`kirk.solve` builds it: its
-    CUDA kernel on a CUDA device (the default; raises without a card), its
-    plain PyTorch version on ``device="cpu"``. ``step.backup`` is that
+    The backup is :func:`kirk.affine_backup`, the one :func:`kirk.solve`
+    builds (the fused backup's affine-query mode, separable stage cost):
+    its CUDA kernel on a CUDA device (the default; raises without a card),
+    its plain PyTorch version on ``device="cpu"``. ``step.backup`` is that
     backup.
     """
     device = resolve_device(device)
     cfg = kirk.KirkConfig.golden()
-    problem = kirk.build(cfg, device=device)
-    backup = FusedBackup2D(
-        problem.plan, problem.stage_cost,
-        cost_terms=kirk._separable_cost_terms(cfg, device=device))
+    backup = kirk.affine_backup(cfg, device)
 
     def step(values: torch.Tensor):
         res = backup(values)
         return res.values, res.argmin
 
     step.backup = backup
-    v0 = torch.zeros(problem.plan.grid_shape, dtype=torch.float32,
-                     device=device)
+    v0 = torch.zeros((cfg.dx, cfg.dx), dtype=torch.float32, device=device)
     return step, (v0,)

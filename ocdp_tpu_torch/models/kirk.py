@@ -22,13 +22,13 @@ import torch
 
 from ..engine import SolveResult, value_iteration_finite
 from ..grids import Grid, linspace_axis
-from ..ops.fused_backup2d import FusedBackup2D
-from ..ops.interp import InterpPlan, build_plan, interp_eval
+from ..ops.fused_backup2d import AffineBackup2D
+from ..ops.interp import InterpPlan, PlanShape, build_plan, interp_eval
 from ..profiling import sweep_callback
 from ..utils.device import resolve_device
 
-__all__ = ["KirkConfig", "KirkProblem", "KirkSolution", "build", "solve",
-           "optimal_path"]
+__all__ = ["KirkConfig", "KirkProblem", "KirkSolution", "affine_backup",
+           "build", "solve", "optimal_path"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,8 +55,11 @@ class KirkProblem(NamedTuple):
     config: KirkConfig
     grid: Grid
     u_mesh: np.ndarray          # (du,) control values
-    plan: InterpPlan            # queries shaped (dx, dx, du)
-    stage_cost: torch.Tensor    # (dx, dx, du) f32
+    # queries shaped (dx, dx, du) and the (dx, dx, du) f32 stage cost; a
+    # solution the affine kernel made holds a PlanShape (shapes and device
+    # only) and no stage cost: that path builds no plan
+    plan: InterpPlan | PlanShape
+    stage_cost: torch.Tensor | None
 
 
 class KirkSolution(NamedTuple):
@@ -89,8 +92,7 @@ def build(config: KirkConfig = KirkConfig(), *,
     in-kernel state + action re-add is bitwise equal by construction.
     """
     device = resolve_device(device)
-    s_r = linspace_axis(config.x_min, config.x_max, config.dx)
-    u_mesh = linspace_axis(config.u_min, config.u_max, config.du)
+    s_r, u_mesh = _meshes(config)
     grid = Grid((s_r, s_r))
 
     axis = torch.as_tensor(s_r, device=device)
@@ -107,15 +109,42 @@ def build(config: KirkConfig = KirkConfig(), *,
     return KirkProblem(config, grid, u_mesh, plan, stage_cost)
 
 
+def _meshes(config: KirkConfig):
+    """The state axis (both state dimensions) and the control mesh, f32."""
+    return (linspace_axis(config.x_min, config.x_max, config.dx),
+            linspace_axis(config.u_min, config.u_max, config.du))
+
+
+def affine_backup(problem_or_config, device=None) -> AffineBackup2D:
+    """Kirk's backup in the fused kernel's affine-query mode
+    (:class:`~ocdp_tpu_torch.ops.fused_backup2d.AffineBackup2D`): the
+    next states ``x' = A x + B u`` formed in the kernel, no plan, with the
+    separable stage cost. Takes a :class:`KirkConfig` (on ``device``, the
+    card unless the caller asks for ``"cpu"``; raises without a card) or a
+    :class:`KirkProblem` (on its own device). On a CUDA device it launches
+    the kernel, on the CPU it runs the plain version; its sweep equals
+    :func:`build`'s plan through the gather oracle bitwise on one device.
+    """
+    if isinstance(problem_or_config, KirkProblem):
+        config = problem_or_config.config
+        axes = problem_or_config.grid.axes
+        u_mesh = problem_or_config.u_mesh
+        device = problem_or_config.plan.device if device is None else device
+    else:
+        config = problem_or_config
+        s_r, u_mesh = _meshes(config)
+        axes = (s_r, s_r)
+    device = resolve_device("cuda" if device is None else device)
+    s_c, a_c = _separable_cost_terms(config, device=device)
+    return AffineBackup2D(axes, u_mesh, config.A, config.B, s_c, a_c)
+
+
 def _separable_cost_terms(config: KirkConfig, *, device):
     """(state, action) split of the stage cost — the single source of the
     cost expressions; :func:`build` recomposes ``stage_cost`` from it
     (g_D associates as (Q1 x1^2 + Q2 x2^2) + R u^2,
     test/Dynamic_Solver.m:196-200)."""
-    s_r = torch.as_tensor(linspace_axis(config.x_min, config.x_max, config.dx),
-                          device=device)
-    u = torch.as_tensor(linspace_axis(config.u_min, config.u_max, config.du),
-                        device=device)
+    s_r, u = (torch.as_tensor(m, device=device) for m in _meshes(config))
     x1 = s_r[:, None]
     x2 = s_r[None, :]
     q1, q2 = config.Q
@@ -135,11 +164,13 @@ def solve(
     ``device``: the card unless the caller asks for ``"cpu"``; raises
     without a card.
 
-    ``impl``: ``"kernel"`` (the fused CUDA backup,
-    :class:`~ocdp_tpu_torch.ops.fused_backup2d.FusedBackup2D`, with the
-    separable stage cost; CUDA devices only), ``"gather"`` (the plain
+    ``impl``: ``"kernel"`` (the fused CUDA backup in its affine-query
+    mode, :func:`affine_backup`: no plan is built, so the solution's
+    ``problem.plan`` is a :class:`~ocdp_tpu_torch.ops.interp.PlanShape` and
+    its ``stage_cost`` None; CUDA devices only), ``"gather"`` (the plain
     gather oracle, any device), or ``"auto"``: the kernel on a CUDA device,
     the gather oracle otherwise. The two agree bitwise on a CUDA device.
+    The kernel writes each sweep's argmin straight into its policy slot.
 
     ``verbose``: per-stage 'step %d - %f seconds' prints (the reference's
     default console output) via :class:`~ocdp_tpu_torch.profiling.SweepTimer`.
@@ -152,12 +183,15 @@ def solve(
                          "'gather'")
     if impl == "kernel" and device.type != "cuda":
         raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
-    problem = build(config, device=device)
-    backup = None
     if impl == "kernel":
-        backup = FusedBackup2D(
-            problem.plan, problem.stage_cost,
-            cost_terms=_separable_cost_terms(config, device=device))
+        s_r, u_mesh = _meshes(config)
+        shape = PlanShape((config.dx, config.dx),
+                          (config.dx, config.dx, config.du), device)
+        problem = KirkProblem(config, Grid((s_r, s_r)), u_mesh, shape, None)
+        backup = affine_backup(problem)
+    else:
+        problem = build(config, device=device)
+        backup = None
     result = value_iteration_finite(
         problem.plan, problem.stage_cost, config.N - 1,
         store_policies=store_policies, backup=backup,

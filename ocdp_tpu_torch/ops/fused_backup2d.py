@@ -17,22 +17,45 @@ order, NaN rule and what bounds it, is ``csrc/fused_backup2d.cu``.
 Inputs are action-major, ``(A, S)`` with ``S = n0 * n1``: ``lo0``/``lo1``
 int32, ``f0``/``f1`` float32, and either a full ``cost`` ``(A, S)`` or a
 separable ``state_cost`` ``(S,)`` + ``action_cost`` ``(A,)``.
+
+The affine-query mode (Kirk's main path) forms the next-state queries of
+affine dynamics ``x' = A x + B u`` inside the kernel instead of streaming a
+plan, in one launch a sweep:
+
+* :func:`fused_backup2d_affine_cuda` launches it (``.launches`` and
+  ``.channel_sweeps`` count), into new outputs or the caller's, with the
+  argmin as uint8, int16 or int32;
+* :func:`fused_backup2d_affine_plain` forms the queries with the torch ops
+  of ``models/kirk.py::build`` and ``build_plan`` and calls
+  :func:`fused_backup2d_plain`; on a CUDA device the two agree bitwise;
+* :func:`plan_rows` is the host planner of the table rows each block
+  stages;
+* :class:`AffineBackup2D` is the engines' callable, graph-safe
+  (``sweep_into``, ``prepare``, ``launcher``), whose ``sweep_into`` also
+  writes an argmin straight into a narrow policy slot.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
 import math
 
+import numpy as np
 import torch
 
 from .backup import BackupResult
-from .interp import InterpPlan, interp_apply
+from .interp import InterpPlan, axis_locate, interp_apply
 
-__all__ = ["FusedBackup2D", "fused_backup2d_cuda", "fused_backup2d_plain",
-           "SMEM_LIMIT_BYTES"]
+__all__ = ["AffineArgs", "AffineBackup2D", "FusedBackup2D", "affine_plan",
+           "fused_backup2d_affine_cuda",
+           "fused_backup2d_affine_plain", "fused_backup2d_cuda",
+           "fused_backup2d_plain", "plan_rows", "SMEM_LIMIT_BYTES"]
 
-# the most dynamic shared memory one block may opt into on Hopper; the whole
-# value table is staged there
+# the most dynamic shared memory one block may opt into on Hopper; the
+# plan-streamed mode stages the whole value table there, the affine mode a
+# block's planned rows
 SMEM_LIMIT_BYTES = 232_448
 _THREADS = 256                  # kThreads in the CUDA source
 _MIN_ACTIONS_PER_SPLIT = 16
@@ -86,10 +109,15 @@ def _check_cuda_inputs(values, lo0, lo1, f0, f1, cost, state_cost,
             raise ValueError(f"{name} must be contiguous")
 
 
+@functools.cache
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _actions_per_split(device, n_cells: int, n_actions: int) -> int:
     """Split the action axis so that about four blocks per SM are in flight
     (full Kirk has only 10^4 cells: 40 blocks of 256 threads)."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    sms = _sm_count(device)
     x_blocks = math.ceil(n_cells / _THREADS)
     n_splits = max(1, math.ceil(4 * sms / x_blocks))
     per = max(_MIN_ACTIONS_PER_SPLIT, math.ceil(n_actions / n_splits))
@@ -139,6 +167,310 @@ def fused_backup2d_cuda(values, lo0, lo1, f0, f1, cost=None,
 
 
 fused_backup2d_cuda.launches = 0
+
+# the affine mode's launch shape: a block owns CELLS_PER_BLOCK consecutive
+# cells (row-major) and SPLITS action ranges of each, a thread one cell and
+# one range (kAffineMaxThreads in the CUDA source bounds their product)
+CELLS_PER_BLOCK = 16
+SPLITS = 32
+_AFFINE_MAX_THREADS = 512
+# argmin dtypes the affine kernel writes, and their widths
+_ARGMIN_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+
+
+def _affine_query(x0, x1, u, a_row, b):
+    """One next-state coordinate, ``a_row[0] * x0 + a_row[1] * x1 + b * u``
+    with Python-float coefficients: the torch ops, and so the rounding, of
+    ``models/kirk.py::build`` (the kernel pins each step)."""
+    return a_row[0] * x0 + a_row[1] * x1 + b * u
+
+
+class _AffineParams(ctypes.Structure):
+    """``AffineParams`` of the CUDA source, field for field."""
+    _fields_ = ([(k, ctypes.c_void_p) for k in (
+        "g0", "g1", "u", "state_cost", "action_cost", "row0", "n_rows")]
+        + [(k, ctypes.c_int) for k in (
+            "n0", "n1", "n_actions", "cells_per_block", "n_splits",
+            "actions_per_split", "max_rows", "n_blocks")]
+        + [(k, ctypes.c_float) for k in (
+            "a00", "a01", "a10", "a11", "b0", "b1")])
+
+
+@dataclasses.dataclass(eq=False)
+class AffineArgs:
+    """What the affine kernel reads, built and checked once
+    (:class:`AffineBackup2D`). ``axes``/``u``: the host float32 axes
+    and controls; ``A``/``B``: Python floats; the tensors live on the
+    backup's device: the axes, controls and the separable cost, and the
+    row plan (:func:`plan_rows`)."""
+
+    axes: tuple
+    u: np.ndarray
+    A: tuple
+    B: tuple
+    g0: torch.Tensor
+    g1: torch.Tensor
+    u_t: torch.Tensor
+    state_cost: torch.Tensor        # (n0 * n1,)
+    action_cost: torch.Tensor       # (n_actions,)
+    row0: torch.Tensor              # (n_blocks,) int32
+    n_rows: torch.Tensor            # (n_blocks,) int32
+    cells_per_block: int
+    n_splits: int
+    actions_per_split: int
+    max_rows: int
+    _launch: tuple | None = None    # (lib, params address, params), once
+
+    @property
+    def grid_shape(self) -> tuple:
+        return (len(self.axes[0]), len(self.axes[1]))
+
+    @property
+    def n_actions(self) -> int:
+        return len(self.u)
+
+    @property
+    def device(self) -> torch.device:
+        return self.state_cost.device
+
+    @property
+    def threads(self) -> int:
+        return self.cells_per_block * self.n_splits
+
+    @property
+    def smem_bytes(self) -> int:
+        """``affine_smem_bytes`` of the CUDA source: the per-action table
+        (4 floats an action), the axes, the staged rows and the split
+        minima."""
+        n0, n1 = self.grid_shape
+        rows = -(-self.max_rows * n1 // 4) * 4
+        return (4 * rows + 16 * self.n_actions + 4 * (n0 + n1)
+                + 8 * self.cells_per_block * self.n_splits)
+
+
+def plan_rows(axes, u, A, B, cells_per_block: int):
+    """The table rows each block of the affine kernel stages: ``(row0,
+    n_rows)``, int64 ``(n_blocks,)``, block ``b`` owning cells
+    ``[b * cells_per_block, (b + 1) * cells_per_block)`` of the row-major
+    grid. A cell's axis-0 query is monotone in the control (each rounded
+    step is), so its cell indices over all actions run between those at
+    ``min(u)`` and ``max(u)``: the planner locates those two queries per
+    cell, with the torch ops the plain version uses, and a block stages
+    rows ``row0 .. row0 + n_rows - 1``, the least and the greatest ``lo``
+    of its cells and the row after the greatest."""
+    g0 = torch.as_tensor(np.asarray(axes[0], np.float32))
+    g1 = torch.as_tensor(np.asarray(axes[1], np.float32))
+    ut = torch.as_tensor(np.asarray(u, np.float32))
+    ends = torch.stack([ut.min(), ut.max()])
+    q = _affine_query(g0[:, None, None], g1[None, :, None],
+                      ends[None, None, :], A[0], B[0])
+    lo, _ = axis_locate(axes[0], q)
+    lo = lo.reshape(-1, 2).to(torch.int64)
+    n_blocks = math.ceil(lo.shape[0] / cells_per_block)
+    pad = n_blocks * cells_per_block - lo.shape[0]
+    first = lo.min(1).values
+    last = lo.max(1).values
+    # the last block's missing cells repeat its last cell
+    first = torch.cat([first, first[-1:].expand(pad)])
+    last = torch.cat([last, last[-1:].expand(pad)])
+    row0 = first.reshape(n_blocks, cells_per_block).min(1).values
+    n_rows = last.reshape(n_blocks, cells_per_block).max(1).values + 2 - row0
+    return row0, n_rows
+
+
+def _axis(name, a) -> np.ndarray:
+    a = np.asarray(a, dtype=np.float32)
+    if a.ndim != 1 or a.size < 2:
+        raise ValueError(f"{name} must be 1-D with >= 2 points")
+    if not np.isfinite(a).all() or not (np.diff(a) > 0).all():
+        raise ValueError(f"{name} must be finite and strictly ascending")
+    return a
+
+
+def _affine_args(axes, u, A, B, state_cost, action_cost, cells_per_block,
+                 splits) -> AffineArgs:
+    if len(axes) != 2:
+        raise ValueError("the affine mode takes 2-D state grids only")
+    axes = (_axis("axes[0]", axes[0]), _axis("axes[1]", axes[1]))
+    u = np.asarray(u, dtype=np.float32)
+    if u.ndim != 1 or u.size < 1 or not np.isfinite(u).all():
+        raise ValueError("u must be 1-D, non-empty and finite")
+    A = tuple(tuple(float(x) for x in row) for row in A)
+    B = tuple(float(x) for x in B)
+    if len(A) != 2 or any(len(r) != 2 for r in A) or len(B) != 2:
+        raise ValueError("A must be 2 x 2 and B of length 2")
+    with np.errstate(over="ignore"):
+        if not np.isfinite(np.float32([*A[0], *A[1], *B])).all():
+            raise ValueError("A and B must be finite in f32")
+    # the kernel's walk assumes no query is NaN: bound |q| well inside f32
+    top = [float(np.abs(x).max()) for x in (*axes, u)]
+    reach = [abs(a[0]) * top[0] + abs(a[1]) * top[1] + abs(b) * top[2]
+             for a, b in zip(A, B)]
+    if max(reach) >= 1e37:
+        raise ValueError(f"queries up to {max(reach):.3g} could overflow f32")
+    n0, n1 = len(axes[0]), len(axes[1])
+    if n0 * n1 >= 2**31 or u.size >= 2**31:
+        raise ValueError("the affine kernel indexes cells and actions in "
+                         "int32")
+    if not (isinstance(state_cost, torch.Tensor)
+            and isinstance(action_cost, torch.Tensor)):
+        raise ValueError("state_cost and action_cost must be tensors (on "
+                         "the backup's device)")
+    dev = state_cost.device
+    if action_cost.device != dev or dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"state_cost on {dev}, action_cost on "
+                         f"{action_cost.device}: both on one CPU or CUDA "
+                         "device")
+    if tuple(state_cost.shape) not in ((n0, n1), (n0 * n1,)) \
+            or tuple(action_cost.shape) != (u.size,):
+        raise ValueError(f"cost shapes must be ({n0}, {n1}) and "
+                         f"({u.size},), got {tuple(state_cost.shape)} and "
+                         f"{tuple(action_cost.shape)}")
+    if cells_per_block < 1 or splits < 1:
+        raise ValueError("cells_per_block and splits must be >= 1")
+    per = math.ceil(u.size / min(splits, u.size))
+    n_splits = math.ceil(u.size / per)
+    if cells_per_block * n_splits > _AFFINE_MAX_THREADS:
+        raise ValueError(f"{cells_per_block} cells x {n_splits} splits "
+                         f"exceed {_AFFINE_MAX_THREADS} threads a block")
+    row0, n_rows = plan_rows(axes, u, A, B, cells_per_block)
+
+    def f32(t):
+        return torch.as_tensor(t, dtype=torch.float32, device=dev) \
+            .contiguous()
+
+    def i32(t):
+        return t.to(device=dev, dtype=torch.int32).contiguous()
+
+    args = AffineArgs(
+        axes=axes, u=u, A=A, B=B, g0=f32(axes[0]), g1=f32(axes[1]),
+        u_t=f32(u), state_cost=f32(state_cost).reshape(n0 * n1),
+        action_cost=f32(action_cost), row0=i32(row0), n_rows=i32(n_rows),
+        cells_per_block=int(cells_per_block), n_splits=n_splits,
+        actions_per_split=per, max_rows=int(n_rows.max()))
+    if args.smem_bytes > SMEM_LIMIT_BYTES:
+        raise ValueError(
+            f"the affine kernel needs {args.smem_bytes} B of shared memory "
+            f"({args.max_rows} table rows of {n1}); a block holds "
+            f"{SMEM_LIMIT_BYTES} B")
+    return args
+
+
+def affine_plan(args: AffineArgs, device) -> tuple:
+    """The plan the affine kernel forms, action-major on ``device``: ``(lo0,
+    lo1, f0, f1)``, each ``(A, S)``, the queries formed with the torch ops
+    of ``models/kirk.py::build`` and located with ``interp.axis_locate``, as
+    ``build_plan`` locates them (what the plan-streamed mode would stream)."""
+    g0 = torch.as_tensor(args.axes[0], device=device)[None, :, None]
+    g1 = torch.as_tensor(args.axes[1], device=device)[None, None, :]
+    u = torch.as_tensor(args.u, device=device)[:, None, None]
+    lo, frac = zip(*(axis_locate(args.axes[k],
+                                 _affine_query(g0, g1, u, args.A[k],
+                                               args.B[k]))
+                     for k in range(2)))
+    return tuple(t.reshape(args.n_actions, -1) for t in (*lo, *frac))
+
+
+def fused_backup2d_affine_plain(values, args: AffineArgs) -> BackupResult:
+    """The affine kernel's function in plain PyTorch on ``values``'s device:
+    :func:`affine_plan`, then :func:`fused_backup2d_plain` with the
+    separable cost."""
+    dev = values.device
+    return fused_backup2d_plain(values, *affine_plan(args, dev),
+                                state_cost=args.state_cost.to(dev),
+                                action_cost=args.action_cost.to(dev))
+
+
+def _affine_launch(args: AffineArgs) -> tuple:
+    """``(lib, params address)``: the library loaded, the kernel's parameter
+    block built and the launch shape configured, once per ``args`` (it sets
+    function attributes, so never during a CUDA graph capture)."""
+    if args._launch is None:
+        from .. import _build
+
+        lib = _build.load()
+        if lib.fused_backup2d_affine_params_size() != \
+                ctypes.sizeof(_AffineParams):
+            raise RuntimeError("AffineParams differs between the CUDA "
+                               "source and ops/fused_backup2d.py")
+        n0, n1 = args.grid_shape
+        params = _AffineParams(
+            args.g0.data_ptr(), args.g1.data_ptr(), args.u_t.data_ptr(),
+            args.state_cost.data_ptr(), args.action_cost.data_ptr(),
+            args.row0.data_ptr(), args.n_rows.data_ptr(),
+            n0, n1, args.n_actions, args.cells_per_block, args.n_splits,
+            args.actions_per_split, args.max_rows, args.row0.numel(),
+            *args.A[0], *args.A[1], *args.B)
+        addr = ctypes.addressof(params)
+        _raise_on(lib, lib.fused_backup2d_affine_configure(addr),
+                  "configure")
+        args._launch = (lib, addr, params)
+    return args._launch[:2]
+
+
+def _raise_on(lib, err: int, what: str) -> None:
+    if err != 0:
+        msg = lib.fused_backup2d_error_string(err).decode()
+        raise RuntimeError(f"fused_backup2d affine {what} failed: CUDA error "
+                           f"{err} ({msg})")
+
+
+def _check_table(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.shape != shape or t.dtype != dtype:
+        raise ValueError(f"{name}: want {dtype} {tuple(shape)}, got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, the backup on {device}: "
+                         "both must be on one CUDA device")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def fused_backup2d_affine_cuda(values: torch.Tensor, args: AffineArgs,
+                               out_v: torch.Tensor | None = None,
+                               out_a: torch.Tensor | None = None
+                               ) -> BackupResult:
+    """Launch the affine kernel for one sweep of ``values`` (float32, the
+    grid's shape), into new outputs or the caller's ``out_v`` (float32, not
+    ``values``) and ``out_a`` (uint8, int16 or int32), each in the grid's
+    shape. ``args`` were checked when they were built; per call only the
+    three tables are. Raises on what it does not take and on a launch the
+    device refuses; with its outputs given it allocates nothing and sets
+    no function attribute, so a CUDA graph may capture it (after
+    :meth:`AffineBackup2D.prepare`)."""
+    dev = args.device
+    if not values.is_cuda or dev.type != "cuda":
+        raise ValueError(f"values on {values.device}, the backup on {dev}: "
+                         "the kernel needs both on one CUDA device")
+    shape = torch.Size(args.grid_shape)
+    _check_table("values", values, shape, torch.float32, dev)
+    if out_v is None:
+        out_v = torch.empty(shape, dtype=torch.float32, device=dev)
+    if out_a is None:
+        out_a = torch.empty(shape, dtype=torch.int32, device=dev)
+    _check_table("out_v", out_v, shape, torch.float32, dev)
+    width = _ARGMIN_BYTES.get(out_a.dtype)
+    if width is None:
+        raise ValueError(f"out_a: the kernel writes {list(_ARGMIN_BYTES)}, "
+                         f"got {out_a.dtype}")
+    _check_table("out_a", out_a, shape, out_a.dtype, dev)
+    if torch.iinfo(out_a.dtype).max < args.n_actions - 1:
+        raise ValueError(f"out_a: {out_a.dtype} cannot hold "
+                         f"{args.n_actions} actions")
+    if out_v.data_ptr() == values.data_ptr():
+        raise ValueError("out_v must not be the input table")
+    lib, params = _affine_launch(args)
+    err = lib.fused_backup2d_affine_f32(
+        params, values.data_ptr(), out_v.data_ptr(), out_a.data_ptr(), width,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(lib, err, "launch")
+    fused_backup2d_affine_cuda.launches += 1
+    fused_backup2d_affine_cuda.channel_sweeps += 1
+    return BackupResult(out_v, out_a)
+
+
+fused_backup2d_affine_cuda.launches = 0
+fused_backup2d_affine_cuda.channel_sweeps = 0
 
 
 class FusedBackup2D:
@@ -197,3 +529,55 @@ class FusedBackup2D:
         if values.device.type == "cpu":
             return fused_backup2d_plain(*args)
         raise ValueError(f"no fused_backup2d for device {values.device}")
+
+
+class AffineBackup2D:
+    """Callable ``values -> BackupResult``: B.1's affine-query mode for
+    dynamics ``x' = A x + B u`` on the grid ``axes`` (two strictly ascending
+    1-D axes) with controls ``u`` (1-D) and the separable cost
+    ``state_cost`` ``(n0, n1)`` + ``action_cost`` ``(n_actions,)``, on the
+    costs' device: the kernel on a CUDA device, the plain version on the
+    CPU; it never swaps one for the other. ``A`` (2 x 2) and ``B`` (2,) are
+    taken as Python floats, as ``models/kirk.py::build`` uses them. The
+    launch shape is ``CELLS_PER_BLOCK`` x ``SPLITS``. Raises on inputs it
+    cannot take.
+
+    Graph-safe: :meth:`sweep_into` writes into the caller's buffers (an
+    argmin of any ``argmin_dtypes`` dtype, e.g. a slot of a narrow policy
+    stack) and allocates nothing, after :meth:`prepare`.
+    """
+
+    graph_safe = True
+    argmin_dtypes = tuple(_ARGMIN_BYTES)
+    launcher = staticmethod(fused_backup2d_affine_cuda)
+
+    def __init__(self, axes, u, A, B, state_cost: torch.Tensor,
+                 action_cost: torch.Tensor):
+        self.args = _affine_args(axes, u, A, B, state_cost, action_cost,
+                                 CELLS_PER_BLOCK, SPLITS)
+
+    def __call__(self, values: torch.Tensor) -> BackupResult:
+        if values.is_cuda:
+            return fused_backup2d_affine_cuda(values, self.args)
+        if values.device.type == "cpu":
+            return fused_backup2d_affine_plain(values, self.args)
+        raise ValueError(f"no fused_backup2d for device {values.device}")
+
+    def prepare(self) -> None:
+        """Build and configure the kernel before a CUDA graph captures a
+        launch."""
+        if self.args.device.type == "cuda":
+            _affine_launch(self.args)
+
+    def sweep_into(self, values: torch.Tensor, out_v: torch.Tensor,
+                   out_a: torch.Tensor) -> None:
+        """One sweep of ``values`` into the caller's ``out_v`` and ``out_a``,
+        each in the grid's shape: the kernel on a CUDA tensor (no
+        allocation, so a CUDA graph may capture it), the plain version on a
+        CPU tensor."""
+        if values.is_cuda:
+            fused_backup2d_affine_cuda(values, self.args, out_v, out_a)
+            return
+        res = self(values)
+        out_v.copy_(res.values)
+        out_a.copy_(res.argmin)

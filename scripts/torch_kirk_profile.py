@@ -6,7 +6,8 @@
 Builds ``KirkConfig()`` (100x100 states, 1000 controls, 199 sweeps) on the
 card and times, with CUDA events (warm, median of 10):
 
-* one call of the fused kernel's wrapper, back to back (20 per timing);
+* one call of the fused kernel's wrapper in its affine-query mode (the
+  one ``kirk.solve`` runs), back to back (20 per timing);
 * the 199-sweep engine loop through the kernel, policies stored;
 * one plain-PyTorch sweep on the same inputs.
 
@@ -29,6 +30,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from ocdp_tpu_torch.engine import value_iteration_finite  # noqa: E402
 from ocdp_tpu_torch.models import kirk  # noqa: E402
 from ocdp_tpu_torch.ops import fused_backup2d as fb  # noqa: E402
+from ocdp_tpu_torch.ops.interp import PlanShape  # noqa: E402
 from ocdp_tpu_torch.profiling import cuda_time_ms  # noqa: E402
 
 
@@ -44,24 +46,24 @@ def main() -> None:
                          text=True, check=True, timeout=60).stdout.strip())
     device = torch.device("cuda")
     cfg = kirk.KirkConfig()
-    p = kirk.build(cfg, device=device)
-    bk = fb.FusedBackup2D(p.plan, p.stage_cost,
-                          cost_terms=kirk._separable_cost_terms(cfg,
-                                                                device=device))
+    bk = kirk.affine_backup(cfg, device)
+    shape = PlanShape((cfg.dx, cfg.dx), (cfg.dx, cfg.dx, cfg.du), device)
     sweeps = cfg.N - 1
     evals = cfg.dx * cfg.dx * cfg.du
-    v = value_iteration_finite(p.plan, p.stage_cost, sweeps,
-                               backup=bk).values
-    kargs = (v, bk.lo0, bk.lo1, bk.f0, bk.f1, bk.cost, bk.state_cost,
-             bk.action_cost)
+    v = value_iteration_finite(shape, None, sweeps, backup=bk).values
+    ov = torch.empty_like(v)
+    oa = torch.empty(v.shape, dtype=torch.int32, device=device)
 
     def loop():
-        return value_iteration_finite(p.plan, p.stage_cost, sweeps,
+        return value_iteration_finite(shape, None, sweeps,
                                       store_policies=True, backup=bk)
 
-    wrapper_ms = cuda_time_ms(lambda: fb.fused_backup2d_cuda(*kargs), inner=20)
+    wrapper_ms = cuda_time_ms(
+        lambda: fb.fused_backup2d_affine_cuda(v, bk.args, ov, oa),
+        inner=20)
     loop_ms = cuda_time_ms(loop, inner=1)
-    plain_ms = cuda_time_ms(lambda: fb.fused_backup2d_plain(*kargs), inner=5)
+    plain_ms = cuda_time_ms(
+        lambda: fb.fused_backup2d_affine_plain(v, bk.args), inner=5)
     print(f"wrapper call, back to back: {wrapper_ms:.4f} ms "
           f"({evals / wrapper_ms * 1e3:.4e} evals/s)")
     print(f"{sweeps}-sweep loop: {loop_ms:.3f} ms "

@@ -1,5 +1,6 @@
-"""The CUDA kernels (fused 2-D backup, row/lane backup with its channel
-batch, tile map and CUDA graph replay, 6-D coupled-lane
+"""The CUDA kernels (fused 2-D backup in its plan-streamed and affine-query
+modes, the affine one in CUDA graphs and the finite engine; row/lane backup
+with its channel batch, tile map and CUDA graph replay, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells; the
@@ -26,7 +27,7 @@ from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import band_backup2d as bb
 from ocdp_tpu_torch.ops import fused_backup2d as fb
 from ocdp_tpu_torch.ops import rowlane as rl
-from ocdp_tpu_torch.ops.interp import InterpPlan, build_plan
+from ocdp_tpu_torch.ops.interp import InterpPlan, PlanShape, build_plan
 from ocdp_tpu_torch.profiling import cuda_time_ms
 
 pytestmark = pytest.mark.cuda
@@ -83,13 +84,207 @@ def test_exact_ties_take_the_first_action(device):
 
 
 def test_solve_kernel_equals_gather(device):
+    """impl='kernel' is B.1's affine mode, one launch a sweep; the
+    plan-streamed mode through the same engine, one launch a sweep too;
+    both equal the gather solve."""
+    from ocdp_tpu_torch.engine import value_iteration_finite
+
     cfg = kirk.KirkConfig(N=20, dx=40, du=300)
-    before = fb.fused_backup2d_cuda.launches
-    sk = kirk.solve(cfg, device=device, impl="kernel")
-    assert fb.fused_backup2d_cuda.launches == before + cfg.N - 1
-    sg = kirk.solve(cfg, device=device, impl="gather")
-    assert torch.equal(sk.result.values, sg.result.values)
-    assert torch.equal(sk.result.policies, sg.result.policies)
+    before = (fb.fused_backup2d_affine_cuda.launches,
+              fb.fused_backup2d_cuda.launches)
+    sk = kirk.solve(cfg, device=device, impl="kernel").result
+    assert fb.fused_backup2d_affine_cuda.launches == before[0] + cfg.N - 1
+    assert fb.fused_backup2d_cuda.launches == before[1]
+    p = kirk.build(cfg, device=device)
+    ss = value_iteration_finite(
+        p.plan, p.stage_cost, cfg.N - 1, store_policies=True,
+        backup=fb.FusedBackup2D(
+            p.plan, p.stage_cost,
+            cost_terms=kirk._separable_cost_terms(cfg, device=device)))
+    assert fb.fused_backup2d_cuda.launches == before[1] + cfg.N - 1
+    sg = kirk.solve(cfg, device=device, impl="gather").result
+    for r in (sk, ss):
+        assert torch.equal(r.values, sg.values)
+        assert torch.equal(r.policies, sg.policies)
+    assert sk.policies.dtype == torch.int16
+
+
+AFFINE_CONFIGS = {
+    "golden": kirk.KirkConfig.golden(),
+    "full": kirk.KirkConfig(N=3),
+    "negative_B": kirk.KirkConfig(N=3, B=(-0.0013, -0.0539)),
+    "zero_B": kirk.KirkConfig(N=3, dx=60, du=500, B=(0.0, 0.0539),
+                              A=((-0.9974, 0.0539), (0.1078, -1.1591))),
+}
+
+
+def _affine_vs(aff, v, streamed=None):
+    """The affine kernel, one launch, == its plain version and the
+    plan-streamed kernel (on ``streamed``'s plan, or on the affine mode's
+    own), bitwise, the argmin also as int16 (and uint8 where it fits)."""
+    args = aff.args
+    before = fb.fused_backup2d_affine_cuda.launches
+    got = aff(v)
+    torch.cuda.synchronize()
+    assert fb.fused_backup2d_affine_cuda.launches == before + 1
+    want = fb.fused_backup2d_affine_plain(v, args)
+    _bitwise(got, want)
+    if streamed is None:
+        _bitwise(got, fb.fused_backup2d_cuda(
+            v, *fb.affine_plan(args, v.device),
+            state_cost=args.state_cost, action_cost=args.action_cost))
+    else:
+        _bitwise(got, streamed(v))
+    for dt in [torch.int16] + ([torch.uint8] if args.n_actions <= 256
+                               else []):
+        ov, oa = torch.empty_like(v), torch.empty(v.shape, dtype=dt,
+                                                  device=v.device)
+        aff.sweep_into(v, ov, oa)
+        assert torch.equal(ov, want.values)
+        assert torch.equal(oa.to(torch.int32), want.argmin)
+    return got
+
+
+@pytest.mark.parametrize("name", list(AFFINE_CONFIGS))
+def test_affine_sweep_bitwise(device, name):
+    cfg = AFFINE_CONFIGS[name]
+    p = kirk.build(cfg, device=device)
+    streamed = fb.FusedBackup2D(
+        p.plan, p.stage_cost,
+        cost_terms=kirk._separable_cost_terms(cfg, device=device))
+    v = torch.from_numpy(np.random.default_rng(cfg.dx).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    _affine_vs(kirk.affine_backup(cfg, device), v, streamed)
+
+
+def _whole_table(args):
+    """Affine arguments whose blocks each stage the whole table."""
+    import dataclasses
+
+    n0 = args.grid_shape[0]
+    return dataclasses.replace(args, row0=torch.zeros_like(args.row0),
+                               n_rows=torch.full_like(args.n_rows, n0),
+                               max_rows=n0, _launch=None)
+
+
+@pytest.mark.parametrize("shape", [(16, 32), (8, 32), (1, 8), (33, 15)])
+def test_affine_launch_shapes_bitwise(device, shape, monkeypatch):
+    cfg = AFFINE_CONFIGS["negative_B"]
+    s_r, u = kirk._meshes(cfg)
+    s_c, a_c = kirk._separable_cost_terms(cfg, device=device)
+    monkeypatch.setattr(fb, "CELLS_PER_BLOCK", shape[0])
+    monkeypatch.setattr(fb, "SPLITS", shape[1])
+    aff = fb.AffineBackup2D((s_r, s_r), u, cfg.A, cfg.B, s_c, a_c)
+    v = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    _affine_vs(aff, v)
+    whole = fb.fused_backup2d_affine_cuda(v, _whole_table(aff.args))
+    _bitwise(whole, fb.fused_backup2d_affine_plain(v, aff.args))
+
+
+def test_affine_shapes_configured_in_any_order(device):
+    """The shared memory limit is the kernel's, not a backup's: arguments
+    that need more (the whole table staged) configured first, a backup
+    that needs less next, the first still launches."""
+    cfg = AFFINE_CONFIGS["full"]
+    small = kirk.affine_backup(cfg, device)
+    big = _whole_table(small.args)
+    assert big.smem_bytes > small.args.smem_bytes
+    fb._affine_launch(big)
+    small.prepare()
+    v = torch.from_numpy(np.random.default_rng(4).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    _bitwise(fb.fused_backup2d_affine_cuda(v, big), small(v))
+
+
+def test_affine_exact_ties_on_unsorted_controls(device):
+    """The golden controls forwards then backwards: every query repeats, so
+    every minimum ties and the first copy wins; the walk turns back."""
+    cfg = kirk.KirkConfig.golden()
+    s_r, u = kirk._meshes(cfg)
+    s_c, a_c = kirk._separable_cost_terms(cfg, device=device)
+    aff = fb.AffineBackup2D(
+        (s_r, s_r), np.concatenate([u, u[::-1]]), cfg.A, cfg.B, s_c,
+        torch.cat([a_c, a_c.flip(0)]))
+    v = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    assert int(_affine_vs(aff, v).argmin.max()) < cfg.du
+
+
+def test_affine_graph_replay_equals_eager(device):
+    """A CUDA graph of 10 affine sweeps (ping-pong buffers) equals the same
+    sweeps launched eagerly, and its replay counts its 10 launches."""
+    from ocdp_tpu_torch.engine import SweepGraph, ping_pong
+
+    cfg = AFFINE_CONFIGS["negative_B"]
+    aff = kirk.affine_backup(cfg, device)
+    aff.prepare()
+    v0 = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    out = []
+    for graphed in (True, False):
+        cur, nxt = v0.clone(), torch.empty_like(v0)
+        arg = torch.empty(v0.shape, dtype=torch.int32, device=device)
+
+        def step(src, dst):
+            aff.sweep_into(src, dst, arg)
+
+        if graphed:
+            g = SweepGraph(step, cur, nxt, 10, (aff.launcher,))
+            before = fb.fused_backup2d_affine_cuda.launches
+            g.replay()
+            assert fb.fused_backup2d_affine_cuda.launches == before + 10
+        else:
+            ping_pong(step, cur, nxt, 10)
+        torch.cuda.synchronize()
+        out.append((cur, arg))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+def test_affine_finite_engine_replays_its_graphs(device):
+    """Without stored policies the finite engine runs the affine sweeps as
+    one CUDA graph of 100 and 31 eager launches, in each of two solves with
+    one backup; both equal the gather solve bitwise."""
+    from ocdp_tpu_torch import engine
+
+    cfg = kirk.KirkConfig(N=132, dx=50, du=200)
+    aff = kirk.affine_backup(cfg, device)
+    shape = PlanShape((cfg.dx,) * 2, (cfg.dx,) * 2 + (cfg.du,), device)
+    want = kirk.solve(cfg, device=device, impl="gather",
+                      store_policies=False).result
+    results = []
+    for _ in range(2):
+        before = fb.fused_backup2d_affine_cuda.launches
+        results.append(engine.value_iteration_finite(shape, None, cfg.N - 1,
+                                                     backup=aff))
+        assert fb.fused_backup2d_affine_cuda.launches == before + cfg.N - 1
+    for r in results:
+        assert torch.equal(r.values, want.values)
+        assert torch.equal(r.argmin, want.argmin)
+    assert results[0].values.data_ptr() != results[1].values.data_ptr()
+
+
+def test_affine_wrapper_refuses_on_the_card(device):
+    cfg = kirk.KirkConfig.golden()
+    aff = kirk.affine_backup(cfg, device)
+    cpu_args = kirk.affine_backup(cfg, "cpu").args
+    v = torch.zeros((cfg.dx, cfg.dx), device=device)
+    before = fb.fused_backup2d_affine_cuda.launches
+    with pytest.raises(ValueError, match="CUDA device"):
+        fb.fused_backup2d_affine_cuda(v, cpu_args)
+    with pytest.raises(ValueError, match="out_a"):
+        fb.fused_backup2d_affine_cuda(
+            v, aff.args, torch.empty_like(v),
+            torch.empty(v.shape, dtype=torch.int64, device=device))
+    with pytest.raises(ValueError, match="input table"):
+        fb.fused_backup2d_affine_cuda(
+            v, aff.args, v,
+            torch.empty(v.shape, dtype=torch.int32, device=device))
+    with pytest.raises(ValueError, match="values"):
+        fb.fused_backup2d_affine_cuda(torch.zeros((34, 35), device=device),
+                                      aff.args)
+    assert fb.fused_backup2d_affine_cuda.launches == before
 
 
 def test_wrapper_refuses_mixed_devices(device):
@@ -727,11 +922,10 @@ def test_entry_step_is_one_b1_launch_equal_to_plain(device):
     bk = step.backup
     v = torch.from_numpy(np.random.default_rng(3).uniform(
         0.0, 400.0, tuple(v0.shape)).astype(np.float32)).to(device)
-    before = fb.fused_backup2d_cuda.launches
+    before = fb.fused_backup2d_affine_cuda.launches
     vals, arg = step(v)
-    assert fb.fused_backup2d_cuda.launches == before + 1
-    want = fb.fused_backup2d_plain(v, bk.lo0, bk.lo1, bk.f0, bk.f1, bk.cost,
-                                   bk.state_cost, bk.action_cost)
+    assert fb.fused_backup2d_affine_cuda.launches == before + 1
+    want = fb.fused_backup2d_affine_plain(v, bk.args)
     assert torch.equal(vals, want.values)
     assert torch.equal(arg, want.argmin)
 
@@ -742,12 +936,14 @@ def test_trace_holds_each_b1_launch(device, tmp_path):
     from ocdp_tpu_torch import profiling
 
     cfg = kirk.KirkConfig.golden()
-    before = fb.fused_backup2d_cuda.launches
+    before = fb.fused_backup2d_affine_cuda.launches
     with profiling.trace(tmp_path) as t:
         kirk.solve(cfg, device=device)
         torch.cuda.synchronize()
-    launches = fb.fused_backup2d_cuda.launches - before
+    launches = fb.fused_backup2d_affine_cuda.launches - before
     events = json.loads(t.path.read_text())["traceEvents"]
-    partial = [e for e in events if e.get("cat") == "kernel"
-               and "backup_partial" in e.get("name", "")]
-    assert launches == cfg.N - 1 == len(partial)
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    affine = [n for n in names if "affine_sweep" in n]
+    assert launches == cfg.N - 1 == len(affine)
+    assert not any("combine_splits" in n or "backup_partial" in n
+                   for n in names)
