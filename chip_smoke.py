@@ -19,12 +19,23 @@ kernel, one launch a sweep):
    and one with a zero ``B`` entry and negated ``A``, on a crafted
    exact-tie plan (streamed) and on the golden controls listed twice
    (affine): values and argmin bitwise, the affine argmin also as int16 and
-   uint8;
+   uint8; then the affine kernel's other two stages at the configurations
+   that need them: ``KirkConfig(du=20000)`` (the action records staged in
+   chunks; also against the streamed kernel), ``KirkConfig(dx=900)`` and
+   ``KirkConfig(dx=300, B=(2.0, 0.0539))`` (the table read from global
+   memory), against the plain version bitwise;
 4. the full solve, ``kirk.solve(KirkConfig(), device='cuda')`` (100x100
    states, 1000 controls, 199 sweeps, policies stored): the affine kernel
    launches exactly 199 times and no other backup kernel runs, and values
    and every stored policy equal ``impl='gather'`` bitwise; then the
    plan-streamed mode through the same engine the same way (199 launches);
+   then ``kirk.solve`` (auto) at the three configurations above: 199
+   launches of the affine kernel each and no other backup kernel, no NaN
+   in the values, and, sweep by sweep, values and policies equal to its
+   plain version through the same engine bitwise over every sweep whose
+   values are finite (printed: each version's first sweep with a
+   non-finite value and the first sweep that differs; du=20000 stays
+   finite, the other two overflow f32 in both versions);
 5. the golden solve on the card against MATLAB truth
    (tests/golden/obj1_reference.npz, tests/test_golden.py's tolerances) and
    the stored golden solve and rollout (tests/golden/kirk_golden.npz);
@@ -32,7 +43,9 @@ kernel, one launch a sweep):
    mode and of its plain version (back-to-back calls), the affine launch
    replayed as a CUDA graph, the 199-sweep loops (policies stored; and the
    affine one without policies, through CUDA graphs), and the full solves
-   with their builds.
+   with their builds; one sweep of the chunked and the table-from-global
+   stages at their configurations beside their bounds, with each stage's
+   shared memory, occupancy and ptxas lines.
 
 Coupled position+attitude (kernel ``rowlane_backup``):
 
@@ -42,7 +55,14 @@ Coupled position+attitude (kernel ``rowlane_backup``):
    9-action channels), each channel of the batch also against its own
    launch; 50 sweeps of the four channels replayed as one CUDA graph
    against the same sweeps as eager launches; an exact-tie case (every
-   action listed twice): bitwise equal;
+   action listed twice); past 20 row combos, the 40-combo kernel (kind 3):
+   the x, z and x_failure channels of ``PosAttConfig(n_mesh_w=120)`` (35,
+   35 and 31 combos; y's 41 exceed the TPU kernel's 40 too) each alone,
+   and the four channels of ``n_mesh_w=100`` (30-35 combos) alone and in
+   one launch; past 32 row combos with other lane taps, the any-tap
+   40-combo kernel (kind 4): simplified attitude axis 0 at
+   ``AttitudeConfig(n_mesh_w=1400)`` (33 combos, lane taps -2..2): bitwise
+   equal;
 8. the main path, ``pos_att.solve(PosAttConfig(), device='cuda')`` (the
    four channels in lockstep, one launch a sweep, the 50 sweeps between
    two checks one CUDA graph): the kernel launches exactly 1999 times for
@@ -56,12 +76,18 @@ Coupled position+attitude (kernel ``rowlane_backup``):
    and |x| shrinking;
 10. the high-resolution solve (``PosAttConfig.high_res()``, 3 channels)
     through the kernel, timed, its launches and channel-sweeps counted;
+    ``pos_att.solve(PosAttConfig(n_mesh_w=100))`` through the 40-combo
+    kernel, its launches and channel-sweeps counted, and its first 50
+    sweeps equal to ``impl='rowlane'`` bitwise;
 11. timing with CUDA events, warm, median of 10: the four channels' sweep
     in one launch, the kernel alone (20 launches replayed as a CUDA graph)
     and through the wrapper, the x channel alone, and the plain version, at
-    both sizes, with the tile plan's dynamic shared memory, the occupancy
-    and each instantiation's ptxas line; the full reference solve, a 1 s
-    rk4 flight and the fleet's flight-seconds per second.
+    the reference size, ``high_res()`` and ``n_mesh_w=100`` (the 40-combo
+    kernel; its x channel alone at ``n_mesh_w=120`` too; the any-tap
+    40-combo kernel on phase 7's simplified axis), with the tile
+    plan's dynamic shared memory, the occupancy and each instantiation's
+    ptxas line; the full reference solve, a 1 s rk4 flight and the fleet's
+    flight-seconds per second.
 
 Full 6-D attitude (kernel ``backup6d``), at the reference's historical
 ``AttitudeConfig(n_mesh_w=11, n_mesh_q=10)`` (11^3 x 10^3 cells, 27
@@ -339,7 +365,7 @@ def ptxas_lines(name: str) -> list:
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
                           r"loads", b)
         stack = re.search(r"(\d+) bytes stack frame", b)
-        inst = re.search(r"(ILb[01]ELi\d+|ILi\d+)", head)
+        inst = re.search(r"(ILb[01]ELi\d+|I[a-z]?Li\d+)", head)
         out.append(f"{name}{'<' + inst.group(1) + '>' if inst else ''}: "
                    f"{regs.group(1)} registers, "
                    f"{stack.group(1) if stack else 0} B stack frame, "
@@ -371,7 +397,7 @@ def main() -> None:
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s")
 
-    kernels = [*kirk_phases(device), pos_att_phases(device)]
+    kernels = [*kirk_phases(device), *pos_att_phases(device)]
     b3 = attitude_phases(device)
     kernels += [b3, *envelope_phases(device, b3)]
     free_cuda()
@@ -415,17 +441,25 @@ def launch_counts() -> dict:
     return {name: fn.launches for name, fn in LAUNCHERS.items()}
 
 
+STAGE_NAMES = {fb.STAGE_ALL: "every record staged",
+               fb.STAGE_CHUNKS: "records in chunks",
+               fb.TABLE_GLOBAL: "table from global memory"}
+
+
 def affine_vs(aff, bk, v, label: str) -> float:
     """One sweep of the affine kernel (B.1's affine-query mode) against its
     plain version and against the plan-streamed kernel on the same inputs:
     ``bk``'s plan (``kirk.build``'s), or, with ``bk`` None, the plan the
-    affine mode forms (``fb.affine_plan``). Values and argmin bitwise, the
-    argmin also in each narrower width the kernel writes. Returns max |dV|
-    against the plain version."""
+    affine mode forms (``fb.affine_plan``), or, with ``bk`` False, none (it
+    stages the whole table, at most 241 x 241). Values and argmin bitwise,
+    the argmin also in each narrower width the kernel writes. Returns max
+    |dV| against the plain version."""
     args = aff.args
     got = fb.fused_backup2d_affine_cuda(v, args)
     want = fb.fused_backup2d_affine_plain(v, args)
-    if bk is None:
+    if bk is False:
+        streamed = want
+    elif bk is None:
         streamed = fb.fused_backup2d_cuda(
             v, *fb.affine_plan(args, v.device),
             state_cost=args.state_cost, action_cost=args.action_cost)
@@ -446,10 +480,11 @@ def affine_vs(aff, bk, v, label: str) -> float:
     same_s = (torch.equal(got.values, streamed.values)
               and torch.equal(got.argmin, streamed.argmin))
     print(f"{label}, affine mode ({args.row0.numel()} blocks of "
-          f"{args.threads} threads, up to {args.max_rows} table rows "
-          f"staged): == plain bitwise {same}, == streamed kernel bitwise "
-          f"{same_s}, argmin as {[str(d) for d in narrow]} too "
-          f"{same_narrow}, max |dV| {err}")
+          f"{args.threads} threads, {STAGE_NAMES[args.stage]}, "
+          f"{args.smem_bytes} B of shared memory, up to {args.max_rows} "
+          f"table rows): == plain bitwise {same}, == streamed kernel "
+          f"bitwise {same_s if bk is not False else 'not compared'}, argmin "
+          f"as {[str(d) for d in narrow]} too {same_narrow}, max |dV| {err}")
     check(bool(torch.isfinite(got.values).all()), f"{label}: non-finite")
     check(same and same_s and same_narrow,
           f"{label}: affine kernel != plain version or streamed kernel")
@@ -468,8 +503,46 @@ def affine_bound(args) -> dict:
     n0, n1 = args.grid_shape
     s, a, blocks = n0 * n1, args.n_actions, args.row0.numel()
     flops = 26.0 * s * a + (6 + args.n_splits - 1) * s + 2.0 * a * blocks
-    nbytes = 4 * (s + n0 + n1 + a + s + a) + 8 * blocks + 8 * s
+    row_plan = 8 * blocks if args.stage != fb.TABLE_GLOBAL else 0
+    nbytes = 4 * (s + n0 + n1 + a + s + a) + row_plan + 8 * s
     return bound(flops, nbytes)
+
+
+# the configurations past the default stage's shared memory, each with the
+# stage it takes: the action records staged in chunks (du=20000), the table
+# read from global memory (dx=900, whose planned rows outgrow shared
+# memory; dx=300 with B=(2.0, 0.0539)). Each kirk.solve is held to its plain
+# version through the same engine, sweep by sweep, bitwise over every sweep
+# whose values are finite. Both table-from-global configurations overflow
+# f32 in either version: dx=300's queries reach far off its grid (B_0 u
+# spans 100 units of a 5.5-unit axis), and dx=900's edge cells extrapolate
+# over a grid step 9 times finer than the default's, so their weights run
+# to thousands. At the sweep whose values first overflow, a candidate turns
+# NaN (inf - inf) and the kernel's NaN rule (a NaN never wins) and
+# PyTorch's (a NaN propagates) part. The first of each stage is its
+# kernels-line entry.
+C1_CONFIGS = (("du=20000", kirk.KirkConfig(du=20000), fb.STAGE_CHUNKS),
+              ("dx=900", kirk.KirkConfig(dx=900), fb.TABLE_GLOBAL),
+              ("dx=300, B=(2.0, 0.0539)",
+               kirk.KirkConfig(dx=300, B=(2.0, 0.0539)), fb.TABLE_GLOBAL))
+
+
+def sweep_readings(got, want) -> tuple:
+    """``(kernel's first non-finite, plain's first non-finite, first
+    differing)``: the 1-based sweeps at which each chain's values first
+    hold a non-finite entry, and at which the two chains' values or
+    argmins first differ (NaN equal to NaN); None where there is none."""
+    pk, pp = got.probes, want.probes
+    same = (((pk == pp) | (pk.isnan() & pp.isnan())).flatten(1).all(1)
+            & (got.policies.long() == want.policies.long())
+            .flatten(1).all(1))
+
+    def first(ok):
+        bad = torch.nonzero(~ok)
+        return int(bad[0]) + 1 if bad.numel() else None
+
+    return (first(torch.isfinite(pk).flatten(1).all(1)),
+            first(torch.isfinite(pp).flatten(1).all(1)), first(same))
 
 
 def kirk_phases(device) -> list:
@@ -527,6 +600,18 @@ def kirk_phases(device) -> list:
     tie_arg = fb.fused_backup2d_affine_cuda(tie_v, tie_aff.args).argmin
     check(int(tie_arg.max()) < gcfg.du,
           "affine exact ties: a duplicate action won")
+    # the other two stages, at the configurations that take them
+    c1 = {}
+    for label, cfg, stage in C1_CONFIGS:
+        aff = kirk.affine_backup(cfg, device)
+        check(aff.args.stage == stage, f"{label}: stage {aff.args.stage}, "
+              f"want {stage}")
+        v = torch.from_numpy(rng.uniform(0.0, 400.0, (cfg.dx, cfg.dx))
+                             .astype(np.float32)).to(device)
+        aff_err = max(aff_err, affine_vs(aff, None if cfg.dx <= 241
+                                         else False, v, label))
+        c1[label] = {"aff": aff, "v": v}
+        free_cuda()
 
     phase("4. full solve through the kernel (main path), and the streamed "
           "mode's solve")
@@ -570,6 +655,45 @@ def kirk_phases(device) -> list:
     check(streamed_launches == full_cfg.N - 1 and not any(counts.values())
           and same, "streamed solve: launches or values")
     del st, ref, p, bk
+    for label, cfg, _ in C1_CONFIGS:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        csol = kirk.solve(cfg, device=device).result
+        torch.cuda.synchronize()
+        c_s = time.perf_counter() - t0
+        counts = launch_counts()
+        n = counts.pop("fused_backup2d_affine")
+        check(n == cfg.N - 1 and not any(counts.values()),
+              f"{label}: affine launches {n} or another kernel launched")
+        check(not bool(torch.isnan(csol.values).any()),
+              f"{label}: a NaN won a minimum")
+        c1[label]["launches"] = n
+        aff = c1[label]["aff"]
+        shape = PlanShape((cfg.dx,) * 2, (cfg.dx,) * 2 + (cfg.du,), device)
+        full = ((0, cfg.dx), (0, cfg.dx))
+        got = value_iteration_finite(shape, None, cfg.N - 1,
+                                     store_policies=True, backup=aff,
+                                     probe_window=full)
+        check(torch.equal(got.values, csol.values)
+              and torch.equal(got.policies, csol.policies),
+              f"{label}: kirk.solve != the kernel through the engine")
+        del csol
+        want = value_iteration_finite(
+            shape, None, cfg.N - 1, store_policies=True, probe_window=full,
+            backup=lambda t, a=aff.args: fb.fused_backup2d_affine_plain(t, a))
+        inf_k, inf_p, differ = sweep_readings(got, want)
+        finite = min(x for x in (inf_k, inf_p, cfg.N) if x is not None) - 1
+        print(f"kirk.solve(KirkConfig({label})): {c_s:.3f} s cold, {n} "
+              f"affine-mode launches ({STAGE_NAMES[aff.args.stage]}), others "
+              f"{counts}; against its plain version through the engine, "
+              f"sweep by sweep (of {cfg.N - 1}): first sweep with a "
+              f"non-finite value, kernel {inf_k}, plain {inf_p}; first sweep "
+              f"that differs {differ}; max |V| of the last finite sweep "
+              f"{float(want.probes[finite - 1].abs().max()):.4g}")
+        check(differ is None or differ > finite,
+              f"{label}: kernel solve != plain solve on a finite sweep")
+        del got, want
+        free_cuda()
 
     phase("5. golden solve vs MATLAB truth and the stored golden")
     gsol = kirk.solve(gcfg, device=device)
@@ -609,6 +733,7 @@ def kirk_phases(device) -> list:
     np.testing.assert_allclose(U, gold["U"], atol=1e-2)
 
     phase("6. timing (CUDA events, warm, median of 10)")
+    torch.cuda.reset_peak_memory_stats()
     p = kirk.build(full_cfg, device=device)
     bk = separable_backup(p, full_cfg, device)
     aff = kirk.affine_backup(full_cfg, device)
@@ -665,6 +790,41 @@ def kirk_phases(device) -> list:
           f"{solve_st_ms:.3f} ms")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           " MiB")
+    stage_entries = []
+    for label, cfg, _ in C1_CONFIGS:
+        caff, cv = c1[label]["aff"], c1[label]["v"]
+        cargs = caff.args
+        cov, coa = torch.empty_like(cv), torch.empty(
+            cv.shape, dtype=torch.int32, device=device)
+        c_ms = cuda_time_ms(
+            lambda: fb.fused_backup2d_affine_cuda(cv, cargs, cov, coa),
+            inner=5)
+        c_graph_ms = graph_time_ms(
+            lambda: fb.fused_backup2d_affine_cuda(cv, cargs, cov, coa), n=5)
+        c_plain_ms = cuda_time_ms(
+            lambda: fb.fused_backup2d_affine_plain(cv, cargs), inner=1,
+            repeats=3)
+        cb = affine_bound(cargs)
+        c_evals = cfg.dx * cfg.dx * cfg.du
+        _, cparams = fb._affine_launch(cargs)
+        print(f"KirkConfig({label}), {STAGE_NAMES[cargs.stage]}: a sweep "
+              f"{c_ms:.4f} ms back to back ({c_evals / c_ms * 1e3:.4e} "
+              f"evals/s), {c_graph_ms:.4f} ms a launch replayed as a CUDA "
+              f"graph, bound {cb['bound_ms']:.4f} ms ({cb['bound_by']}); "
+              f"plain {c_plain_ms:.4f} ms; {cargs.row0.numel()} blocks of "
+              f"{cargs.threads} threads, {cargs.smem_bytes} B dynamic shared "
+              f"memory, {lib.fused_backup2d_affine_blocks_per_sm(cparams)} "
+              "blocks an SM")
+        name = "fused_backup2d_affine_" + (
+            "chunks" if cargs.stage == fb.STAGE_CHUNKS else "global")
+        if any(e["name"] == name for e in stage_entries):
+            continue
+        stage_entries.append(
+            {"name": name,
+             "launches": c1[label]["launches"], "max_abs_err": aff_err,
+             "ms": c_ms, "plain_ms": c_plain_ms, **cb})
+    del c1
+    free_cuda()
 
     # streamed, per eval: 4 corners, each weight (1 - f where needed: 4
     # subtractions in all) a product of 2 factors, times its corner value,
@@ -684,6 +844,7 @@ def kirk_phases(device) -> list:
         {"name": "fused_backup2d_affine", **common, "launches": launches,
          "max_abs_err": aff_err, "ms": aff_ms, "plain_ms": aff_plain_ms,
          **affine_bound(args)},
+        *({**common, **e} for e in stage_entries),
     ]
 
 
@@ -746,9 +907,18 @@ def check_flights(label: str, X, F) -> None:
     check(bool((x1 < x0).all()), f"{label}: |x| does not shrink")
 
 
-def pos_att_phases(device) -> dict:
-    """Phases 7-11; returns the row/lane kernel's entry of the kernels
-    line."""
+# past 20 row combos (the 40-combo kernel): the x channel of n_mesh_w=120
+# has 35, the four channels of n_mesh_w=100 30-35; past 32 with lane taps
+# -2..2 (the any-tap 40-combo kernel): simplified attitude axis 0 at
+# n_mesh_w=1400, 33
+WIDE_CFG = pos_att.PosAttConfig(n_mesh_w=120)
+FOUR_WIDE_CFG = pos_att.PosAttConfig(n_mesh_w=100)
+WIDE_SIMPLIFIED_CFG = attitude.AttitudeConfig(n_mesh_w=1400)
+
+
+def pos_att_phases(device) -> list:
+    """Phases 7-11; returns the row/lane kernel's entries of the kernels
+    line: the reference channels' kernel and the 40-combo one."""
     rng = np.random.default_rng(SEED + 1)
     ref_cfg = pos_att.PosAttConfig()
     hr_cfg = pos_att.PosAttConfig.high_res()
@@ -781,6 +951,48 @@ def pos_att_phases(device) -> dict:
     max_err = max(max_err, rowlane_vs_plain(tie_bk, tie_v, "exact ties"))
     check(int(tie_bk(tie_v).argmin.max()) < 9,
           "exact ties: a duplicate action won")
+    # past 20 row combos: the 40-combo kernel
+    wide_err = 0.0
+    wide_x = None
+    for size, cfg, channels in (
+            ("n_mesh_w=120", WIDE_CFG, [("x", False), ("z", False),
+                                        ("x", True)]),
+            ("n_mesh_w=100", FOUR_WIDE_CFG, POS_ATT_CHANNELS)):
+        bks, vs = [], []
+        for ch, failure in channels:
+            p = pos_att.build_channel(cfg, ch, failure=failure,
+                                      with_cost=False, device=device)
+            bk = pos_att.build_channel_rowlane_backup(cfg, p)
+            v = torch.from_numpy(rng.uniform(0.0, 80.0, p.plan.grid_shape)
+                                 .astype(np.float32)).to(device)
+            kind = rl.launch_plan(bk.to_table(v), [bk.args]).kind
+            name = ch + ("_failure" if failure else "")
+            check(kind == 3, f"{size} {name}: kernel kind {kind}, want 3")
+            wide_err = max(wide_err, rowlane_vs_plain(
+                bk, v, f"{size} {name} ({bk.NW}x{bk.NE}, "
+                f"{len(bk.row_combos)} row combos, kernel kind {kind})"))
+            bks.append(bk)
+            vs.append(v)
+            del p
+        if size == "n_mesh_w=120":
+            wide_x = (bks[:1], vs[:1])
+        else:
+            wide_err = max(wide_err, rowlane_batch_vs_plain(bks, vs, size))
+            timed[size] = (bks, vs)
+    _, splan, sterms = attitude.build_simplified_axis(WIDE_SIMPLIFIED_CFG, 0,
+                                                      device=device)
+    sbk = rl.RowLaneBackup(splan, sterms, perm=(0, 1), row_axes=1)
+    sv = torch.from_numpy(rng.uniform(0.0, 100.0, splan.grid_shape)
+                          .astype(np.float32)).to(device)
+    kind = rl.launch_plan(sbk.to_table(sv), [sbk.args]).kind
+    check(kind == 4, f"simplified n_mesh_w=1400: kernel kind {kind}, want 4")
+    wide_err = max(wide_err, rowlane_vs_plain(
+        sbk, sv, f"simplified axis 0, n_mesh_w=1400 ({sbk.NW}x{sbk.NE}, "
+        f"{len(sbk.row_combos)} row combos, lane taps {sbk.e_taps}, kernel "
+        f"kind {kind})"))
+    wide_simplified = ([sbk], [sv])
+    max_err = max(max_err, wide_err)
+    free_cuda()
 
     phase("8. main path: pos_att.solve(PosAttConfig(), device='cuda')")
     reset_launch_counts()
@@ -888,9 +1100,42 @@ def pos_att_phases(device) -> dict:
           "high-res solve: launches != sweeps")
     check(all(bool(torch.isfinite(c.values).all())
               for c in hsol.controllers.values()), "high-res: non-finite")
+    del hsol
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    wsol = pos_att.solve(FOUR_WIDE_CFG, device=device)
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - t0
+    wsweeps = {name: r.num_sweeps for name, r in wsol.results.items()}
+    counts = launch_counts()
+    wide_launches = counts.pop("rowlane_backup")
+    print(f"pos_att.solve(PosAttConfig(n_mesh_w=100)): {w_s:.3f} s; sweeps "
+          f"per channel {wsweeps}; {wide_launches} launches of the 40-combo "
+          f"kernel, {rl.rowlane_backup_cuda.channel_sweeps} channel-sweeps; "
+          f"other kernels {counts}")
+    check(wide_launches == max(wsweeps.values())
+          and rl.rowlane_backup_cuda.channel_sweeps == sum(wsweeps.values())
+          and not any(counts.values()), "n_mesh_w=100: launches != sweeps")
+    check(all(bool(torch.isfinite(c.values).all())
+              for c in wsol.controllers.values()), "n_mesh_w=100: non-finite")
+    del wsol
+    k50 = pos_att.solve(FOUR_WIDE_CFG, device=device, max_sweeps=50)
+    p50 = pos_att.solve(FOUR_WIDE_CFG, device=device, max_sweeps=50,
+                        impl="rowlane")
+    same = all(torch.equal(c.values, p50.controllers[n].values)
+               and torch.equal(c.argmin, p50.controllers[n].argmin)
+               and torch.equal(k50.results[n].checks, p50.results[n].checks)
+               for n, c in k50.controllers.items())
+    print(f"n_mesh_w=100, 50 sweeps: kernel solve == plain solve bitwise "
+          f"{same}")
+    check(same, "n_mesh_w=100: kernel solve != plain solve")
+    del k50, p50
+    free_cuda()
 
     phase("11. timing (CUDA events, warm, median of 10)")
     ms = {}
+    timed["n_mesh_w=120, x"] = wide_x
+    timed["simplified n_mesh_w=1400, axis 0"] = wide_simplified
     for size, (bks, vs) in timed.items():
         tabs = [b.to_table(v) for b, v in zip(bks, vs)]
         args = [b.args for b in bks]
@@ -906,14 +1151,18 @@ def pos_att_phases(device) -> dict:
         w_ms = cuda_time_ms(batch, inner=20)
         one_ms = graph_time_ms(lambda: rl.rowlane_backup_cuda(
             tabs[0], args[0], ov[0], oa[0]))
+        wide = size.startswith(("n_mesh_w", "simplified"))
         p_ms = cuda_time_ms(lambda: [rl.rowlane_backup_plain(t, a)
-                                     for t, a in zip(tabs, args)], inner=2)
+                                     for t, a in zip(tabs, args)],
+                            inner=1 if wide else 2, repeats=3 if wide else 10)
         ms[size] = (k_ms, p_ms)
         plan, blocks = rl.tile_occupancy(tabs[0], args)
-        print(f"{size}, the four channels in one launch: kernel alone "
-              f"{k_ms:.4f} ms ({evals / k_ms * 1e3:.4e} evals/s), through "
-              f"the wrapper back to back {w_ms:.4f} ms; the x channel alone "
-              f"{one_ms:.4f} ms; plain, four channels {p_ms:.4f} ms "
+        rb = rowlane_bound(bks)
+        print(f"{size}, the {len(bks)} channel(s) in one launch: kernel "
+              f"alone {k_ms:.4f} ms ({evals / k_ms * 1e3:.4e} evals/s; bound "
+              f"{rb['bound_ms']:.4f} ms, {rb['bound_by']}), through the "
+              f"wrapper back to back {w_ms:.4f} ms; the x channel alone "
+              f"{one_ms:.4f} ms; plain {p_ms:.4f} ms "
               f"({evals / p_ms * 1e3:.4e} evals/s)")
         print(f"  {plan.smem_bytes} B dynamic shared memory a block (tile "
               f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
@@ -937,18 +1186,20 @@ def pos_att_phases(device) -> dict:
           "second")
     print(f"peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
           " MiB")
-    return {
-        "name": "rowlane_backup",
-        "route": "cuda",
-        "source": "ocdp_tpu_torch/csrc/rowlane_backup.cu",
-        "replaces": "ocdp_tpu/ops/pallas_backup6.py:973",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms["reference"][0],
-        "plain_ms": ms["reference"][1],
-        **rowlane_bound(timed["reference"][0]),
-        "library_ms": None,
-    }
+    common = {"route": "cuda",
+              "source": "ocdp_tpu_torch/csrc/rowlane_backup.cu",
+              "replaces": "ocdp_tpu/ops/pallas_backup6.py:973",
+              "library_ms": None}
+    return [
+        {"name": "rowlane_backup", **common, "launches": launches,
+         "max_abs_err": max_err, "ms": ms["reference"][0],
+         "plain_ms": ms["reference"][1],
+         **rowlane_bound(timed["reference"][0])},
+        {"name": "rowlane_backup_40", **common, "launches": wide_launches,
+         "max_abs_err": wide_err, "ms": ms["n_mesh_w=100"][0],
+         "plain_ms": ms["n_mesh_w=100"][1],
+         **rowlane_bound(timed["n_mesh_w=100"][0])},
+    ]
 
 
 def rowlane_batch_vs_plain(bks, vs, size: str) -> float:

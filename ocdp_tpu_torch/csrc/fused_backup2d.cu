@@ -211,19 +211,38 @@ extern "C" int fused_backup2d_f32(const float* values, const int* lo0,
 // exact from any start, so a negative or zero b_k, or unsorted controls,
 // cost steps, not correctness.
 //
-// Table rows: a block stages only the rows its queries reach, which the host
-// planner (ops/fused_backup2d.py::plan_rows) finds from the same affine map
-// at the controls' extremes: row0[block], n_rows[block] (~8 rows of 100 at
-// full Kirk, against the 100-row table each streamed-mode block stages).
+// What a block keeps in shared memory (the stage, AffineArgs.stage in
+// ops/fused_backup2d.py, chosen on the host before any launch, from the
+// configuration alone):
+//
+// * kStageAll (Kirk's default and every configuration that fits): the
+//   table rows its queries reach, which the host planner
+//   (ops/fused_backup2d.py::plan_rows) finds from the same affine map at the
+//   controls' extremes: row0[block], n_rows[block] (~8 rows of 100 at full
+//   Kirk, against the 100-row table each streamed-mode block stages); the
+//   axes; and the action record (B_0 u, B_1 u, cost) of every action, 16 B
+//   an action. Shared memory grows with the actions and the rows;
+// * kStageChunks (too many actions for that): the same rows and axes, and
+//   the action records in chunks: a __syncthreads-separated loop stages
+//   `chunk` records of each split's action range at a time, so the records
+//   take 16 B x chunk x n_splits whatever the action count;
+// * kTableGlobal (the planned rows do not fit beside the chunk): the action
+//   records in chunks, and the table and the axes read from global memory
+//   through the read-only path (a 300 x 300 f32 table is 360 KB, far
+//   inside the 50 MB L2). Shared memory is then the chunk and the split
+//   minima alone, so every configuration fits.
+//
+// The three read the same values and scan the same actions in the same
+// order, so they give the same sweep bitwise.
 //
 // Work: a block owns cells_per_block consecutive cells and n_splits action
 // ranges of each, a thread one cell and one range.
 //
 // Minimum and ties: a thread scans its action range
-// [s * per, (s + 1) * per) in order with a strict '<'; after a barrier the
-// split-0 thread of each cell walks the splits in order with a strict '<'.
-// That is the serial strict-'<' scan over all actions, with the streamed
-// mode's NaN rule.
+// [s * per, (s + 1) * per) in order with a strict '<' (in chunks, the
+// chunks in order); after a barrier the split-0 thread of each cell walks
+// the splits in order with a strict '<'. That is the serial strict-'<'
+// scan over all actions, with the streamed mode's NaN rule.
 //
 // What bounds it: operations (about 26 an evaluation, an IEEE divide on
 // each axis among them); the bytes are the table rows, the axes, the
@@ -243,12 +262,15 @@ struct AffineParams {
   const int* n_rows;         // (n_blocks,) rows it stages
   int n0, n1, n_actions;
   int cells_per_block, n_splits, actions_per_split, max_rows, n_blocks;
+  int stage;                 // kStageAll, kStageChunks or kTableGlobal
+  int chunk;                 // actions a split stages at a time (chunked)
   float a00, a01, a10, a11, b0, b1;
 };
 
 namespace {
 
 constexpr int kAffineMaxThreads = 512;
+enum AffineStage { kStageAll = 0, kStageChunks = 1, kTableGlobal = 2 };
 
 // searchsorted(g, q, right=True) - 1, clamped to [0, n - 2]
 __device__ __forceinline__ int locate(const float* g, int n, float q) {
@@ -322,85 +344,188 @@ __device__ __forceinline__ void walk(const float* g, int n, float q,
   }
 }
 
-template <typename ArgT>
+// action a's record: (b0 * u, b1 * u, its cost), each product rounded
+__device__ __forceinline__ float4 action_record(const AffineParams& p,
+                                                int a) {
+  const float u = p.u[a];
+  return make_float4(__fmul_rn(p.b0, u), __fmul_rn(p.b1, u),
+                     p.action_cost[a], 0.0f);
+}
+
+// A table value: from shared memory, or from global memory through the
+// read-only path (kGlobal)
+template <bool kGlobal>
+__device__ __forceinline__ float table_at(const float* t) {
+  if constexpr (kGlobal) {
+    return __ldg(t);
+  } else {
+    return *t;
+  }
+}
+
+// One thread's scan of its cell over its action range: the queries'
+// bases, the located cells and the running first minimum.
+struct CellScan {
+  float base0, base1, s_cost;
+  AxisCell c0, c1;
+  int t_off;  // corner (0, 0) in the table (or in the block's rows)
+  float best_v;
+  int best_a;
+};
+
+// Locate the scan's first query, action a's (record ab); r0: the table
+// row that t_off counts from.
+__device__ __forceinline__ void scan_start(const float* g0, int n0,
+                                           const float* g1, int n1, int r0,
+                                           float4 ab, CellScan& s) {
+  load_cell(g0, n0, locate(g0, n0, __fadd_rn(s.base0, ab.x)), s.c0);
+  load_cell(g1, n1, locate(g1, n1, __fadd_rn(s.base1, ab.y)), s.c1);
+  s.t_off = (s.c0.lo - r0) * n1 + s.c1.lo;
+}
+
+// Evaluate action a (record ab): walk both axes to its queries' cells,
+// interpolate the table tab, add the cost, keep the first minimum.
+template <bool kGlobal>
+__device__ __forceinline__ void scan_action(const float* g0, int n0,
+                                            const float* g1, int n1,
+                                            const float* tab, float4 ab,
+                                            int a, CellScan& s) {
+  // + b_k * u: one rounded sum
+  const float q0 = __fadd_rn(s.base0, ab.x);
+  const float q1 = __fadd_rn(s.base1, ab.y);
+  walk(g0, n0, q0, s.c0, s.t_off, n1);
+  walk(g1, n1, q1, s.c1, s.t_off, 1);
+  const float f0 = __fdiv_rn(__fsub_rn(q0, s.c0.g_lo), s.c0.width);
+  const float f1 = __fdiv_rn(__fsub_rn(q1, s.c1.g_lo), s.c1.width);
+  const float h0 = __fsub_rn(1.0f, f0);
+  const float h1 = __fsub_rn(1.0f, f1);
+  const float* t4 = tab + s.t_off;
+  float t = __fmul_rn(__fmul_rn(h0, h1), table_at<kGlobal>(t4));
+  t = __fadd_rn(t, __fmul_rn(__fmul_rn(h0, f1), table_at<kGlobal>(t4 + 1)));
+  t = __fadd_rn(t, __fmul_rn(__fmul_rn(f0, h1), table_at<kGlobal>(t4 + n1)));
+  t = __fadd_rn(t, __fmul_rn(__fmul_rn(f0, f1),
+                             table_at<kGlobal>(t4 + n1 + 1)));
+  t = __fadd_rn(t, __fadd_rn(s.s_cost, ab.z));
+  if (t < s.best_v) {  // strict: the first minimum of the range wins
+    s.best_v = t;
+    s.best_a = a;
+  }
+}
+
+// Shared memory, in order: the table rows (kStageAll, kStageChunks), the
+// action records (every action's, or a chunk of each split's), the axes
+// (kStageAll, kStageChunks), the split minima. The stage is an argument so
+// that the kernel, which passes its template's, folds it.
+__host__ __device__ __forceinline__ int affine_row_floats(
+    const AffineParams& p, int stage) {
+  return stage == kTableGlobal ? 0 : (p.max_rows * p.n1 + 3) / 4 * 4;
+}
+
+__host__ __device__ __forceinline__ int affine_records(const AffineParams& p,
+                                                       int stage) {
+  return stage == kStageAll ? p.n_actions : p.n_splits * p.chunk;
+}
+
+__host__ __device__ __forceinline__ int affine_axis_floats(
+    const AffineParams& p, int stage) {
+  return stage == kTableGlobal ? 0 : p.n0 + p.n1;
+}
+
+template <typename ArgT, int kStage>
 __global__ void __launch_bounds__(kAffineMaxThreads)
 affine_sweep(const AffineParams p, const float* __restrict__ values,
              float* __restrict__ out_v, ArgT* __restrict__ out_a) {
+  constexpr bool kChunked = kStage != kStageAll;
+  constexpr bool kGlobal = kStage == kTableGlobal;
   extern __shared__ float4 smem4[];
   // the table rows first, so a corner's shared address is its offset
-  float* tab = reinterpret_cast<float*>(smem4);  // max_rows x n1 rows
-  float4* act = smem4 + (p.max_rows * p.n1 + 3) / 4;  // (B_0, B_1, cost, 0)
-  float* sg0 = reinterpret_cast<float*>(act + p.n_actions);
-  float* sg1 = sg0 + p.n0;
-  float* red_v = sg1 + p.n1;                    // a slot a thread
+  float* rows_s = reinterpret_cast<float*>(smem4);  // max_rows x n1 rows
+  float4* act = smem4 + affine_row_floats(p, kStage) / 4;  // (B_0, B_1, c, 0)
+  float* sg0 = reinterpret_cast<float*>(act + affine_records(p, kStage));
+  float* sg1 = sg0 + (kGlobal ? 0 : p.n0);
+  float* red_v = sg0 + affine_axis_floats(p, kStage);  // a slot a thread
   int* red_a = reinterpret_cast<int*>(red_v + blockDim.x);
 
   const int tid = threadIdx.x;
-  const int r0 = p.row0[blockIdx.x];
-  const int n_stage = p.n_rows[blockIdx.x] * p.n1;
-  const int n1 = p.n1;
-  for (int i = tid; i < p.n_actions; i += blockDim.x) {
-    const float u = p.u[i];
-    act[i] = make_float4(__fmul_rn(p.b0, u), __fmul_rn(p.b1, u),
-                         p.action_cost[i], 0.0f);
+  const int n0 = p.n0, n1 = p.n1;
+  const int r0 = kGlobal ? 0 : p.row0[blockIdx.x];
+  if constexpr (!kChunked) {
+    for (int i = tid; i < p.n_actions; i += blockDim.x) {
+      act[i] = action_record(p, i);
+    }
   }
-  for (int i = tid; i < p.n0; i += blockDim.x) sg0[i] = p.g0[i];
-  for (int i = tid; i < n1; i += blockDim.x) sg1[i] = p.g1[i];
-  const float* rows = values + static_cast<long long>(r0) * n1;
-  for (int i = tid; i < n_stage; i += blockDim.x) tab[i] = rows[i];
-  __syncthreads();
+  if constexpr (!kGlobal) {
+    for (int i = tid; i < n0; i += blockDim.x) sg0[i] = p.g0[i];
+    for (int i = tid; i < n1; i += blockDim.x) sg1[i] = p.g1[i];
+    const int n_stage = p.n_rows[blockIdx.x] * n1;
+    const float* rows = values + static_cast<long long>(r0) * n1;
+    for (int i = tid; i < n_stage; i += blockDim.x) rows_s[i] = rows[i];
+    __syncthreads();
+  }
+  const float* g0 = kGlobal ? p.g0 : sg0;
+  const float* g1 = kGlobal ? p.g1 : sg1;
+  const float* tab = kGlobal ? values : rows_s;
 
-  const int n_cells = p.n0 * n1;
+  const int n_cells = n0 * n1;
   const int local = tid % p.cells_per_block;
   const int split = tid / p.cells_per_block;
   const int cell = blockIdx.x * p.cells_per_block + local;
-  const int a_begin = split * p.actions_per_split;
-  const int a_end = min(a_begin + p.actions_per_split, p.n_actions);
+  const int per = p.actions_per_split;
+  const int a_begin = split * per;
+  const int a_end = min(a_begin + per, p.n_actions);
+  const bool scans = cell < n_cells && a_begin < a_end;
 
-  float best_v = CUDART_INF_F;
-  int best_a = a_begin;
-  if (cell < n_cells && a_begin < a_end) {
+  CellScan s;
+  s.best_v = CUDART_INF_F;
+  s.best_a = a_begin;
+  if (scans) {
     const int i = cell / n1;
-    const float x0 = sg0[i];
-    const float x1 = sg1[cell - i * n1];
+    const float x0 = g0[i];
+    const float x1 = g1[cell - i * n1];
     // a_k0 * x0 + a_k1 * x1: two rounded products, one rounded sum
-    const float base0 = __fadd_rn(__fmul_rn(p.a00, x0), __fmul_rn(p.a01, x1));
-    const float base1 = __fadd_rn(__fmul_rn(p.a10, x0), __fmul_rn(p.a11, x1));
-    const float s_cost = p.state_cost[cell];
-    const float4 first = act[a_begin];
-    AxisCell c0, c1;
-    load_cell(sg0, p.n0, locate(sg0, p.n0, __fadd_rn(base0, first.x)), c0);
-    load_cell(sg1, n1, locate(sg1, n1, __fadd_rn(base1, first.y)), c1);
-    int t_off = (c0.lo - r0) * n1 + c1.lo;  // corner (0, 0) in the rows
-    for (int a = a_begin; a < a_end; ++a) {
-      const float4 ab = act[a];
-      // + b_k * u: one rounded sum
-      const float q0 = __fadd_rn(base0, ab.x);
-      const float q1 = __fadd_rn(base1, ab.y);
-      walk(sg0, p.n0, q0, c0, t_off, n1);
-      walk(sg1, n1, q1, c1, t_off, 1);
-      const float g0 = __fdiv_rn(__fsub_rn(q0, c0.g_lo), c0.width);
-      const float g1 = __fdiv_rn(__fsub_rn(q1, c1.g_lo), c1.width);
-      const float h0 = __fsub_rn(1.0f, g0);
-      const float h1 = __fsub_rn(1.0f, g1);
-      const float* t4 = tab + t_off;
-      float t = __fmul_rn(__fmul_rn(h0, h1), t4[0]);
-      t = __fadd_rn(t, __fmul_rn(__fmul_rn(h0, g1), t4[1]));
-      t = __fadd_rn(t, __fmul_rn(__fmul_rn(g0, h1), t4[n1]));
-      t = __fadd_rn(t, __fmul_rn(__fmul_rn(g0, g1), t4[n1 + 1]));
-      t = __fadd_rn(t, __fadd_rn(s_cost, ab.z));
-      if (t < best_v) {  // strict: the first minimum of the range wins
-        best_v = t;
-        best_a = a;
+    s.base0 = __fadd_rn(__fmul_rn(p.a00, x0), __fmul_rn(p.a01, x1));
+    s.base1 = __fadd_rn(__fmul_rn(p.a10, x0), __fmul_rn(p.a11, x1));
+    s.s_cost = p.state_cost[cell];
+    scan_start(g0, n0, g1, n1, r0,
+               kChunked ? action_record(p, a_begin) : act[a_begin], s);
+  }
+  if constexpr (kChunked) {
+    // chunk k: the records of actions [s * per + k * chunk, ... + chunk)
+    // of each split s, at act[s * chunk ..]
+    const int chunk = p.chunk;
+    const int n_chunks = (per + chunk - 1) / chunk;
+    const float4* mine = act + split * chunk;
+    for (int k = 0; k < n_chunks; ++k) {
+      const int first = k * chunk;
+      __syncthreads();  // the previous chunk is read
+      for (int i = tid; i < p.n_splits * chunk; i += blockDim.x) {
+        const int sp = i / chunk;
+        const int j = first + i - sp * chunk;  // its place in the range
+        const int a = sp * per + j;
+        if (j < per && a < p.n_actions) act[i] = action_record(p, a);
+      }
+      __syncthreads();
+      if (scans) {
+        const int a_lo = a_begin + first;
+        const int a_hi = min(a_lo + chunk, a_end);
+        for (int a = a_lo; a < a_hi; ++a) {
+          scan_action<kGlobal>(g0, n0, g1, n1, tab, mine[a - a_lo], a, s);
+        }
       }
     }
+  } else if (scans) {
+    for (int a = a_begin; a < a_end; ++a) {
+      scan_action<kGlobal>(g0, n0, g1, n1, tab, act[a], a, s);
+    }
   }
-  red_v[tid] = best_v;
-  red_a[tid] = best_a;
+  red_v[tid] = s.best_v;
+  red_a[tid] = s.best_a;
   __syncthreads();
   if (split != 0 || cell >= n_cells) return;
-  for (int s = 1; s < p.n_splits; ++s) {
-    const int o = s * p.cells_per_block + local;
+  float best_v = s.best_v;
+  int best_a = s.best_a;
+  for (int sp = 1; sp < p.n_splits; ++sp) {
+    const int o = sp * p.cells_per_block + local;
     const float v = red_v[o];
     if (v < best_v) {  // strict: an earlier split wins ties
       best_v = v;
@@ -412,27 +537,48 @@ affine_sweep(const AffineParams p, const float* __restrict__ values,
 }
 
 size_t affine_smem_bytes(const AffineParams& p) {
-  const size_t rows = (static_cast<size_t>(p.max_rows) * p.n1 + 3) / 4 * 4;
-  return sizeof(float) * rows +
-         sizeof(float4) * static_cast<size_t>(p.n_actions) +
-         sizeof(float) * (static_cast<size_t>(p.n0) + p.n1) +
+  return sizeof(float) * static_cast<size_t>(affine_row_floats(p, p.stage)) +
+         sizeof(float4) * static_cast<size_t>(affine_records(p, p.stage)) +
+         sizeof(float) * static_cast<size_t>(affine_axis_floats(p, p.stage)) +
          (sizeof(float) + sizeof(int)) *
              static_cast<size_t>(p.cells_per_block) * p.n_splits;
 }
 
-// Raise the kernel's dynamic shared memory limit to smem, never lower it:
+// The instantiation of the argmin width (1: uint8, 2: int16, 4: int32) and
+// the stage; nullptr for others.
+template <int kStage>
+const void* affine_kernel_of_stage(int argmin_bytes) {
+  switch (argmin_bytes) {
+    case 1: return reinterpret_cast<const void*>(
+        affine_sweep<unsigned char, kStage>);
+    case 2: return reinterpret_cast<const void*>(affine_sweep<short, kStage>);
+    case 4: return reinterpret_cast<const void*>(affine_sweep<int, kStage>);
+    default: return nullptr;
+  }
+}
+
+const void* affine_kernel_of(int stage, int argmin_bytes) {
+  switch (stage) {
+    case kStageAll: return affine_kernel_of_stage<kStageAll>(argmin_bytes);
+    case kStageChunks:
+      return affine_kernel_of_stage<kStageChunks>(argmin_bytes);
+    case kTableGlobal:
+      return affine_kernel_of_stage<kTableGlobal>(argmin_bytes);
+    default: return nullptr;
+  }
+}
+
+// Raise a kernel's dynamic shared memory limit to smem, never lower it:
 // the limit belongs to the function, and backups of other launch shapes
 // may need more.
-template <typename ArgT>
-cudaError_t allow_smem(int smem) {
+cudaError_t allow_smem(const void* kernel, int smem) {
   cudaFuncAttributes attr;
-  cudaError_t err = cudaFuncGetAttributes(&attr, affine_sweep<ArgT>);
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
   if (err != cudaSuccess || attr.maxDynamicSharedSizeBytes >= smem) {
     return err;
   }
-  return cudaFuncSetAttribute(affine_sweep<ArgT>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
+  return cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
 }
 
 }  // namespace
@@ -441,30 +587,36 @@ extern "C" int fused_backup2d_affine_params_size() {
   return static_cast<int>(sizeof(AffineParams));
 }
 
-// Check the launch shape and let the kernels take its dynamic shared
-// memory; call once for each parameter block before its first launch (it
-// may set function attributes, so never inside a CUDA graph capture).
-// Returns 0 or a CUDA error.
+// Check the launch shape and let the stage's kernels take its dynamic
+// shared memory; call once for each parameter block before its first
+// launch (it may set function attributes, so never inside a CUDA graph
+// capture). Returns 0 or a CUDA error.
 extern "C" int fused_backup2d_affine_configure(const AffineParams* p) {
   if (p->cells_per_block < 1 || p->n_splits < 1 ||
       p->cells_per_block * p->n_splits > kAffineMaxThreads || p->n0 < 2 ||
       p->n1 < 2 || p->max_rows < 2 || p->max_rows > p->n0 ||
-      p->n_blocks < 1 || p->actions_per_split < 1 || p->n_actions < 1) {
+      p->n_blocks < 1 || p->actions_per_split < 1 || p->n_actions < 1 ||
+      affine_kernel_of(p->stage, 4) == nullptr ||
+      (p->stage != kStageAll &&
+       (p->chunk < 1 || p->chunk > p->actions_per_split))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int smem = static_cast<int>(affine_smem_bytes(*p));
-  cudaError_t err = allow_smem<unsigned char>(smem);
-  if (err == cudaSuccess) err = allow_smem<short>(smem);
-  if (err == cudaSuccess) err = allow_smem<int>(smem);
+  cudaError_t err = cudaSuccess;
+  for (int bytes = 1; bytes <= 4 && err == cudaSuccess; bytes *= 2) {
+    err = allow_smem(affine_kernel_of(p->stage, bytes), smem);
+  }
   return static_cast<int>(err);
 }
 
 // Blocks of the launch shape one SM holds at once (the int32-argmin
-// instantiation; the others match it); -1 on an error.
+// instantiation of its stage; the others match it); -1 on an error.
 extern "C" int fused_backup2d_affine_blocks_per_sm(const AffineParams* p) {
+  const void* kernel = affine_kernel_of(p->stage, 4);
   int blocks = -1;
-  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &blocks, affine_sweep<int>, p->cells_per_block * p->n_splits,
+  if (kernel == nullptr ||
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &blocks, kernel, p->cells_per_block * p->n_splits,
           affine_smem_bytes(*p)) != cudaSuccess) {
     return -1;
   }
@@ -472,29 +624,22 @@ extern "C" int fused_backup2d_affine_blocks_per_sm(const AffineParams* p) {
 }
 
 // One sweep in one launch: values (n0, n1) -> out_v (n0, n1) and the argmin
-// into out_a as argmin_bytes-wide integers (1: uint8, 2: int16, 4: int32).
-// values must not alias out_v (blocks stage rows while others write).
-// Returns cudaGetLastError() after the launch.
+// into out_a as argmin_bytes-wide integers (1: uint8, 2: int16, 4: int32),
+// by the instantiation of p->stage. values must not alias out_v (blocks
+// read it while others write). Returns cudaGetLastError() after the launch.
 extern "C" int fused_backup2d_affine_f32(const AffineParams* p,
                                          const float* values, float* out_v,
                                          void* out_a, int argmin_bytes,
                                          void* stream) {
-  const int threads = p->cells_per_block * p->n_splits;
-  const size_t smem = affine_smem_bytes(*p);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (argmin_bytes == 1) {
-    affine_sweep<unsigned char><<<p->n_blocks, threads, smem, s>>>(
-        *p, values, out_v, static_cast<unsigned char*>(out_a));
-  } else if (argmin_bytes == 2) {
-    affine_sweep<short><<<p->n_blocks, threads, smem, s>>>(
-        *p, values, out_v, static_cast<short*>(out_a));
-  } else if (argmin_bytes == 4) {
-    affine_sweep<int><<<p->n_blocks, threads, smem, s>>>(
-        *p, values, out_v, static_cast<int*>(out_a));
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const void* kernel = affine_kernel_of(p->stage, argmin_bytes);
+  if (kernel == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  AffineParams params = *p;
+  void* args[] = {&params, &values, &out_v, &out_a};
+  const cudaError_t err = cudaLaunchKernel(
+      kernel, dim3(p->n_blocks), dim3(p->cells_per_block * p->n_splits),
+      args, affine_smem_bytes(*p), static_cast<cudaStream_t>(stream));
+  const cudaError_t last = cudaGetLastError();
+  return static_cast<int>(err != cudaSuccess ? err : last);
 }
 
 extern "C" const char* fused_backup2d_error_string(int err) {

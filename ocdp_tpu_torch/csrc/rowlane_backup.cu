@@ -73,7 +73,11 @@
 // block's channel has 9, 10, 11 or 17 row combos (the pos-att channels)
 // the combo loops have that compile-time length, so nothing in them is
 // predicated. Other plans take lanes l and l + L/2, runtime tap loops and
-// predicated combo loops up to the kernel's capacity (32 combos).
+// predicated combo loops up to the kernel's capacity, 32 or 40 combos: 40
+// is the TPU kernel's max_flat_taps (pallas_backup6.py:478), which a finer
+// omega grid reaches (PosAttConfig(n_mesh_w=120): 35 combos). Past 20
+// combos the (-1, 0, 1)-tap plans take a 40-combo kernel too, their lane
+// pairs kept, their combo loops predicated.
 // Registers are capped at 64 so that four blocks of 256 threads fit an SM.
 // At PosAttConfig() the planner takes 4 rows x 600 lanes (a 20 x 648
 // stage, 56 KB a block, 452 blocks for the four channels). Measured on an
@@ -85,7 +89,9 @@
 // A launch takes a batch of up to kMaxBatch channels, each with its own
 // pointers, shapes, tap structure, action count and stage map (x_failure
 // has 6 actions, the others 9), as one __grid_constant__ parameter block
-// (952 B a channel, 3.8 KB for 4). The grid covers the largest channel; a
+// (1,056 B a channel, 4.2 KB for 4: above the 4 KB of parameters a launch
+// took before CUDA 12.1, inside the 32,764 B it takes since on sm_70 and
+// later). The grid covers the largest channel; a
 // block past its own channel's rows or lanes returns. The launch sets no
 // function attribute: rowlane_backup_configure raises the dynamic shared
 // memory limit beforehand, so a launch may be captured into a CUDA graph
@@ -102,7 +108,7 @@ constexpr int kThreads = 256;
 constexpr int kMinBlocks = 4;
 constexpr int kMaxBatch = 4;        // MAX_BATCH in ops/rowlane.py
 constexpr int kMaxLaneTaps = 8;     // MAX_LANE_TAPS
-constexpr int kMaxRowCombos = 32;   // MAX_ROW_COMBOS
+constexpr int kMaxRowCombos = 40;   // MAX_ROW_COMBOS
 constexpr int kMaxActions = 64;     // MAX_ACTIONS
 constexpr int kMaxGroups = 8;       // MAX_GROUPS
 constexpr int kPtrs = 13;           // device pointers a channel
@@ -474,7 +480,7 @@ rowlane_tiles(const __grid_constant__ Batch b) {
 
   // the cells, with the combo count a compile-time constant where it is
   // one of the pos-att channels'
-  if constexpr (kTaps3) {
+  if constexpr (kTaps3 && kJMax <= 20) {
     constexpr int kJ0 = kExactJ[kJMax > 12][0];
     constexpr int kJ1 = kExactJ[kJMax > 12][1];
     constexpr int kJ2 = kExactJ[kJMax > 12][2];
@@ -497,27 +503,32 @@ rowlane_tiles(const __grid_constant__ Batch b) {
         return;
     }
   } else {
-    tile_cells<false, kJMax, false>(b, ch, r0, c0, b.rw_at, lw0_at, lw1_at,
-                                    x0_lo, whole1);
+    tile_cells<kTaps3, kJMax, false>(b, ch, r0, c0, b.rw_at, lw0_at, lw1_at,
+                                     x0_lo, whole1);
   }
 }
 
-// The instantiations (kernel_of; _kind in ops/rowlane.py): kind 0 and 1,
-// lane taps exactly (-1, 0, 1) on both axes and at most 12 or 20 row
-// combos, with exact-count bodies for 9, 10, 11 and 12 or for 17 (the
-// pos-att channels); kind 2, any taps (at most kMaxLaneTaps an axis) and at
-// most 32 row combos.
+// The instantiations (kernel_of; _kind in ops/rowlane.py): kinds 0, 1 and
+// 3, lane taps exactly (-1, 0, 1) on both axes and at most 12, 20 or 40
+// row combos, kinds 0 and 1 with exact-count bodies for 9, 10 and 11 or
+// for 10, 11 and 17 (the pos-att channels); kinds 2 and 4, any taps (at
+// most kMaxLaneTaps an axis) and at most 32 or 40 row combos (a simplified
+// attitude axis: 25-27 combos at n_mesh_w=1000, 33-37 at 1400; the 40-combo
+// body spills more and runs a 25-combo axis about 10% slower, so the
+// 32-combo one stays).
 using KernelFn = void (*)(Batch);
 KernelFn kernel_of(int kind) {
   switch (kind) {
     case 0: return rowlane_tiles<true, 12>;
     case 1: return rowlane_tiles<true, 20>;
     case 2: return rowlane_tiles<false, 32>;
+    case 3: return rowlane_tiles<true, kMaxRowCombos>;
+    case 4: return rowlane_tiles<false, kMaxRowCombos>;
     default: return nullptr;
   }
 }
-constexpr int kComboCap[3] = {12, 20, 32};
-constexpr bool kTaps3Of[3] = {true, true, false};
+constexpr int kComboCap[5] = {12, 20, 32, kMaxRowCombos, kMaxRowCombos};
+constexpr bool kTaps3Of[5] = {true, true, false, true, false};
 
 // Fill one channel from its ints (the CHAN_INTS layout of ops/rowlane.py:
 // n_r0, n_r1, n_l0, n_l1, n_actions, n_combos, n_taps0, n_taps1, jp,

@@ -29,7 +29,9 @@ plan, in one launch a sweep:
   of ``models/kirk.py::build`` and ``build_plan`` and calls
   :func:`fused_backup2d_plain`; on a CUDA device the two agree bitwise;
 * :func:`plan_rows` is the host planner of the table rows each block
-  stages;
+  stages; what a block stages at all (:data:`STAGE_ALL`,
+  :data:`STAGE_CHUNKS` or :data:`TABLE_GLOBAL`) is chosen on the host from
+  the configuration, before any launch, so every configuration runs;
 * :class:`AffineBackup2D` is the engines' callable, graph-safe
   (``sweep_into``, ``prepare``, ``launcher``), whose ``sweep_into`` also
   writes an argmin straight into a narrow policy slot.
@@ -51,7 +53,8 @@ from .interp import InterpPlan, axis_locate, interp_apply
 __all__ = ["AffineArgs", "AffineBackup2D", "FusedBackup2D", "affine_plan",
            "fused_backup2d_affine_cuda",
            "fused_backup2d_affine_plain", "fused_backup2d_cuda",
-           "fused_backup2d_plain", "plan_rows", "SMEM_LIMIT_BYTES"]
+           "fused_backup2d_plain", "plan_rows", "SMEM_LIMIT_BYTES",
+           "STAGE_ALL", "STAGE_CHUNKS", "TABLE_GLOBAL"]
 
 # the most dynamic shared memory one block may opt into on Hopper; the
 # plan-streamed mode stages the whole value table there, the affine mode a
@@ -176,6 +179,13 @@ SPLITS = 32
 _AFFINE_MAX_THREADS = 512
 # argmin dtypes the affine kernel writes, and their widths
 _ARGMIN_BYTES = {torch.uint8: 1, torch.int16: 2, torch.int32: 4}
+# what an affine block keeps in shared memory (AffineStage in the CUDA
+# source), the first of these that fits: the planned table rows, the axes
+# and every action's (B_0 u, B_1 u, cost) record; the same rows and axes
+# with the records staged a chunk of each split's actions at a time; the
+# records in chunks, the table and the axes read from global memory
+STAGE_ALL, STAGE_CHUNKS, TABLE_GLOBAL = 0, 1, 2
+CHUNK_ACTIONS = 32              # actions a split stages at a time (chunked)
 
 
 def _affine_query(x0, x1, u, a_row, b):
@@ -191,7 +201,7 @@ class _AffineParams(ctypes.Structure):
         "g0", "g1", "u", "state_cost", "action_cost", "row0", "n_rows")]
         + [(k, ctypes.c_int) for k in (
             "n0", "n1", "n_actions", "cells_per_block", "n_splits",
-            "actions_per_split", "max_rows", "n_blocks")]
+            "actions_per_split", "max_rows", "n_blocks", "stage", "chunk")]
         + [(k, ctypes.c_float) for k in (
             "a00", "a01", "a10", "a11", "b0", "b1")])
 
@@ -202,7 +212,9 @@ class AffineArgs:
     (:class:`AffineBackup2D`). ``axes``/``u``: the host float32 axes
     and controls; ``A``/``B``: Python floats; the tensors live on the
     backup's device: the axes, controls and the separable cost, and the
-    row plan (:func:`plan_rows`)."""
+    row plan (:func:`plan_rows`). ``stage``: what a block keeps in shared
+    memory (:data:`STAGE_ALL`, :data:`STAGE_CHUNKS`, :data:`TABLE_GLOBAL`),
+    ``chunk`` the actions of a split it stages at a time when chunked."""
 
     axes: tuple
     u: np.ndarray
@@ -219,6 +231,8 @@ class AffineArgs:
     n_splits: int
     actions_per_split: int
     max_rows: int
+    stage: int = STAGE_ALL
+    chunk: int = 0
     _launch: tuple | None = None    # (lib, params address, params), once
 
     @property
@@ -239,13 +253,38 @@ class AffineArgs:
 
     @property
     def smem_bytes(self) -> int:
-        """``affine_smem_bytes`` of the CUDA source: the per-action table
-        (4 floats an action), the axes, the staged rows and the split
-        minima."""
-        n0, n1 = self.grid_shape
-        rows = -(-self.max_rows * n1 // 4) * 4
-        return (4 * rows + 16 * self.n_actions + 4 * (n0 + n1)
-                + 8 * self.cells_per_block * self.n_splits)
+        """``affine_smem_bytes`` of the CUDA source."""
+        return _smem_bytes(self.grid_shape, self.n_actions, self.max_rows,
+                           self.cells_per_block, self.n_splits, self.stage,
+                           self.chunk)
+
+
+def _smem_bytes(grid_shape, n_actions, max_rows, cells_per_block, n_splits,
+                stage, chunk) -> int:
+    """An affine block's dynamic shared memory: the staged table rows and
+    the axes (unless :data:`TABLE_GLOBAL`), the action records (16 B each:
+    every action's, or ``chunk`` of each split's), the split minima."""
+    n0, n1 = grid_shape
+    rows = 0 if stage == TABLE_GLOBAL else -(-max_rows * n1 // 4) * 4
+    axes = 0 if stage == TABLE_GLOBAL else n0 + n1
+    records = n_actions if stage == STAGE_ALL else n_splits * chunk
+    return 4 * (rows + axes) + 16 * records + 8 * cells_per_block * n_splits
+
+
+def _stage(grid_shape, n_actions, max_rows, cells_per_block, n_splits,
+           per) -> tuple:
+    """``(stage, chunk)``: the first stage whose shared memory fits a
+    block, with ``chunk`` (chunked) the fewer of :data:`CHUNK_ACTIONS` and
+    a split's actions, cut further where :data:`TABLE_GLOBAL`'s records
+    alone would not fit; that stage always fits."""
+    chunk = min(CHUNK_ACTIONS, per)
+    shape = (grid_shape, n_actions, max_rows, cells_per_block, n_splits)
+    for stage in (STAGE_ALL, STAGE_CHUNKS):
+        if _smem_bytes(*shape, stage, chunk) <= SMEM_LIMIT_BYTES:
+            return stage, chunk if stage == STAGE_CHUNKS else 0
+    minima = 8 * cells_per_block * n_splits
+    chunk = min(chunk, (SMEM_LIMIT_BYTES - minima) // (16 * n_splits))
+    return TABLE_GLOBAL, chunk
 
 
 def plan_rows(axes, u, A, B, cells_per_block: int):
@@ -342,18 +381,15 @@ def _affine_args(axes, u, A, B, state_cost, action_cost, cells_per_block,
     def i32(t):
         return t.to(device=dev, dtype=torch.int32).contiguous()
 
-    args = AffineArgs(
+    max_rows = int(n_rows.max())
+    stage, chunk = _stage((n0, n1), u.size, max_rows, cells_per_block,
+                          n_splits, per)
+    return AffineArgs(
         axes=axes, u=u, A=A, B=B, g0=f32(axes[0]), g1=f32(axes[1]),
         u_t=f32(u), state_cost=f32(state_cost).reshape(n0 * n1),
         action_cost=f32(action_cost), row0=i32(row0), n_rows=i32(n_rows),
         cells_per_block=int(cells_per_block), n_splits=n_splits,
-        actions_per_split=per, max_rows=int(n_rows.max()))
-    if args.smem_bytes > SMEM_LIMIT_BYTES:
-        raise ValueError(
-            f"the affine kernel needs {args.smem_bytes} B of shared memory "
-            f"({args.max_rows} table rows of {n1}); a block holds "
-            f"{SMEM_LIMIT_BYTES} B")
-    return args
+        actions_per_split=per, max_rows=max_rows, stage=stage, chunk=chunk)
 
 
 def affine_plan(args: AffineArgs, device) -> tuple:
@@ -400,7 +436,7 @@ def _affine_launch(args: AffineArgs) -> tuple:
             args.row0.data_ptr(), args.n_rows.data_ptr(),
             n0, n1, args.n_actions, args.cells_per_block, args.n_splits,
             args.actions_per_split, args.max_rows, args.row0.numel(),
-            *args.A[0], *args.A[1], *args.B)
+            args.stage, args.chunk, *args.A[0], *args.A[1], *args.B)
         addr = ctypes.addressof(params)
         _raise_on(lib, lib.fused_backup2d_affine_configure(addr),
                   "configure")
@@ -539,8 +575,9 @@ class AffineBackup2D:
     costs' device: the kernel on a CUDA device, the plain version on the
     CPU; it never swaps one for the other. ``A`` (2 x 2) and ``B`` (2,) are
     taken as Python floats, as ``models/kirk.py::build`` uses them. The
-    launch shape is ``CELLS_PER_BLOCK`` x ``SPLITS``. Raises on inputs it
-    cannot take.
+    launch shape is ``CELLS_PER_BLOCK`` x ``SPLITS``; what a block stages
+    (``args.stage``) follows from the configuration, and none is refused
+    for want of shared memory. Raises on inputs it cannot take.
 
     Graph-safe: :meth:`sweep_into` writes into the caller's buffers (an
     argmin of any ``argmin_dtypes`` dtype, e.g. a slot of a narrow policy

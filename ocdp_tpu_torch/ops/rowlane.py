@@ -50,9 +50,10 @@ __all__ = ["RowLaneArgs", "RowLaneBackup", "RowLaneBatch", "RowLaneTiles",
            "plan_tiles", "rowlane_backup_cuda", "rowlane_backup_plain"]
 
 # the kernel's fixed capacities (kMaxLaneTaps, kMaxRowCombos, kMaxActions in
-# csrc/rowlane_backup.cu); the high-res y channel has 17 row combos
+# csrc/rowlane_backup.cu); the high-res y channel has 17 row combos, and 40
+# is the TPU kernel's max_flat_taps (ocdp_tpu/ops/pallas_backup6.py:478)
 MAX_LANE_TAPS = 8
-MAX_ROW_COMBOS = 32
+MAX_ROW_COMBOS = 40
 MAX_ACTIONS = 64
 
 
@@ -270,11 +271,12 @@ MAX_GROUPS = 8
 CHAN_INTS = 12 + 3 * MAX_GROUPS + 3 * MAX_ROW_COMBOS + 2 * MAX_LANE_TAPS
 TILE_INTS = 12
 THREADS = 256
-# the instantiations (kernel_of in csrc/rowlane_backup.cu): kinds 0 and 1
-# take lane taps of exactly TAPS3 on both axes and at most 12 or 20 row
-# combos, kind 2 any taps and at most 32 combos
+# the instantiations (kernel_of in csrc/rowlane_backup.cu): kinds 0, 1 and
+# 3 take lane taps of exactly TAPS3 on both axes and at most 12, 20 or 40
+# row combos, kinds 2 and 4 any taps and at most 32 or 40 combos
 TAPS3 = (-1, 0, 1)
-KIND_COMBOS = (12, 20, 32)
+KIND_COMBOS = (12, 20, 32, MAX_ROW_COMBOS, MAX_ROW_COMBOS)
+KIND_TAPS3 = (True, True, False, True, False)
 # the planner's budget: four blocks of 256 threads an SM (of its 228 KB,
 # 1 KB reserved a block) on the 132 SMs of an H100. Its cost model (fitted
 # to tile sweeps of the four pos-att channels at both sizes on an H100,
@@ -391,12 +393,10 @@ def _kind(keys) -> int:
     """The kernel instantiation a launch over the channels ``keys`` takes
     (``kernel_of`` in csrc/rowlane_backup.cu)."""
     combos = max(len(k[3]) for k in keys)
-    if all(tuple(k[4]) == (TAPS3, TAPS3)
-           and 2 * k[1][1] <= MAX_TILE_LANES for k in keys):
-        for kind in (0, 1):
-            if combos <= KIND_COMBOS[kind]:
-                return kind
-    return 2
+    taps3 = all(tuple(k[4]) == (TAPS3, TAPS3)
+                and 2 * k[1][1] <= MAX_TILE_LANES for k in keys)
+    return next(kind for kind in ((0, 1, 3) if taps3 else (2, 4))
+                if combos <= KIND_COMBOS[kind])
 
 
 def plan_tiles(keys, smem_limit: int) -> RowLaneTiles:
@@ -417,7 +417,7 @@ def lane_step(keys) -> int:
     whose axis-1 passes overlap (so a tile holds whole runs of 2 n_l1
     lanes, and 8 for the 16-byte stage copies), else lanes l and l + L/2
     (64)."""
-    if _kind(keys) == 2:
+    if not KIND_TAPS3[_kind(keys)]:
         return 64
     return math.lcm(8, *(2 * k[1][1] for k in keys))
 
@@ -837,7 +837,7 @@ class RowLaneBackup:
                 f"{len(self.row_combos)} row combos, lane taps "
                 f"{self.e_taps} and {n_act} actions exceed the kernel's "
                 f"{MAX_ROW_COMBOS} combos, {MAX_LANE_TAPS} taps per lane axis"
-                f" and {MAX_ACTIONS} actions")
+                f" and {MAX_ACTIONS} actions; use impl='gather'")
 
         # the factorized stage cost
         c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(

@@ -25,12 +25,20 @@ Timed at ``KirkConfig()`` (100 x 100 states, 1000 controls, 199 sweeps):
 * ``kirk.solve(KirkConfig())`` (policies stored, builds included): host
   clock around calls that end in a synchronize, three calls (the first
   cold), then one under ``torch.profiler``: the device busy share, the
-  kernel events a sweep by name, and B.1's device time in it.
+  kernel events a sweep by name, and B.1's device time in it;
+* where the tree's affine mode has stages (``fb.STAGE_CHUNKS``): B.1 at
+  ``KirkConfig()`` in each stage the tree has, the stage set on the
+  parameter block (``stage_ms``: CUDA events, three rounds interleaved
+  over the stages; ``stage_device_ms``: the device time a launch over 20
+  calls, two rounds; ``stages_bitwise``: every stage's sweep equals the
+  one ``_stage`` picks), and B.1 at ``KirkConfig(dx=900)``, whose planned
+  rows outgrow shared memory (``dx900_ms``, ``dx900_stage``).
 
 Needs a CUDA device.
 """
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -138,7 +146,66 @@ def main() -> None:
         names[e.key.replace("(anonymous namespace)::", "")
               .split("(")[0][-40:]] += e.count
     out["solve_kernel_events"] = dict(names.most_common(6))
+    if hasattr(fb, "STAGE_CHUNKS"):
+        stage_times(fb, kirk, cfg, v, dev, out, device_rows, acts)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def stage_times(fb, kirk, cfg, v, dev, out, device_rows, acts) -> None:
+    """B.1 at ``cfg`` in each stage the tree has, and at
+    ``KirkConfig(dx=900)`` in the stage it takes; into ``out``."""
+    import numpy as np
+    import torch
+
+    from ocdp_tpu_torch.profiling import cuda_time_ms
+
+    base = kirk.affine_backup(cfg, dev).args
+    chunk = min(fb.CHUNK_ACTIONS, base.actions_per_split)
+    stages = {}
+    for name in ("STAGE_ALL", "STAGE_CHUNKS", "TABLE_GLOBAL"):
+        if hasattr(fb, name):
+            stage = getattr(fb, name)
+            stages[name] = dataclasses.replace(
+                base, stage=stage, _launch=None,
+                chunk=0 if name == "STAGE_ALL" else chunk)
+    out["default_stage"] = base.stage
+    out["stage_smem"] = {k: a.smem_bytes for k, a in stages.items()}
+    ov = torch.empty_like(v)
+    oa = torch.empty(v.shape, dtype=torch.int16, device=dev)
+    want = fb.fused_backup2d_affine_cuda(v, base)
+    same = {}
+    for name, a in stages.items():
+        fb.fused_backup2d_affine_cuda(v, a, ov, oa)
+        same[name] = (torch.equal(ov, want.values)
+                      and torch.equal(oa.int(), want.argmin))
+    out["stages_bitwise"] = same
+    out["stage_ms"] = {k: [] for k in stages}
+    out["stage_device_ms"] = {k: [] for k in stages}
+    for r in range(3):
+        for name, a in stages.items():
+            def sweep(a=a):
+                fb.fused_backup2d_affine_cuda(v, a, ov, oa)
+            out["stage_ms"][name].append(cuda_time_ms(sweep, inner=20))
+            if r == 2:
+                continue
+            torch.cuda.synchronize()
+            with torch.profiler.profile(activities=acts) as prof:
+                for _ in range(20):
+                    sweep()
+                torch.cuda.synchronize()
+            out["stage_device_ms"][name].append(
+                sum(e.self_device_time_total for e in device_rows(prof)
+                    if "affine_sweep" in e.key) / 20 / 1e3)
+    big = kirk.KirkConfig(dx=900)
+    args = kirk.affine_backup(big, dev).args
+    bv = torch.from_numpy(np.random.default_rng(1).uniform(
+        0.0, 400.0, (big.dx, big.dx)).astype(np.float32)).to(dev)
+    bov = torch.empty_like(bv)
+    boa = torch.empty(bv.shape, dtype=torch.int16, device=dev)
+    out["dx900_stage"] = args.stage
+    out["dx900_smem"] = args.smem_bytes
+    out["dx900_ms"] = cuda_time_ms(
+        lambda: fb.fused_backup2d_affine_cuda(bv, args, bov, boa), inner=5)
 
 
 if __name__ == "__main__":

@@ -22,6 +22,13 @@ Timed, at the shapes the main paths run:
   axes in one launch;
 * for each, the kernel alone: its device time a launch under
   ``torch.profiler`` over 20 wrapper calls;
+* B.2 at the shape ``attitude.solve_simplified(impl='rowlane')`` gives it
+  (simplified axis 0, 25 row combos, 5 lane taps: the any-tap kind 2);
+* where the tree takes more than 32 row combos: B.2 at
+  ``PosAttConfig(n_mesh_w=100)``'s four channels in one launch and at
+  ``PosAttConfig(n_mesh_w=120)``'s x channel, in the kind the tree picks and
+  in each other kind that takes them (``rl._kind`` set for the run), each
+  checked bitwise against the picked kind;
 * ``pos_att.solve(PosAttConfig())``, ``attitude.solve_simplified(
   AttitudeConfig())`` and ``position.solve(PositionConfig())``: host clock
   around work that ends in a synchronize, builds included, twice;
@@ -168,6 +175,16 @@ def main() -> None:
     pos = lambda: bb.band_backup2d_cuda(pv, pbk.args)  # noqa: E731
     out["b6_position_ms"] = cuda_time_ms(pos, inner=20)
     kernel_ms("b6_position_kernel_ms", pos, "band_sweep")
+    sbk = rl.RowLaneBackup(built[0][1], built[0][2], perm=(0, 1),
+                           row_axes=1)
+    st = torch.from_numpy(rng.uniform(0.0, 100.0, (sbk.NW, sbk.NE))
+                          .astype(np.float32)).to(dev)
+    out["b2_simplified_kind"] = rl._kind((rl._plan_key(sbk.args),))
+    simp = lambda: rl.rowlane_backup_cuda(st, sbk.args)  # noqa: E731
+    out["b2_simplified_ms"] = cuda_time_ms(simp, inner=20)
+    kernel_ms("b2_simplified_kernel_ms", simp, "rowlane")
+    if rl.MAX_ROW_COMBOS >= 40:
+        wide_kinds(rl, pos_att, dev, rng, out, kernel_ms)
     print(f"{opts.label}: kernels {json.dumps(out)}", flush=True)
 
     solves = {
@@ -180,6 +197,60 @@ def main() -> None:
         _, out[f"{key}_s_again"] = wall(fn)
         traced(key, fn, name)
     print("RESULT " + json.dumps(out), flush=True)
+
+
+def wide_kinds(rl, pos_att, dev, rng, out, kernel_ms) -> None:
+    """B.2 past 32 row combos in each kind that takes the channels."""
+    import numpy as np
+    import torch
+
+    from ocdp_tpu_torch import _build
+    from ocdp_tpu_torch.profiling import cuda_time_ms
+
+    cases = {"w100_four": (100, (("x", False), ("y", False), ("z", False),
+                                 ("x", True))),
+             "w120_x": (120, (("x", False),))}
+    picked = rl._kind
+    for key, (n_w, chans) in cases.items():
+        cfg = pos_att.PosAttConfig(n_mesh_w=n_w)
+        bks = [pos_att.build_channel_rowlane_backup(cfg, pos_att.build_channel(
+            cfg, ch, failure=f, with_cost=False, device=dev))
+            for ch, f in chans]
+        args = [b.args for b in bks]
+        keys = tuple(rl._plan_key(a) for a in args)
+        tabs = [torch.from_numpy(rng.uniform(0.0, 80.0, (b.NW, b.NE))
+                                 .astype(np.float32)).to(dev) for b in bks]
+        ov = [torch.empty_like(t) for t in tabs]
+        oa = [torch.empty(t.shape, dtype=torch.int32, device=dev)
+              for t in tabs]
+        auto = picked(keys)
+        combos = max(len(k[3]) for k in keys)
+        kinds = [auto] + [k for k in range(len(rl.KIND_COMBOS))
+                          if k != auto and combos <= rl.KIND_COMBOS[k]
+                          and (not rl.KIND_TAPS3[k] or rl.KIND_TAPS3[auto])]
+        out[f"{key}_combos"] = combos
+        want = None
+        for kind in kinds:
+            rl._kind = lambda keys, kind=kind: kind
+            rl._tiles.cache_clear()
+            try:
+                def sweep():
+                    rl.rowlane_backup_cuda(tabs, args, ov, oa)
+
+                sweep()
+                got = [t.clone() for t in ov + oa]
+                if want is None:
+                    want = got
+                out[f"{key}_kind{kind}_bitwise"] = all(
+                    torch.equal(a, b) for a, b in zip(got, want))
+                out[f"{key}_kind{kind}_smem"] = rl.plan_tiles(
+                    keys, rl._smem_limit(_build.load(), dev)).smem_bytes
+                out[f"{key}_kind{kind}_ms"] = cuda_time_ms(sweep, inner=20)
+                kernel_ms(f"{key}_kind{kind}_kernel_ms", sweep, "rowlane")
+            finally:
+                rl._kind = picked
+                rl._tiles.cache_clear()
+        out[f"{key}_picked_kind"] = auto
 
 
 if __name__ == "__main__":

@@ -10,9 +10,12 @@
   tolerance tests/test_torch_backup.py uses (XLA:CPU fuses and contracts).
 * The kernel's algorithm, written out in numpy float32 (its binary search,
   the walk of ``lo`` from action to action, the action splits and their
-  combine, the table rows the planner stages): every located cell equals
+  combine, the table rows the planner stages, the action records staged a
+  chunk of each split at a time): every located cell equals
   ``searchsorted`` over whole action ranges, every read lies in the staged
-  rows, and the result equals the plain version bitwise.
+  rows (or, with the table read from global memory, in the table), every
+  chunk slot a thread reads holds its own action's record, and the result
+  equals the plain version bitwise, in each of the three stages.
 * The engines through the graph-safe protocol (the graph schedule's eager
   twin on the CPU) and the policy store through ``sweep_into``: bitwise the
   gather solve.
@@ -156,13 +159,28 @@ def _walk(g, lo, q):
     return lo
 
 
+def _chunk_slots(args, k):
+    """The action each slot of chunk ``k``'s shared records holds, as the
+    chunked kernels stage them (-1: a slot no action fills)."""
+    per, chunk = args.actions_per_split, args.chunk
+    slots = np.full(args.n_splits * chunk, -1, np.int64)
+    for i in range(args.n_splits * chunk):
+        sp = i // chunk
+        j = k * chunk + i - sp * chunk
+        a = sp * per + j
+        if j < per and a < args.n_actions:
+            slots[i] = a
+    return slots
+
+
 def _kernel_model(values, args):
     """affine_sweep of csrc/fused_backup2d.cu, all cells at once: each split
     binary-searches its first query, walks lo from action to action, reads
-    the four corners in its block's staged rows and keeps the first strict
-    minimum; the splits combine in order. Asserts every located cell against
-    searchsorted and every read against the staged rows. Returns (values,
-    argmin, number of walk steps)."""
+    the four corners in its block's staged rows (or in the table) and keeps
+    the first strict minimum; the splits combine in order. Asserts every
+    located cell against searchsorted, every read against the staged rows
+    and, when the records are staged in chunks, every record slot read
+    against its action. Returns (values, argmin, number of walk steps)."""
     g = [np.asarray(a, np.float32) for a in args.axes]
     n0, n1 = len(g[0]), len(g[1])
     a_m = np.float32(args.A)
@@ -180,6 +198,8 @@ def _kernel_model(values, args):
     best_v = np.full(cell.shape, np.inf, np.float32)
     best_a = np.zeros(cell.shape, np.int64)
     steps = 0
+    chunked = args.stage != fb.STAGE_ALL
+    slots = {}
     for s in range(args.n_splits):
         a0 = s * args.actions_per_split
         a1 = min(a0 + args.actions_per_split, args.n_actions)
@@ -187,6 +207,11 @@ def _kernel_model(values, args):
         sa = np.full(cell.shape, a0, np.int64)
         lo = [None, None]
         for a in range(a0, a1):
+            if chunked:        # the record this thread reads: its chunk slot
+                k, j = divmod(a - a0, args.chunk)
+                if k not in slots:
+                    slots[k] = _chunk_slots(args, k)
+                assert slots[k][s * args.chunk + j] == a
             q = [base[k] + b_v[k] * u[a] for k in range(2)]
             for k in range(2):
                 if a == a0:
@@ -198,7 +223,9 @@ def _kernel_model(values, args):
                 want = np.clip(np.searchsorted(g[k], q[k], side="right") - 1,
                                0, len(g[k]) - 2)
                 np.testing.assert_array_equal(lo[k], want)
-            assert (lo[0] >= row0).all() and (lo[0] + 1 <= last_row).all()
+            if args.stage != fb.TABLE_GLOBAL:
+                assert (lo[0] >= row0).all() and \
+                    (lo[0] + 1 <= last_row).all()
             f = [(q[k] - g[k][lo[k]]) / (g[k][lo[k] + 1] - g[k][lo[k]])
                  for k in range(2)]
             h = [np.float32(1.0) - f[k] for k in range(2)]
@@ -253,6 +280,78 @@ def test_kernel_algorithm_on_unsorted_controls_with_exact_ties(monkeypatch):
         assert np.array_equal(mv, want.values.numpy())
         assert np.array_equal(ma, want.argmin.numpy())
         assert int(want.argmin.max()) < len(u)
+
+
+def _forced_stage(cfg, stage, cells, splits, monkeypatch):
+    """``cfg``'s affine backup of ``cells`` x ``splits`` with chunks of 3
+    actions, under a shared memory limit of exactly ``stage``'s need, so
+    that it takes that stage (each stage needs less than the one before)."""
+    monkeypatch.setattr(fb, "CELLS_PER_BLOCK", cells)
+    monkeypatch.setattr(fb, "SPLITS", splits)
+    monkeypatch.setattr(fb, "CHUNK_ACTIONS", 3)
+    s_c, a_c = kirk._separable_cost_terms(cfg, device="cpu")
+    s_r, u = kirk._meshes(cfg)
+
+    def backup():
+        return fb.AffineBackup2D((s_r, s_r), u, cfg.A, cfg.B, s_c, a_c)
+
+    a = backup().args
+    need = fb._smem_bytes(a.grid_shape, a.n_actions, a.max_rows, cells,
+                          a.n_splits, stage, min(3, a.actions_per_split))
+    monkeypatch.setattr(fb, "SMEM_LIMIT_BYTES", need)
+    return backup().args
+
+
+@pytest.mark.parametrize("stage", ["all", "chunks", "global"])
+@pytest.mark.parametrize("name", ["extrapolating", "negative_B", "zero_B1"])
+def test_kernel_algorithm_in_each_stage(name, stage, monkeypatch):
+    """The three stages of the kernel (every record staged; records staged
+    in chunks, here of 3 actions of 10 a split, the last chunk ragged; the
+    table read from global memory) run one algorithm: the same sweep as the
+    plain version, bitwise, and every action's record staged exactly once
+    over the chunks."""
+    want_stage = {"all": fb.STAGE_ALL, "chunks": fb.STAGE_CHUNKS,
+                  "global": fb.TABLE_GLOBAL}[stage]
+    cfg = CONFIGS[name]
+    args = _forced_stage(cfg, want_stage, 16, 4, monkeypatch)
+    assert args.stage == want_stage
+    assert args.smem_bytes <= fb.SMEM_LIMIT_BYTES
+    assert args.actions_per_split == 10
+    if want_stage != fb.STAGE_ALL:
+        assert args.chunk == 3
+        staged = np.concatenate([_chunk_slots(args, k) for k in range(4)])
+        assert sorted(staged[staged >= 0]) == list(range(cfg.du))
+    v = _values(12, cfg.dx)
+    mv, ma, _ = _kernel_model(v, args)
+    want = fb.fused_backup2d_affine_plain(v, args)
+    assert np.array_equal(mv, want.values.numpy())
+    assert np.array_equal(ma, want.argmin.numpy())
+
+
+def test_stage_needs_shrink_and_global_always_fits(monkeypatch):
+    """Each stage asks for less shared memory than the one before it; the
+    table-from-global stage cuts its chunk until the records fit beside
+    the split minima, so even 512 one-action splits of one cell fit."""
+    cfg = CONFIGS["negative_B"]
+    needs = []
+    for stage in (fb.STAGE_ALL, fb.STAGE_CHUNKS, fb.TABLE_GLOBAL):
+        args = _forced_stage(cfg, stage, 16, 4, monkeypatch)
+        assert args.stage == stage
+        needs.append(args.smem_bytes)
+    assert needs[0] > needs[1] > needs[2]
+    monkeypatch.setattr(fb, "SMEM_LIMIT_BYTES", 232_448)
+    monkeypatch.setattr(fb, "CHUNK_ACTIONS", 32)
+    monkeypatch.setattr(fb, "CELLS_PER_BLOCK", 1)
+    monkeypatch.setattr(fb, "SPLITS", 512)
+    big = np.linspace(-1.0, 1.0, 300).astype(np.float32)
+    u = np.linspace(-40.0, 10.0, 512 * 40).astype(np.float32)
+    args = fb.AffineBackup2D(
+        (big, big), u, cfg.A, (2.0, 0.0539), torch.zeros(300, 300),
+        torch.zeros(u.size)).args
+    assert args.stage == fb.TABLE_GLOBAL and args.n_splits == 512
+    assert 1 <= args.chunk < 32 and args.smem_bytes <= 232_448
+    assert fb._smem_bytes(args.grid_shape, args.n_actions, args.max_rows, 1,
+                          512, fb.TABLE_GLOBAL, args.chunk + 1) > 232_448
 
 
 @pytest.mark.parametrize("cells", [1, 16, 33])
@@ -405,15 +504,24 @@ def test_affine_rejects_what_it_cannot_take(over, match, monkeypatch):
 
 
 def test_affine_rejects_a_table_past_shared_memory():
-    """300-point rows: a block whose queries reach 3 rows fits, one whose
-    controls sweep axis 0 end to end (all 300 rows, 360 KB) does not."""
+    """300-point rows: a block whose queries reach 3 rows stages them; one
+    whose controls sweep axis 0 end to end (all 300 rows, 360 KB) is no
+    longer refused: its blocks read the table from global memory, and the
+    kernel's algorithm gives the plain version's sweep."""
     big = np.linspace(-1.0, 1.0, 300).astype(np.float32)
     u = np.linspace(-1.0, 1.0, 3).astype(np.float32)
     kw = dict(axes=(big, big), u=u, A=((1.0, 0.0), (0.0, 1.0)),
               state_cost=torch.zeros(300, 300), action_cost=torch.zeros(3))
-    assert fb.AffineBackup2D(**kw, B=(0.0, 0.0)).args.max_rows == 3
-    with pytest.raises(ValueError, match="shared memory"):
-        fb.AffineBackup2D(**kw, B=(2.0, 0.0))
+    near = fb.AffineBackup2D(**kw, B=(0.0, 0.0)).args
+    assert near.max_rows == 3 and near.stage == fb.STAGE_ALL
+    far = fb.AffineBackup2D(**kw, B=(2.0, 0.0)).args
+    assert far.max_rows == 300 and far.stage == fb.TABLE_GLOBAL
+    assert far.smem_bytes <= fb.SMEM_LIMIT_BYTES
+    v = _values(13, 300)
+    mv, ma, _ = _kernel_model(v, far)
+    want = fb.fused_backup2d_affine_plain(v, far)
+    assert np.array_equal(mv, want.values.numpy())
+    assert np.array_equal(ma, want.argmin.numpy())
 
 
 def test_affine_wrapper_never_computes_on_the_cpu():

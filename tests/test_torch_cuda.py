@@ -1,6 +1,9 @@
 """The CUDA kernels (fused 2-D backup in its plan-streamed and affine-query
-modes, the affine one in CUDA graphs and the finite engine; row/lane backup
-with its channel batch, tile map and CUDA graph replay, 6-D coupled-lane
+modes, the affine one in CUDA graphs and the finite engine and in each of
+its three stages: every action record staged, the records staged in
+chunks, the table read from global memory; row/lane backup with its
+channel batch, tile map, CUDA graph replay and 40-combo kind, 6-D
+coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells; the
@@ -120,8 +123,10 @@ AFFINE_CONFIGS = {
 
 def _affine_vs(aff, v, streamed=None):
     """The affine kernel, one launch, == its plain version and the
-    plan-streamed kernel (on ``streamed``'s plan, or on the affine mode's
-    own), bitwise, the argmin also as int16 (and uint8 where it fits)."""
+    plan-streamed kernel (on ``streamed``'s plan, on the affine mode's own
+    when None, not at all when False: it stages the whole table, at most
+    241 x 241), bitwise, the argmin also as int16 (and uint8 where it
+    fits)."""
     args = aff.args
     before = fb.fused_backup2d_affine_cuda.launches
     got = aff(v)
@@ -129,7 +134,9 @@ def _affine_vs(aff, v, streamed=None):
     assert fb.fused_backup2d_affine_cuda.launches == before + 1
     want = fb.fused_backup2d_affine_plain(v, args)
     _bitwise(got, want)
-    if streamed is None:
+    if streamed is False:
+        pass
+    elif streamed is None:
         _bitwise(got, fb.fused_backup2d_cuda(
             v, *fb.affine_plan(args, v.device),
             state_cost=args.state_cost, action_cost=args.action_cost))
@@ -209,6 +216,77 @@ def test_affine_exact_ties_on_unsorted_controls(device):
     v = torch.from_numpy(np.random.default_rng(6).uniform(
         0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
     assert int(_affine_vs(aff, v).argmin.max()) < cfg.du
+
+
+STAGES = {"all": fb.STAGE_ALL, "chunks": fb.STAGE_CHUNKS,
+          "global": fb.TABLE_GLOBAL}
+
+
+@pytest.mark.parametrize("stage", list(STAGES))
+@pytest.mark.parametrize("name", ["golden", "negative_B", "zero_B"])
+def test_affine_stages_bitwise(device, name, stage, monkeypatch):
+    """Each stage's instantiation, forced by a shared memory limit of
+    exactly its need, with 4 splits and chunks of 3 actions (the last
+    chunk of a split ragged): == the plain version and the streamed kernel
+    bitwise."""
+    cfg = AFFINE_CONFIGS[name]
+    s_r, u = kirk._meshes(cfg)
+    s_c, a_c = kirk._separable_cost_terms(cfg, device=device)
+    with monkeypatch.context() as m:
+        m.setattr(fb, "SPLITS", 4)
+        m.setattr(fb, "CHUNK_ACTIONS", 3)
+        a = fb.AffineBackup2D((s_r, s_r), u, cfg.A, cfg.B, s_c, a_c).args
+        m.setattr(fb, "SMEM_LIMIT_BYTES", fb._smem_bytes(
+            a.grid_shape, a.n_actions, a.max_rows, a.cells_per_block,
+            a.n_splits, STAGES[stage], 3))
+        aff = fb.AffineBackup2D((s_r, s_r), u, cfg.A, cfg.B, s_c, a_c)
+    assert aff.args.stage == STAGES[stage]
+    v = torch.from_numpy(np.random.default_rng(9).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    _affine_vs(aff, v)
+
+
+C1_CONFIGS = {
+    "du20000": (kirk.KirkConfig(du=20000, N=4), fb.STAGE_CHUNKS),
+    "dx300_wide_B": (kirk.KirkConfig(dx=300, B=(2.0, 0.0539), N=4),
+                     fb.TABLE_GLOBAL),
+}
+
+
+@pytest.mark.parametrize("name", list(C1_CONFIGS))
+def test_affine_c1_configurations_bitwise(device, name):
+    """The configurations that once needed more shared memory than a block
+    has: one sweep == the plain version (and the streamed kernel where it
+    takes the table) bitwise."""
+    cfg, stage = C1_CONFIGS[name]
+    aff = kirk.affine_backup(cfg, device)
+    assert aff.args.stage == stage
+    v = torch.from_numpy(np.random.default_rng(10).uniform(
+        0, 400, (cfg.dx, cfg.dx)).astype(np.float32)).to(device)
+    _affine_vs(aff, v, None if cfg.dx <= 241 else False)
+
+
+@pytest.mark.parametrize("name", list(C1_CONFIGS))
+def test_kirk_solve_auto_runs_b1_at_every_configuration(device, name):
+    """kirk.solve's auto is B.1 on a card at these configurations too: N-1
+    launches and no other backup kernel, values and policies equal to the
+    plain version through the same engine."""
+    from ocdp_tpu_torch.engine import value_iteration_finite
+
+    cfg, _ = C1_CONFIGS[name]
+    before = (fb.fused_backup2d_affine_cuda.launches,
+              fb.fused_backup2d_cuda.launches)
+    sol = kirk.solve(cfg, device=device).result
+    torch.cuda.synchronize()
+    assert fb.fused_backup2d_affine_cuda.launches == before[0] + cfg.N - 1
+    assert fb.fused_backup2d_cuda.launches == before[1]
+    args = kirk.affine_backup(cfg, device).args
+    shape = PlanShape((cfg.dx,) * 2, (cfg.dx,) * 2 + (cfg.du,), device)
+    want = value_iteration_finite(
+        shape, None, cfg.N - 1, store_policies=True,
+        backup=lambda v: fb.fused_backup2d_affine_plain(v, args))
+    assert torch.equal(sol.values, want.values)
+    assert torch.equal(sol.policies.long(), want.policies.long())
 
 
 def test_affine_graph_replay_equals_eager(device):
@@ -790,6 +868,75 @@ def test_band_stack_equals_per_axis_launches(device):
         one = bb.BandBackup2D(plan, terms)(v[i].contiguous())
         assert torch.equal(one.values, got.values[i])
         assert torch.equal(one.argmin, got.argmin[i])
+
+
+def test_rowlane_40_combo_kind_bitwise(device):
+    """Past 20 row combos B.2 runs kind 3 (up to 40): the x channel of
+    ``PosAttConfig(n_mesh_w=120)`` (35 combos) alone, and the four channels
+    of ``n_mesh_w=100`` (33, 35, 33 and 30) in one launch, each equal to
+    its own launch and to the plain version bitwise; 20 sweeps of the four
+    replayed as a CUDA graph equal eager launches."""
+    from ocdp_tpu_torch.engine import SweepGraph, ping_pong
+
+    cfg = pos_att.PosAttConfig(n_mesh_w=120)
+    p = pos_att.build_channel(cfg, "x", with_cost=False, device=device)
+    bk = pos_att.build_channel_rowlane_backup(cfg, p)
+    assert len(bk.row_combos) == 35
+    v = _seeded(bk.state_shape, device, seed=17).permute(bk.inv).contiguous()
+    assert rl.launch_plan(v, [bk.args]).kind == 3
+    _rowlane_vs_plain(bk, v)
+    bks, vs = _pos_att_batch(pos_att.PosAttConfig(n_mesh_w=100), device)
+    assert [len(b.row_combos) for b in bks] == [33, 35, 33, 30]
+    tabs = [b.to_table(v) for b, v in zip(bks, vs)]
+    args = [b.args for b in bks]
+    assert rl.launch_plan(tabs[0], args).kind == 3
+    ov = [torch.empty_like(t) for t in tabs]
+    oa = [torch.empty(t.shape, dtype=torch.int32, device=device)
+          for t in tabs]
+    rl.rowlane_backup_cuda(tabs, args, ov, oa)
+    for b, t, v, a in zip(bks, tabs, ov, oa):
+        one = rl.rowlane_backup_cuda(t, b.args)
+        want = rl.rowlane_backup_plain(t, b.args)
+        torch.cuda.synchronize()
+        assert torch.equal(v, one.values) and torch.equal(a, one.argmin)
+        assert torch.equal(v, want.values) and torch.equal(a, want.argmin)
+    batch = rl.RowLaneBatch(bks)
+    out = []
+    for graphed in (False, True):
+        cur, nxt, arg = batch.buffers(vs)
+
+        def step(src, dst):
+            batch.sweep(src, dst, arg, (0, 1, 2, 3))
+
+        if graphed:
+            batch.prepare((0, 1, 2, 3))
+            SweepGraph(step, cur, nxt, 20, (batch.launcher,)).replay()
+        else:
+            ping_pong(step, cur, nxt, 20)
+        torch.cuda.synchronize()
+        out.append((cur, arg))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+
+
+@pytest.mark.parametrize("n_mesh_w,axis,combos,kind", [(1000, 0, 25, 2),
+                                                       (1400, 0, 33, 4)])
+def test_rowlane_any_tap_kinds_bitwise(device, n_mesh_w, axis, combos, kind):
+    """A simplified attitude axis at the full theta grid (lane taps -2..2)
+    runs the any-tap kinds: kind 2 up to 32 row combos, kind 4 past it (up
+    to 40); one sweep equal to the plain version bitwise, and 5 sweeps of
+    ``solve_simplified(impl='rowlane')`` there through the kernel only."""
+    cfg = attitude.AttitudeConfig(n_mesh_w=n_mesh_w)
+    _, plan, terms = attitude.build_simplified_axis(cfg, axis, device=device)
+    bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+    assert len(bk.row_combos) == combos
+    v = _seeded((n_mesh_w, 300), device, seed=23)
+    assert rl.launch_plan(bk.to_table(v), [bk.args]).kind == kind
+    _rowlane_vs_plain(bk, v)
+    before = rl.rowlane_backup_cuda.launches
+    sk = attitude.solve_simplified(cfg, num_sweeps=5, impl="rowlane")
+    assert rl.rowlane_backup_cuda.launches == before + 15
+    assert all(bool(torch.isfinite(t).all()) for t in sk.values)
 
 
 @pytest.mark.parametrize("fault", ["slot", "reach"])

@@ -13,10 +13,15 @@ with the planner's own numbers:
   cover the tile's lane coordinates;
 * a sweep whose lane phase gathers the table through the planner's stages
   equals ``rowlane_backup_plain`` bitwise, values and argmin, for the
-  four pos-att channels batched (x_failure's 6 actions among 9) and for a
-  simplified attitude axis (one row group of 27 combos, 5 lane taps);
-* the kernel kind: the (-1, 0, 1)-tap kernels for the pos-att channels,
-  the generic one otherwise.
+  four pos-att channels batched (x_failure's 6 actions among 9), for a
+  simplified attitude axis (5 row combos, lane taps (0,) and (-1, 0, 1)),
+  for a fine omega grid (``n_mesh_w=120``: 35, 35 and 31 row combos, the
+  TPU kernel's envelope past the first 32) and for a fine simplified omega
+  grid (``n_mesh_w=1400``: 37 row combos);
+* the kernel kind: the (-1, 0, 1)-tap kernels for the pos-att channels
+  (the 40-combo one past 20 combos), the any-tap ones otherwise (the
+  40-combo one past 32); past 40 combos the analysis refuses and names
+  the gather backup.
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -36,23 +41,35 @@ SMEM_BLOCK_MAX = 232_448          # 227 KB: the most an H100 block may ask
 CHANNELS = [("x", False), ("y", False), ("z", False), ("x", True)]
 SMALL = dict(n_mesh_x=7, n_mesh_v=7, n_mesh_t=6, n_mesh_w=5, T_final=0.25)
 MID = dict(n_mesh_x=12, n_mesh_v=12, n_mesh_t=8, n_mesh_w=7, T_final=0.25)
+# a fine omega grid: 35 row combos in x and z, 31 in x_failure, 41 in y
+WIDE = dict(n_mesh_x=6, n_mesh_v=6, n_mesh_t=10, n_mesh_w=120)
 
 
-def _pos_att(size):
+def _pos_att(size, channels=CHANNELS):
     cfg = tpa.PosAttConfig(**size)
     return [tpa.build_channel_rowlane_backup(
         cfg, tpa.build_channel(cfg, ch, failure=f, with_cost=False,
-                               device="cpu")) for ch, f in CHANNELS]
+                               device="cpu")) for ch, f in channels]
 
 
-def _simplified():
-    cfg = tatt.AttitudeConfig(n_mesh_w=120, n_mesh_t=40)
+def _wide():
+    return _pos_att(WIDE, [("x", False), ("z", False), ("x", True)])
+
+
+def _simplified(n_mesh_w=120):
+    cfg = tatt.AttitudeConfig(n_mesh_w=n_mesh_w, n_mesh_t=40)
     _, plan, terms = tatt.build_simplified_axis(cfg, 2, device="cpu")
     return [rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)]
 
 
+# a fine simplified omega grid: 37 row combos, lane taps (0,), (-1, 0, 1)
+def _wide_simplified():
+    return _simplified(1400)
+
+
 CASES = {"small": lambda: _pos_att(SMALL), "mid": lambda: _pos_att(MID),
-         "simplified": _simplified}
+         "simplified": _simplified, "wide_omega": _wide,
+         "wide_simplified": _wide_simplified}
 
 
 def _plan(bks):
@@ -157,7 +174,7 @@ def test_every_read_lies_in_its_stage(case):
     keys = [rl._plan_key(b.args) for b in bks]
     assert plan.lanes % rl.lane_step(keys) == 0 and plan.width == (
         plan.lanes + plan.reach_lo + plan.reach_hi)
-    if plan.kind < 2:     # lane pairs (c, c + n_l1): whole runs of 2 n_l1
+    if rl.KIND_TAPS3[plan.kind]:   # lane pairs (c, c + n_l1): runs of 2 n_l1
         assert all(plan.lanes % (2 * b.args.lane_shape[1]) == 0
                    for b in bks)
     assert plan.reach_lo % 4 == 0 and plan.reach_hi % 4 == 0
@@ -174,26 +191,27 @@ def test_every_read_lies_in_its_stage(case):
         shifts = [t0 * n_l1 + t1 for t0 in a.lane_taps[0]
                   for t1 in a.lane_taps[1]]
         assert -min(shifts) <= plan.reach_lo and max(shifts) <= plan.reach_hi
+        tab = table.numpy()
+        sh = np.asarray(shifts)[None, :, None]
         for i in range(plan.grid[0]):
+            rr = np.arange(plan.rows)
+            rr = rr[i * plan.rows + rr < nw]
+            r = (i * plan.rows + rr)[:, None, None]
             for j in range(plan.grid[1]):
-                st = _stage(plan, ch, table, i, j)
-                for rr in range(plan.rows):
-                    r = i * plan.rows + rr
-                    if r >= nw:
-                        continue
-                    for k, d in enumerate(deltas):
-                        srow = st[plan.slots[ch][k] + rr]
-                        tr = r + d
-                        for s in shifts:
-                            c = j * plan.lanes + np.arange(plan.lanes)
-                            c = c[c < ne]
-                            tc = c + s
-                            want = np.where(
-                                (tr >= 0) & (tr < nw) & (tc >= 0) & (tc < ne),
-                                table.numpy()[min(max(tr, 0), nw - 1),
-                                              np.clip(tc, 0, ne - 1)], 0.0)
-                            got = srow[c - j * plan.lanes + plan.reach_lo + s]
-                            np.testing.assert_array_equal(got.numpy(), want)
+                st = _stage(plan, ch, table, i, j).numpy()
+                c = j * plan.lanes + np.arange(plan.lanes)
+                c = c[c < ne][None, None, :]
+                tc = c + sh                              # (1, shifts, L)
+                for k, d in enumerate(deltas):
+                    # every tile row's reads of combo k at every shift
+                    tr = r + d
+                    want = np.where(
+                        (tr >= 0) & (tr < nw) & (tc >= 0) & (tc < ne),
+                        tab[np.clip(tr, 0, nw - 1), np.clip(tc, 0, ne - 1)],
+                        0.0)
+                    got = st[plan.slots[ch][k] + rr[:, None, None],
+                             c - j * plan.lanes + plan.reach_lo + sh]
+                    np.testing.assert_array_equal(got, want)
 
 
 @pytest.mark.parametrize("case", list(CASES))
@@ -236,3 +254,34 @@ def test_kinds_and_refusals():
     assert list(ints[:, 4]) == [9, 9, 9, 6]
     assert tuple(tile[:5]) == (plan.rows, plan.lanes, plan.reach_lo,
                                plan.reach_hi, plan.width)
+
+
+def test_wide_omega_takes_the_40_combo_kind():
+    """Past 20 row combos the (-1, 0, 1)-tap channels take kind 3 (up to
+    40, the TPU kernel's max_flat_taps); the planner finds a stage within
+    the 57,344 B a block of four an SM may have; the y channel's 41 combos
+    are refused, naming the way round."""
+    wide = _wide()
+    assert [len(b.row_combos) for b in wide] == [35, 35, 31]
+    for bks in ([wide[0]], wide):
+        plan = _plan(bks)
+        assert plan.kind == 3 and rl.KIND_COMBOS[3] == 40
+        assert plan.smem_bytes <= rl.SMEM_PER_SM // rl.BLOCKS_PER_SM \
+            - rl.SMEM_RESERVED
+    with pytest.raises(ValueError, match="41 row combos.*impl='gather'"):
+        _pos_att(WIDE, [("y", False)])
+
+
+def test_wide_simplified_axis_takes_the_any_tap_40_combo_kind():
+    """Past 32 row combos a plan whose lane taps are not (-1, 0, 1) on both
+    axes takes kind 4 (any taps, up to 40); up to 32 it keeps kind 2. The
+    planner finds a stage within a block's budget."""
+    wide = _wide_simplified()
+    assert len(wide[0].row_combos) == 37
+    plan = _plan(wide)
+    assert plan.kind == 4 and rl.KIND_COMBOS[4] == 40
+    assert not rl.KIND_TAPS3[4] and rl.KIND_COMBOS[2] == 32
+    assert plan.smem_bytes <= rl.SMEM_PER_SM // rl.BLOCKS_PER_SM \
+        - rl.SMEM_RESERVED
+    narrow = _simplified(1000)
+    assert len(narrow[0].row_combos) == 27 and _plan(narrow).kind == 2
