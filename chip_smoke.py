@@ -243,6 +243,32 @@ The surface (``profiling.trace``, ``graft_entry``, the CLI, the bench):
 37. the Kirk rollout ``kirk.optimal_path`` from (2, 1) timed on the card
     (warm, median of 5), golden and full configurations.
 
+Past the default kernels' tap capacities, the structures the TPU kernel
+takes up to its 40 live row and 40 live lane combos (B.2's any-tap kinds on
+wide lane axes; the 6-D kernel's ``backup6d_wide``):
+
+38. one sweep vs the plain version, bitwise: the three simplified axes of
+    ``AttitudeConfig(n_mesh_t=1000)`` (1000 x 1000, lane taps -5..5, -7..7,
+    -4..4) through B.2's kind 2; the 36-combo 6-D configuration (row taps
+    (-1, 0, 1, 2) x (-1, 0, 1) x (-1, 0, 1), 15^3 x 10^3) through
+    ``backup6d_wide`` by B.3's wrapper, B.4's (a flat plan, uint8 argmin),
+    B.5's (the recompute plan) and B.7's (the 2 ranks' row blocks and
+    their digit slices);
+39. the main paths, ``attitude.solve_simplified(AttitudeConfig(
+    n_mesh_t=1000), impl='rowlane')`` (3 x 5999 sweeps, one B.2 launch an
+    axis a sweep: exactly 17,997 launches and no other backup kernel), held
+    to the same configuration's ``auto`` (B.6) solve within rtol 2e-5 and
+    an absolute 2e-5 x max |V| (the two sum orders part by up to 1.2e-4 of
+    the value at cells of small |V| over 5999 sweeps), with over 99.95%
+    equal torque tables; and
+    ``attitude.solve_full`` of the 36-combo configuration (1499 sweeps:
+    exactly 1499 launches of ``backup6d_wide`` through B.3's wrapper and no
+    other backup kernel, finite values; 5 sweeps equal ``impl='plain'``
+    bitwise), then a 1000-stage rollout of it;
+40. timing: each axis's B.2 launch (a CUDA graph of 20) and ``backup6d_wide``
+    (CUDA events) beside their bounds and plain versions, their ptxas lines,
+    shared memory and occupancy, and the two solves' wall times.
+
 The line before the last is a JSON object describing each kernel, with its
 time beside its bound: the larger of its FP32 operations over 67 TFLOP/s
 and its bytes (each input read once, each output written once) over
@@ -406,6 +432,8 @@ def main() -> None:
     kernels += multirank_phases(device)
     free_cuda()
     surface_phases(device)
+    free_cuda()
+    kernels += wide_tap_phases(device)
     for k in kernels:
         print(f"{k['name']}: {k['ms']:.4f} ms per sweep vs bound "
               f"{k['bound_ms']:.4f} ms ({k['bound_by']}: {k.pop('flops'):.4e} "
@@ -2462,6 +2490,212 @@ def band_phases(device) -> dict:
         **bnd,
         "library_ms": None,
     }
+
+
+# past the default kernels' tap capacities (C.4): the fine-theta simplified
+# solve, whose lane axes have 11, 15 and 9 taps (B.2's any-tap kind 2 took 8
+# before), and a lighter roll axis with an asymmetric rate range, whose row
+# taps (-1, 0, 1, 2) x (-1, 0, 1) x (-1, 0, 1) give 36 live combos
+# (backup6d_wide; backup6d_sweep takes 3 taps an axis)
+FINE_THETA = dict(n_mesh_t=1000)
+WIDE_6D = dict(n_mesh_w=15, n_mesh_q=10, h=0.02, w_min_deg=-50.0,
+               w_max_deg=30.0, inertia_diag=(0.0225, 0.028317, 0.0245))
+# backup6d_wide's mangled names: <int32, tracking> (B.3's wrapper, the main
+# path), <uint8, tracking> (B.4's), <uint8, tracking, recompute> (B.5's)
+B3W_KERNEL = "backup6d_wideIiLb1ELb0E"
+B4W_KERNEL = "backup6d_wideIhLb1ELb0E"
+B5W_KERNEL = "backup6d_wideIhLb1ELb1E"
+# B.2 vs B.6 over a whole solve: rtol 2e-5 with an absolute floor of 2e-5 x
+# max |V|. The two sum the interpolation in different orders, and over 5999
+# sweeps the difference reaches 5e-5 to 1.2e-4 of the value at cells whose
+# |V| is 0.2-1% of max |V| (at the default configuration too, where B.2's
+# kind 2 ran before), while |dV| stays below 2e-6 x max |V| everywhere;
+# B.6 and the gather solve agree to 1.2e-6 per cell
+# (scripts/torch_simplified_routes.py)
+WIDE_RTOL = 2e-5
+
+
+def wide_tap_phases(device) -> list:
+    """Phases 38-40: B.2 and B.3 on the tap structures past the default
+    kernels' capacities that the TPU kernel takes; returns their entries of
+    the kernels line."""
+    rng = np.random.default_rng(SEED + 7)
+    cfg_t = attitude.AttitudeConfig(**FINE_THETA)
+    cfg6 = attitude.AttitudeConfig(**WIDE_6D)
+
+    phase("38. B.2 on lane axes of 9-15 taps, backup6d_wide on 36 row "
+          "combos: each wrapper vs plain, one sweep, bitwise")
+    axes, rl_err = [], 0.0
+    for axis in range(3):
+        _, plan, terms = attitude.build_simplified_axis(cfg_t, axis,
+                                                        device=device)
+        bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+        v = torch.from_numpy(rng.uniform(0.0, 100.0, plan.grid_shape)
+                             .astype(np.float32)).to(device)
+        kind = rl.launch_plan(bk.to_table(v), [bk.args]).kind
+        taps = bk.e_taps[1]
+        rl_err = max(rl_err, rowlane_vs_plain(
+            bk, v, f"n_mesh_t=1000 axis {axis} ({len(bk.row_combos)} row x "
+            f"{len(bk.lane_combos)} lane combos, lane taps {taps[0]}.."
+            f"{taps[-1]}, kind {kind})"))
+        check(kind == 2 and len(taps) > 8, f"axis {axis}: kind {kind}, "
+              f"{len(taps)} lane taps")
+        axes.append((bk, v))
+    _, plan6, cost6 = attitude.build_full(cfg6, device=device)
+    bk6 = b6.Backup6D(plan6, cost6)
+    v6 = seeded_table(rng, bk6)
+    plan, _ = b6.tile_occupancy(v6, bk6.args)
+    check(len(bk6.row_combos) == 36 and plan.wide,
+          f"{len(bk6.row_combos)} row combos, wide plan {plan.wide}")
+    b3_err = backup6d_vs_plain(bk6, v6.reshape(bk6.state_shape),
+                               "backup6d_wide through B.3's wrapper")
+    _, fplan, fcost = attitude.build_full(cfg6, flat=True, device=device)
+    b3_err = max(b3_err, envelope_vs_plain(
+        b6.Backup6D(fplan, fcost, argmin_dtype=torch.uint8), v6,
+        "backup6d_wide through B.4's (flat) wrapper"))
+    del fplan, fcost
+    _, rplan, rcost = attitude.build_full(cfg6, lane_mode="recompute",
+                                          device=device)
+    b3_err = max(b3_err, envelope_vs_plain(
+        b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8), v6,
+        "backup6d_wide through B.5's (recompute) wrapper"))
+    del rplan, rcost
+    b3_err = max(b3_err, *b7_blocks_vs_plain(
+        bk6, v6, 2, "backup6d_wide through B.7's wrappers", slices=True))
+    free_cuda()
+
+    phase("39. main paths: attitude.solve_simplified(AttitudeConfig("
+          "n_mesh_t=1000), impl='rowlane') and attitude.solve_full(the "
+          "36-combo AttitudeConfig), the rollout")
+    sweeps_t = cfg_t.n_stage - 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol_t = attitude.solve_simplified(cfg_t, impl="rowlane")
+    torch.cuda.synchronize()
+    rl_solve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    rl_launches = counts.pop("rowlane_backup")
+    print(f"solve_simplified(AttitudeConfig(n_mesh_t=1000), impl='rowlane'): "
+          f"{rl_solve_s:.3f} s for 3 x {sweeps_t} sweeps incl. the builds; "
+          f"rowlane_backup launches {rl_launches}, others {counts}")
+    check(rl_launches == 3 * sweeps_t,
+          f"rowlane_backup launched {rl_launches} times, want "
+          f"{3 * sweeps_t}")
+    check(not any(counts.values()), "another backup kernel launched")
+    t0 = time.perf_counter()
+    ref_t = attitude.solve_simplified(cfg_t)             # B.6, auto
+    torch.cuda.synchronize()
+    band_solve_s = time.perf_counter() - t0
+    for axis, (a, b, ua, ub) in enumerate(zip(sol_t.values, ref_t.values,
+                                              sol_t.u_tables,
+                                              ref_t.u_tables)):
+        check(a.is_cuda and tuple(a.shape) == (cfg_t.n_mesh_w, 1000)
+              and bool(torch.isfinite(a).all()), f"axis {axis}: values")
+        d = (a - b).abs()
+        rel = float((d / b.abs().clamp_min(1e-30)).max())
+        scale = float(b.abs().max())
+        same = float((ua == ub).double().mean())
+        print(f"axis {axis}: B.2 (rowlane) vs B.6 (auto, {band_solve_s:.3f} "
+              f"s): max |dV| / max |V| {float(d.max()) / scale:.3e}, max "
+              f"relative |dV| {rel:.3e} (rtol {WIDE_RTOL}, atol {WIDE_RTOL} "
+              f"x max |V| = {WIDE_RTOL * scale:.4e}), torque tables equal "
+              f"on {same:.6f} of the cells")
+        check(torch.allclose(a, b, rtol=WIDE_RTOL, atol=WIDE_RTOL * scale)
+              and same > 0.9995,
+              f"axis {axis}: rowlane solve != auto solve within tolerance")
+    sweeps6 = cfg6.n_stage - 1
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    sol6 = attitude.solve_full(cfg6)
+    torch.cuda.synchronize()
+    b3w_solve_s = time.perf_counter() - t0
+    counts = launch_counts()
+    b3w_launches = counts.pop("backup6d")
+    print(f"solve_full(the 36-combo AttitudeConfig, 15^3 x 10^3): "
+          f"{b3w_solve_s:.3f} s for {sweeps6} sweeps incl. the build; "
+          f"backup6d launches {b3w_launches} (backup6d_wide), others "
+          f"{counts}")
+    check(b3w_launches == sweeps6,
+          f"backup6d launched {b3w_launches} times, want {sweeps6}")
+    check(not any(counts.values()), "another backup kernel launched")
+    res6 = sol6.result
+    check(res6.values.is_cuda and tuple(res6.values.shape) == bk6.state_shape
+          and bool(torch.isfinite(res6.values).all()),
+          "36-combo main path: wrong device, shape or non-finite values")
+    print(f"V range [{float(res6.values.min())}, "
+          f"{float(res6.values.max())}]")
+    k5 = attitude.solve_full(cfg6, num_sweeps=5, impl="kernel")
+    p5 = attitude.solve_full(cfg6, num_sweeps=5, impl="plain", device=device)
+    same = (torch.equal(k5.result.values, p5.result.values)
+            and torch.equal(k5.result.argmin, p5.result.argmin))
+    print(f"5 sweeps, kernel vs plain: values and argmin identical {same}")
+    check(same, "36-combo solve: kernel != plain")
+    t0 = time.perf_counter()
+    X, U, _ = attitude.rollout_full(sol6, num_stages=1000)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(X).all()) and bool(np.isin(np.round(
+        U.cpu().numpy().astype(np.float64), 4), [-0.11, 0.0, 0.11]).all()),
+          "36-combo rollout: non-finite states or torques off the set")
+    print(f"1000-stage nearest rollout: {roll_s:.3f} s, final |q_vec| "
+          f"{float(X[-1, 3:6].norm())}")
+    del sol6, k5, p5, ref_t
+    free_cuda()
+
+    phase("40. timing (CUDA events, warm, median of 10)")
+    rl_ms = []
+    for axis, (bk, v) in enumerate(axes):
+        tab = bk.to_table(v)
+        ov, oa = torch.empty_like(tab), torch.empty(
+            tab.shape, dtype=torch.int32, device=device)
+        k_ms = graph_time_ms(lambda: rl.rowlane_backup_cuda(tab, bk.args, ov,
+                                                            oa))
+        p_ms = cuda_time_ms(lambda: rl.rowlane_backup_plain(tab, bk.args),
+                            repeats=3)
+        rb = rowlane_bound(bk)
+        plan, blocks = rl.tile_occupancy(tab, [bk.args])
+        rl_ms.append((k_ms, p_ms, rb))
+        print(f"n_mesh_t=1000 axis {axis} ({bk.NW} x {bk.NE}, "
+              f"{len(bk.lane_combos)} lane taps): kernel alone {k_ms:.4f} ms "
+              f"(bound {rb['bound_ms']:.5f} ms, {rb['bound_by']}), plain "
+              f"{p_ms:.4f} ms; {plan.smem_bytes} B dynamic shared memory "
+              f"(tile {plan.rows} x {plan.lanes}, stage {plan.n_staged} x "
+              f"{plan.width}, kind {plan.kind}), {blocks} blocks an SM: "
+              f"occupancy {blocks * plan.threads / SM_MAX_THREADS:.0%}")
+    for line in ptxas_lines("rowlane_tiles"):
+        if "Lb0ELi32" in line:
+            print(line)
+    print(f"solve_simplified(n_mesh_t=1000): rowlane {rl_solve_s:.3f} s "
+          f"cold, {rl_solve_s / (3 * sweeps_t) * 1e3:.4f} ms a channel-"
+          f"sweep; auto (B.6) {band_solve_s:.3f} s")
+    v2 = v6.reshape(bk6.NW, bk6.NE).contiguous()
+    w_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, bk6.args), inner=5)
+    wp_ms = cuda_time_ms(lambda: b6.backup6d_plain(v2, bk6.args), repeats=3)
+    wb = backup6d_bound(bk6)
+    evals = bk6.NW * bk6.NE * bk6.args.n_actions
+    print(f"backup6d_wide, 15^3 x 10^3, 36 x 27 combos: kernel {w_ms:.4f} "
+          f"ms ({evals / w_ms * 1e3:.4e} evals/s; bound {wb['bound_ms']:.4f} "
+          f"ms, {wb['bound_by']}), plain {wp_ms:.4f} ms; solve_full "
+          f"{b3w_solve_s:.3f} s for {sweeps6} sweeps incl. the build "
+          f"({b3w_solve_s / sweeps6 * 1e3:.4f} ms a sweep)")
+    for label, name in (("<int32, tracking> (B.3, B.7)", B3W_KERNEL),
+                        ("<uint8, tracking> (B.4)", B4W_KERNEL),
+                        ("<uint8, tracking, recompute> (B.5)", B5W_KERNEL)):
+        print(f"backup6d_wide{label}: {kernel_registers(name)}")
+    print(f"backup6d_wide's launch: {tile_line(v2, bk6.args)}")
+    k_ms, p_ms, rb = rl_ms[1]
+    return [
+        {"name": "rowlane_backup_wide_lanes", "route": "cuda",
+         "source": "ocdp_tpu_torch/csrc/rowlane_backup.cu",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:973",
+         "launches": rl_launches, "max_abs_err": rl_err, "ms": k_ms,
+         "plain_ms": p_ms, **rb, "library_ms": None},
+        {"name": "backup6d_wide", "route": "cuda",
+         "source": "ocdp_tpu_torch/csrc/backup6d.cu",
+         "replaces": "ocdp_tpu/ops/pallas_backup6.py:973",
+         "launches": b3w_launches, "max_abs_err": b3_err, "ms": w_ms,
+         "plain_ms": wp_ms, **wb, "library_ms": None},
+    ]
 
 
 def b7_vs_plain(fn, v, args, label: str) -> float:

@@ -50,7 +50,7 @@ _SIGNATURES = {
     "backup6d_recompute_f32": (_I, [_P] * 23 + [_I] * 13 + [_P]),
     "backup6d_block_f32": (_I, [_P] * 29 + [_I] * 18 + [_P]),
     "backup6d_smem_limit": (_I, []),
-    "backup6d_blocks_per_sm": (_I, [_I] * 5),
+    "backup6d_blocks_per_sm": (_I, [_I] * 6),
     "backup6d_error_string": (ctypes.c_char_p, [_I]),
 }
 

@@ -129,8 +129,36 @@
 //   the range, which is also each action's own full-sweep total when the
 //   full sweep is generic. The engines combine the ranges by the first
 //   minimum in ascending order, so the combined argmin is the full sweep's.
+//
+// Two kernels take the tap structures. backup6d_sweep, every mode above,
+// takes at most 3 live taps an axis (kMaxTaps): its row combos are the slots
+// of a 3 x 3 x 3 cube, summed without a branch, and its weights sit in
+// registers. backup6d_wide takes any taps an axis up to kWideCombos = 40
+// live row combos and 40 live lane combos, the TPU kernel's max_flat_taps
+// (pallas_backup6.py:478, checked at :732-736): a lighter roll axis or an
+// asymmetric rate range gives a 4 x 3 x 3 row structure (36 combos at
+// AttitudeConfig(n_mesh_w=15, h=0.02, w_min_deg=-50, w_max_deg=30,
+// inertia_diag=(0.0225, ...))). It runs the same modes (the <ArgT, kTrack,
+// kRecompute> instantiations, B.7's Block) and the same sums in the same
+// order, by combo instead of by cube slot: the lane phase sums its A_j in a
+// register array of 40 that its unrolled combo loop indexes with
+// constants, each lane combo's joint weight formed from its three tap
+// weights where it is used (no register array of every tap); the action
+// phases walk the sorted row combos in a runtime loop, their code written
+// once rather than once a combo (unrolled 40 times they make this source
+// many times slower to build), reading A_j from a copy in local memory
+// (160 B a thread, no spills). The factorized
+// phase folds each (t0, t1) run into C and each t0 run into the totals at
+// the run's last combo (the marks kOpen*/kClose*, set on the host), with
+// each combo's nine row weights (w_k of its tap k and digit d) read from
+// the stage, where the block formed them once a tile row. Its stage holds
+// up to 40 row groups. It is slower per term than backup6d_sweep and
+// right: the host picks it only for a plan backup6d_sweep does not take
+// (ops/backup6d.py::TilePlan.wide).
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -140,9 +168,14 @@ constexpr int kMaxLaneCombos = kCube;
 constexpr int kMaxActions = 64;   // MAX_ACTIONS
 constexpr int kMaxDigits = 3;     // MAX_DIGITS
 constexpr int kMaxGroups = kMaxTaps * kMaxTaps;  // live (t0, t1) pairs
-constexpr int kTileInts = 65;     // TILE_INTS: the planner's int32 array
 constexpr int kMaxThreads = 512;  // threads of a block (TilePlan.threads)
 constexpr int kRowWeights = 3 * kMaxTaps * kMaxDigits;  // ROW_WEIGHTS
+// backup6d_wide: live row and lane combos (MAX_COMBOS), a row combo's
+// factorized weights (3 axes x kMaxDigits; COMBO_WEIGHTS), the totals of
+// the factorized phase (kMaxDigits^3)
+constexpr int kWideCombos = 40;
+constexpr int kComboWeights = 3 * kMaxDigits;
+constexpr int kDigitCube = kMaxDigits * kMaxDigits * kMaxDigits;
 
 // The tap structure, passed by value (it lives in the constant bank).
 struct Taps6 {
@@ -207,6 +240,41 @@ struct Tiles {
   int n_groups;
   int g_delta[kMaxGroups], g_rows[kMaxGroups], g_slot[kMaxGroups];
   int row_base[kCube];    // byte offset of combo p's tile row 0 in the stage
+};
+
+// backup6d_wide's tap structure (constant bank): the live row and lane
+// combos in sorted tap order, each by its own taps.
+struct TapsW {
+  int n_row_combos;
+  int row_tap[kWideCombos][3];   // the taps of row combo j
+  int row_mark[kWideCombos];     // kOpen*/kClose* of combo j
+  int n_lane_combos;
+  int lane_tap[kWideCombos][3];  // the taps of lane combo e
+  int lane_delta[kWideCombos];   // its flat lane shift
+  int digits;                    // action digit base m, 0: generic phase
+  float c_act[kMaxActions];
+  float c_act_q[kDigitCube];     // c_act of (d0, d1, d2) at (d0 * 3 + d1) *
+                                 // 3 + d2 (digits > 0)
+};
+
+// The factorized phase's run marks of a sorted row combo j: it opens or
+// closes its (t0, t1) run, its run is the first of its t0 (the C sums start
+// there), it closes its t0 run, its t0 is the first (the totals start).
+constexpr int kOpenPair = 1, kClosePair = 2, kOpenT0 = 4, kCloseT0 = 8,
+              kFirstT0 = 16;
+
+// backup6d_wide's tile: Tiles with up to kWideCombos row groups, each row
+// combo's stage offset by combo, and row_weights (kComboWeights a row
+// combo) a tile row after the table rows.
+struct TilesW {
+  int rows, lanes;
+  int reach_lo, width;
+  int weights_at;
+  int vec4;
+  int n_groups;
+  int row_weights;
+  int g_delta[kWideCombos], g_rows[kWideCombos], g_slot[kWideCombos];
+  int row_base[kWideCombos];  // byte offset of row combo j's tile row 0
 };
 
 // ops/kernelmath.py, op by op (Cephes atanf); constants are the float32
@@ -336,6 +404,40 @@ __device__ __forceinline__ void stage_copy16(float* dst, const float* src,
                "l"(src), "r"(ok ? 16 : 0));
 }
 
+// Stage every table row the tile of output rows [r0, r0 + tl.rows) reads,
+// zero outside the table: in 16-byte chunks where the rows and the window
+// are 4-lane aligned (a chunk then lies wholly inside or outside the
+// table), else by lane. lane0: the table lane of stage column 0. The
+// caller waits for the copies (cp.async.wait_all).
+template <typename TilesT>
+__device__ __forceinline__ void stage_tile(float* stage,
+                                           const float* __restrict__ values,
+                                           const TilesT& tl, const Block& blk,
+                                           int r0, int lane0, int n_lanes) {
+  for (int g = 0; g < tl.n_groups; ++g) {
+    for (int i = 0; i < tl.g_rows[g]; ++i) {
+      const int tr = r0 + blk.table_row0 + tl.g_delta[g] + i;
+      const bool row_in = tr >= 0 && tr < blk.n_table_rows;
+      const float* src = values + static_cast<long long>(row_in ? tr : 0) *
+                                      n_lanes;
+      float* dst = stage + (tl.g_slot[g] + i) * tl.width;
+      if (tl.vec4) {
+        for (int j = 4 * threadIdx.x; j < tl.width; j += 4 * blockDim.x) {
+          const int c = lane0 + j;
+          const bool ok = row_in && c >= 0 && c < n_lanes;
+          stage_copy16(dst + j, ok ? src + c : values, ok);
+        }
+      } else {
+        for (int j = threadIdx.x; j < tl.width; j += blockDim.x) {
+          const int c = lane0 + j;
+          const bool ok = row_in && c >= 0 && c < n_lanes;
+          stage_copy(dst + j, ok ? src + c : values, ok);
+        }
+      }
+    }
+  }
+}
+
 template <typename ArgT, bool kTrack, bool kRecompute>
 __global__ void __launch_bounds__(kMaxThreads)
 backup6d_sweep(const float* __restrict__ values,
@@ -361,31 +463,7 @@ backup6d_sweep(const float* __restrict__ values,
   const int c0 = blockIdx.y * tl.lanes;
   const int lane0 = c0 - tl.reach_lo;     // the table lane of stage column 0
 
-  // stage every table row the tile reads, zero outside the table: in
-  // 16-byte chunks where the rows and the window are 4-lane aligned (a
-  // chunk then lies wholly inside or outside the table), else by lane
-  for (int g = 0; g < tl.n_groups; ++g) {
-    for (int i = 0; i < tl.g_rows[g]; ++i) {
-      const int tr = r0 + blk.table_row0 + tl.g_delta[g] + i;
-      const bool row_in = tr >= 0 && tr < blk.n_table_rows;
-      const float* src = values + static_cast<long long>(row_in ? tr : 0) *
-                                      n_lanes;
-      float* dst = stage + (tl.g_slot[g] + i) * tl.width;
-      if (tl.vec4) {
-        for (int j = 4 * threadIdx.x; j < tl.width; j += 4 * blockDim.x) {
-          const int c = lane0 + j;
-          const bool ok = row_in && c >= 0 && c < n_lanes;
-          stage_copy16(dst + j, ok ? src + c : values, ok);
-        }
-      } else {
-        for (int j = threadIdx.x; j < tl.width; j += blockDim.x) {
-          const int c = lane0 + j;
-          const bool ok = row_in && c >= 0 && c < n_lanes;
-          stage_copy(dst + j, ok ? src + c : values, ok);
-        }
-      }
-    }
-  }
+  stage_tile(stage, values, tl, blk, r0, lane0, n_lanes);
   // the factorized phase's row tap weights of each tile row, once a block
   float* row_w = stage + tl.weights_at;
   const long long plane = static_cast<long long>(n_rows) * n_actions;
@@ -597,6 +675,222 @@ backup6d_sweep(const float* __restrict__ values,
   }
 }
 
+// The kernel for any taps an axis (see the head of this file): the modes,
+// the stage and the sums of backup6d_sweep, by row combo j and lane combo e
+// in sorted tap order.
+template <typename ArgT, bool kTrack, bool kRecompute>
+__global__ void __launch_bounds__(kMaxThreads)
+backup6d_wide(const float* __restrict__ values,
+              const int* __restrict__ row_off,
+              const float* __restrict__ row_frac,
+              const int* __restrict__ lane_off0,
+              const float* __restrict__ lane_frac0,
+              const int* __restrict__ lane_off1,
+              const float* __restrict__ lane_frac1,
+              const int* __restrict__ lane_off2,
+              const float* __restrict__ lane_frac2,
+              const float* __restrict__ c_row,
+              const float* __restrict__ c_lane,
+              const float* __restrict__ c_rowact,
+              const float* __restrict__ c_rowlane,
+              float* __restrict__ out_v, ArgT* __restrict__ out_a,
+              int n_rows, int n_lanes, int n_actions,
+              const __grid_constant__ TapsW tp,
+              const __grid_constant__ LaneRec rec, const Block blk,
+              const __grid_constant__ TilesW tl) {
+  extern __shared__ __align__(16) float stage[];
+  const int r0 = blockIdx.x * tl.rows;
+  const int c0 = blockIdx.y * tl.lanes;
+  stage_tile(stage, values, tl, blk, r0, c0 - tl.reach_lo, n_lanes);
+  // the factorized phase's weights of each tile row: row combo j's w_k of
+  // its tap on axis k and digit d at j * kComboWeights + k * 3 + d
+  float* row_w = stage + tl.weights_at;
+  const long long plane = static_cast<long long>(n_rows) * n_actions;
+  if (tp.digits > 0) {
+    const int m = tp.digits;
+    for (int i = threadIdx.x; i < tl.rows * tl.row_weights;
+         i += blockDim.x) {
+      const int rr = i / tl.row_weights, s = i - rr * tl.row_weights;
+      const int j = s / kComboWeights, k = (s / 3) % 3, d = s % 3;
+      const int r = r0 + rr;
+      float w = 0.0f;
+      if (r < n_rows && d < m && j < tp.n_row_combos) {
+        // the canonical action of digit d on axis k
+        const int a = k == 0 ? d * m * m : (k == 1 ? d * m : d);
+        const long long at =
+            k * plane + static_cast<long long>(r) * n_actions + a;
+        w = tap_weight(row_off[at], row_frac[at], tp.row_tap[j][k]);
+      }
+      row_w[i] = w;
+    }
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < tl.rows * tl.lanes; i += blockDim.x) {
+    const int rr = i / tl.lanes;
+    const int cl = i - rr * tl.lanes;
+    const int r = r0 + rr;
+    const int c = c0 + cl;
+    if (r >= n_rows || c >= n_lanes) continue;
+    const long long cell = static_cast<long long>(r) * n_lanes + c;
+    int o0, o1, o2;
+    float f0, f1, f2;
+    if constexpr (kRecompute) {
+      recompute_lanes(rec, r, c, o0, o1, o2, f0, f1, f2);
+    } else {
+      o0 = lane_off0[cell], o1 = lane_off1[cell], o2 = lane_off2[cell];
+      f0 = lane_frac0[cell], f1 = lane_frac1[cell], f2 = lane_frac2[cell];
+    }
+
+    // lane phase: A_j of each live row combo, summed over the lane combos
+    // in order, each lane combo's joint weight formed from its tap weights
+    // where it is used; each sum starts at -0.0 (-0 + x == x)
+    const char* cell_stage = reinterpret_cast<const char*>(
+        stage + rr * tl.width + cl + tl.reach_lo);
+    float A[kWideCombos];
+#pragma unroll
+    for (int j = 0; j < kWideCombos; ++j) A[j] = -0.0f;
+    for (int e = 0; e < tp.n_lane_combos; ++e) {
+      const float w = __fmul_rn(
+          __fmul_rn(tap_weight(o0, f0, tp.lane_tap[e][0]),
+                    tap_weight(o1, f1, tp.lane_tap[e][1])),
+          tap_weight(o2, f2, tp.lane_tap[e][2]));
+      const char* col = cell_stage + 4 * tp.lane_delta[e];
+#pragma unroll
+      for (int j = 0; j < kWideCombos; ++j) {
+        if (j < tp.n_row_combos) {
+          const float v =
+              *reinterpret_cast<const float*>(col + tl.row_base[j]);
+          A[j] = __fadd_rn(A[j], __fmul_rn(w, v));
+        }
+      }
+    }
+
+    // the action phases walk the combos in a runtime loop (their code
+    // once, not once a combo), so they read A_j from a copy that a runtime
+    // index may address (local memory, 160 B a thread)
+    float Aj[kWideCombos];
+#pragma unroll
+    for (int j = 0; j < kWideCombos; ++j) Aj[j] = A[j];
+    const float* rowact_r =
+        c_rowact != nullptr ? c_rowact + static_cast<long long>(r) * n_actions
+                            : nullptr;
+    float best = 0.0f;
+    int best_a = 0;
+    if (tp.digits > 0) {
+      // factorized action phase over the whole d0 slices [d0_lo, d0_hi):
+      // one walk of the sorted row combos, B over each (t0, t1) run, folded
+      // into C at the run's last combo, C into the totals at the t0 run's
+      const int m = tp.digits;
+      const int d0_lo = blk.a_lo / (m * m), d0_hi = blk.a_hi / (m * m);
+      const float* w_r = row_w + rr * tl.row_weights;
+      float B[kMaxDigits], C[kMaxDigits * kMaxDigits], tot[kDigitCube];
+#pragma unroll
+      for (int q = 0; q < kMaxDigits; ++q) B[q] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kMaxDigits * kMaxDigits; ++q) C[q] = 0.0f;
+#pragma unroll
+      for (int q = 0; q < kDigitCube; ++q) tot[q] = 0.0f;
+#pragma unroll 1
+      for (int j = 0; j < tp.n_row_combos; ++j) {
+        const int mark = tp.row_mark[j];
+        const float* wj = w_r + j * kComboWeights;
+        const float a_j = Aj[j];
+#pragma unroll
+        for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+          if (d2 < m) {
+            const float term = __fmul_rn(wj[6 + d2], a_j);
+            B[d2] = (mark & kOpenPair) ? term : __fadd_rn(B[d2], term);
+          }
+        }
+        if (mark & kClosePair) {
+#pragma unroll
+          for (int d1 = 0; d1 < kMaxDigits; ++d1) {
+#pragma unroll
+            for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+              if (d1 < m && d2 < m) {
+                const float term = __fmul_rn(wj[3 + d1], B[d2]);
+                float& cc = C[d1 * kMaxDigits + d2];
+                cc = (mark & kOpenT0) ? term : __fadd_rn(cc, term);
+              }
+            }
+          }
+          if (mark & kCloseT0) {
+#pragma unroll
+            for (int d0 = 0; d0 < kMaxDigits; ++d0) {
+#pragma unroll
+              for (int d1 = 0; d1 < kMaxDigits; ++d1) {
+#pragma unroll
+                for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+                  if (d0 >= d0_lo && d0 < d0_hi && d1 < m && d2 < m) {
+                    const float term =
+                        __fmul_rn(wj[d0], C[d1 * kMaxDigits + d2]);
+                    float& t = tot[(d0 * 3 + d1) * 3 + d2];
+                    t = (mark & kFirstT0) ? term : __fadd_rn(t, term);
+                  }
+                }
+              }
+            }
+          }
+        }
+      }
+      // strict-'<' first minimum over a = (d0 * m + d1) * m + d2, ascending
+#pragma unroll
+      for (int d0 = 0; d0 < kMaxDigits; ++d0) {
+#pragma unroll
+        for (int d1 = 0; d1 < kMaxDigits; ++d1) {
+#pragma unroll
+          for (int d2 = 0; d2 < kMaxDigits; ++d2) {
+            if (d0 >= d0_lo && d0 < d0_hi && d1 < m && d2 < m) {
+              const int a = (d0 * m + d1) * m + d2;
+              const int q = (d0 * 3 + d1) * 3 + d2;
+              float t = tot[q];
+              if (tp.c_act_q[q] != 0.0f) t = __fadd_rn(t, tp.c_act_q[q]);
+              if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
+              if (a == blk.a_lo || t < best) {   // strict: the first wins
+                best = t;
+                if (kTrack) best_a = a;
+              }
+            }
+          }
+        }
+      }
+    } else {
+      // generic action phase: every live row combo per action, its joint
+      // weight formed from its three tap weights
+      const int* off_r = row_off + static_cast<long long>(r) * n_actions;
+      const float* frac_r = row_frac + static_cast<long long>(r) * n_actions;
+      for (int a = blk.a_lo; a < blk.a_hi; ++a) {
+        const int g0 = off_r[a], g1 = off_r[plane + a],
+                  g2 = off_r[2 * plane + a];
+        const float h0 = frac_r[a], h1 = frac_r[plane + a],
+                    h2 = frac_r[2 * plane + a];
+        float t = 0.0f;
+#pragma unroll 1
+        for (int j = 0; j < tp.n_row_combos; ++j) {
+          const float ww = __fmul_rn(
+              __fmul_rn(tap_weight(g0, h0, tp.row_tap[j][0]),
+                        tap_weight(g1, h1, tp.row_tap[j][1])),
+              tap_weight(g2, h2, tp.row_tap[j][2]));
+          const float term = __fmul_rn(ww, Aj[j]);
+          t = j == 0 ? term : __fadd_rn(t, term);
+        }
+        if (tp.c_act[a] != 0.0f) t = __fadd_rn(t, tp.c_act[a]);
+        if (rowact_r != nullptr) t = __fadd_rn(t, rowact_r[a]);
+        if (a == blk.a_lo || t < best) {  // strict: the first minimum wins
+          best = t;
+          if (kTrack) best_a = a;
+        }
+      }
+    }
+    float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
+    out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
+    out_v[cell] = out;
+    out_a[cell] = static_cast<ArgT>(best_a);   // 0 in a min-only sweep
+  }
+}
+
 int tap_index(const int* taps, int n, int t) {
   for (int i = 0; i < n; ++i) {
     if (taps[i] == t) return i;
@@ -604,27 +898,58 @@ int tap_index(const int* taps, int n, int t) {
   return -1;
 }
 
-// The tap structure of one plan into tp; false when it exceeds the kernel's
-// capacities.
-bool fill_taps(Taps6& tp, const int* w_taps, const int* n_taps,
-               const int* row_combos, const int* lane_combos,
-               const float* c_act, int n_r1, int n_r2, int n_l1, int n_l2,
-               int n_actions, int n_row_combos, int n_lane_combos,
-               int digits) {
-  if (n_actions < 1 || n_actions > kMaxActions || n_row_combos < 1 ||
-      n_lane_combos < 1 || n_lane_combos > kMaxLaneCombos || digits < 0 ||
-      digits > kMaxDigits ||
-      (digits > 0 && digits * digits * digits != n_actions)) {
-    return false;
+// The tap structure of one plan as the C entries take it (host arrays):
+// w_taps (3, kWideCombos) the live row taps of each axis, ascending, n_taps
+// (3,) their counts; row_combos (n_row_combos, 3) and lane_combos
+// (n_lane_combos, 3) the live combos, sorted; c_act (n_actions,); digits
+// the action digit base m (n_actions == m^3), or 0 for the generic phase.
+struct TapIn {
+  const int* w_taps;
+  const int* n_taps;
+  const int* row_combos;
+  const int* lane_combos;
+  const float* c_act;
+  int n_r1, n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
+      digits;
+};
+
+bool counts_fit(const TapIn& in, int max_row, int max_lane) {
+  return in.n_actions >= 1 && in.n_actions <= kMaxActions &&
+         in.n_row_combos >= 1 && in.n_row_combos <= max_row &&
+         in.n_lane_combos >= 1 && in.n_lane_combos <= max_lane &&
+         in.digits >= 0 && in.digits <= kMaxDigits &&
+         (in.digits == 0 || in.digits * in.digits * in.digits == in.n_actions);
+}
+
+// c_act, and with digits c_act_q of (d0, d1, d2) at (d0 * 3 + d1) * 3 + d2
+template <typename TapsT>
+void fill_costs(TapsT& tp, const TapIn& in) {
+  const int m = in.digits;
+  tp.digits = m;
+  for (int a = 0; a < in.n_actions; ++a) tp.c_act[a] = in.c_act[a];
+  for (int d0 = 0; d0 < m; ++d0) {
+    for (int d1 = 0; d1 < m; ++d1) {
+      for (int d2 = 0; d2 < m; ++d2) {
+        tp.c_act_q[(d0 * 3 + d1) * 3 + d2] = in.c_act[(d0 * m + d1) * m + d2];
+      }
+    }
   }
+}
+
+// backup6d_sweep's tap structure into tp; false when it exceeds the
+// kernel's capacities (3 live taps an axis).
+bool fill_taps(Taps6& tp, const TapIn& in) {
+  if (!counts_fit(in, kCube, kMaxLaneCombos)) return false;
   tp = Taps6{};
   for (int k = 0; k < 3; ++k) {
-    if (n_taps[k] < 1 || n_taps[k] > kMaxTaps) return false;
-    tp.n_row_taps[k] = n_taps[k];
-    for (int i = 0; i < n_taps[k]; ++i) tp.row_taps[k][i] = w_taps[3 * k + i];
+    if (in.n_taps[k] < 1 || in.n_taps[k] > kMaxTaps) return false;
+    tp.n_row_taps[k] = in.n_taps[k];
+    for (int i = 0; i < in.n_taps[k]; ++i) {
+      tp.row_taps[k][i] = in.w_taps[kWideCombos * k + i];
+    }
   }
-  for (int j = 0; j < n_row_combos; ++j) {
-    const int* t = row_combos + 3 * j;
+  for (int j = 0; j < in.n_row_combos; ++j) {
+    const int* t = in.row_combos + 3 * j;
     int p = 0;
     for (int k = 0; k < 3; ++k) {
       const int i = tap_index(tp.row_taps[k], tp.n_row_taps[k], t[k]);
@@ -632,12 +957,12 @@ bool fill_taps(Taps6& tp, const int* w_taps, const int* n_taps,
       p = p * 3 + i;
     }
     tp.row_live |= 1 << p;
-    tp.row_delta[p] = (t[0] * n_r1 + t[1]) * n_r2 + t[2];
+    tp.row_delta[p] = (t[0] * in.n_r1 + t[1]) * in.n_r2 + t[2];
   }
-  tp.n_lane_combos = n_lane_combos;
+  tp.n_lane_combos = in.n_lane_combos;
   int n_lane_taps[3] = {0, 0, 0};
-  for (int e = 0; e < n_lane_combos; ++e) {
-    const int* t = lane_combos + 3 * e;
+  for (int e = 0; e < in.n_lane_combos; ++e) {
+    const int* t = in.lane_combos + 3 * e;
     for (int k = 0; k < 3; ++k) {
       int i = tap_index(tp.lane_taps[k], n_lane_taps[k], t[k]);
       if (i < 0) {
@@ -647,18 +972,53 @@ bool fill_taps(Taps6& tp, const int* w_taps, const int* n_taps,
       }
       tp.lane_idx[e][k] = i;
     }
-    tp.lane_delta[e] = (t[0] * n_l1 + t[1]) * n_l2 + t[2];
+    tp.lane_delta[e] = (t[0] * in.n_l1 + t[1]) * in.n_l2 + t[2];
   }
-  tp.digits = digits;
-  for (int a = 0; a < n_actions; ++a) tp.c_act[a] = c_act[a];
-  for (int d0 = 0; d0 < digits; ++d0) {
-    for (int d1 = 0; d1 < digits; ++d1) {
-      for (int d2 = 0; d2 < digits; ++d2) {
-        tp.c_act_q[(d0 * 3 + d1) * 3 + d2] =
-            c_act[(d0 * digits + d1) * digits + d2];
-      }
+  fill_costs(tp, in);
+  return true;
+}
+
+// backup6d_wide's tap structure into tp, with the factorized phase's run
+// marks of each row combo; false when it exceeds the kernel's capacities
+// or the row combos are not sorted and distinct (the runs need the order).
+bool fill_taps_wide(TapsW& tp, const TapIn& in) {
+  if (!counts_fit(in, kWideCombos, kWideCombos)) return false;
+  tp = TapsW{};
+  const int n = in.n_row_combos;
+  tp.n_row_combos = n;
+  const int* rc = in.row_combos;
+  for (int j = 0; j < n; ++j) {
+    for (int k = 0; k < 3; ++k) tp.row_tap[j][k] = rc[3 * j + k];
+    if (j > 0) {
+      const int* a = rc + 3 * (j - 1);
+      const int* b = rc + 3 * j;
+      const bool less = a[0] < b[0] || (a[0] == b[0] && (a[1] < b[1] ||
+                                        (a[1] == b[1] && a[2] < b[2])));
+      if (!less) return false;
     }
   }
+  auto same_pair = [rc](int i, int j) {
+    return rc[3 * i] == rc[3 * j] && rc[3 * i + 1] == rc[3 * j + 1];
+  };
+  int pair_first = 0;
+  for (int j = 0; j < n; ++j) {
+    if (j > 0 && !same_pair(j - 1, j)) pair_first = j;
+    const int t0 = rc[3 * j];
+    int mark = 0;
+    if (j == pair_first) mark |= kOpenPair;
+    if (j == n - 1 || !same_pair(j, j + 1)) mark |= kClosePair;
+    if (pair_first == 0 || rc[3 * (pair_first - 1)] != t0) mark |= kOpenT0;
+    if (j == n - 1 || rc[3 * (j + 1)] != t0) mark |= kCloseT0;
+    if (t0 == rc[0]) mark |= kFirstT0;
+    tp.row_mark[j] = mark;
+  }
+  tp.n_lane_combos = in.n_lane_combos;
+  for (int e = 0; e < in.n_lane_combos; ++e) {
+    const int* t = in.lane_combos + 3 * e;
+    for (int k = 0; k < 3; ++k) tp.lane_tap[e][k] = t[k];
+    tp.lane_delta[e] = (t[0] * in.n_l1 + t[1]) * in.n_l2 + t[2];
+  }
+  fill_costs(tp, in);
   return true;
 }
 
@@ -681,52 +1041,63 @@ Block full_block(int n_rows, int n_actions) {
   return Block{n_rows, 0, 0, n_actions};
 }
 
-// The planner's int32 array (ops/backup6d.py::TilePlan.ints): R, L,
-// reach_lo, reach_hi, width, staged rows, groups, g_delta[9], g_rows[9],
-// g_slot[9], the stage slot of each cube slot p (27, -1 where not live),
-// the grid's row and lane tiles, the shared-memory bytes, the threads of a
-// block.
-static_assert(7 + 3 * kMaxGroups + kCube + 4 == kTileInts,
-              "the planner's layout");
+template <bool kWide>
+using TapsOf = std::conditional_t<kWide, TapsW, Taps6>;
+template <bool kWide>
+using TilesOf = std::conditional_t<kWide, TilesW, Tiles>;
 
+template <bool kWide>
 struct TileArgs {
-  Tiles tl;
+  TilesOf<kWide> tl;
   dim3 grid;
   int smem_bytes;
   int threads;
 };
 
-// The planner's tiles into ta, checked against the tap structure and the
-// shapes: every read of every cell must lie in its block's stage, the grid
-// must cover the output cells once, the stage must fit the device. False
-// when the kernel cannot take the plan. The stage is copied in 16-byte
-// chunks where values and the window allow it.
-bool fill_tiles(TileArgs& ta, const int* in, const Taps6& tp,
-                const float* values, int n_rows, int n_lanes) {
+// The planner's int32 array (ops/backup6d.py::TilePlan.ints, TILE_INTS =
+// kTileHead + 4 kWideCombos + 4 ints): R, L, reach_lo, reach_hi, width,
+// staged rows, groups, the row weights a tile row keeps, wide (at kWideAt;
+// 1: backup6d_wide's plan); g_delta, g_rows, g_slot (kWideCombos each);
+// the stage slot of each row combo (kWideCombos; backup6d_sweep: by cube
+// slot p, -1 where not live; backup6d_wide: by combo); the grid's row and
+// lane tiles, the shared-memory bytes, the threads of a block.
+constexpr int kTileHead = 9;
+constexpr int kWideAt = 8;
+
+// The fields of the planner's array that both kernels read into ta, with
+// the checks that do not depend on the tap structure: the grid must cover
+// the output cells once, the groups be consecutive stage rows, the stage
+// fit the device. Returns the stage slots, or null when the kernel cannot
+// take the plan.
+template <bool kWide>
+const int* read_tiles(TileArgs<kWide>& ta, const int* in, const float* values,
+                      int n_rows, int n_lanes, int max_groups,
+                      int row_weights) {
   const int R = in[0], L = in[1], reach_lo = in[2], reach_hi = in[3];
   const int width = in[4], n_staged = in[5], n_groups = in[6];
-  const int* g_delta = in + 7;
-  const int* g_rows = in + 7 + kMaxGroups;
-  const int* g_slot = in + 7 + 2 * kMaxGroups;
-  const int* slot = in + 7 + 3 * kMaxGroups;
-  const int* tail = slot + kCube;
+  const int* g_delta = in + kTileHead;
+  const int* g_rows = g_delta + kWideCombos;
+  const int* g_slot = g_rows + kWideCombos;
+  const int* slot = g_slot + kWideCombos;
+  const int* tail = slot + kWideCombos;
   const long long grid_rows = tail[0], grid_lanes = tail[1];
   const long long smem = tail[2];
   const int threads = tail[3];
-  if (threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
+  if (in[7] != row_weights || in[kWideAt] != (kWide ? 1 : 0) ||
+      threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
       L < 32 || L % 32 != 0 || reach_lo < 0 || reach_hi < 0 ||
       width != L + reach_lo + reach_hi || n_groups < 1 ||
-      n_groups > kMaxGroups || n_staged < 1) {
-    return false;
+      n_groups > max_groups || n_staged < 1) {
+    return nullptr;
   }
   if (grid_rows != (static_cast<long long>(n_rows) + R - 1) / R ||
       grid_lanes != (static_cast<long long>(n_lanes) + L - 1) / L ||
       grid_rows > 0x7fffffffLL || grid_lanes > 65535) {
-    return false;
+    return nullptr;
   }
   if (smem != 4LL * (static_cast<long long>(n_staged) * width +
-                    static_cast<long long>(R) * kRowWeights)) {
-    return false;
+                    static_cast<long long>(R) * row_weights)) {
+    return nullptr;
   }
   int device = 0, smem_max = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
@@ -734,9 +1105,9 @@ bool fill_tiles(TileArgs& ta, const int* in, const Taps6& tp,
                              cudaDevAttrMaxSharedMemoryPerBlockOptin,
                              device) != cudaSuccess ||
       smem > smem_max) {
-    return false;
+    return nullptr;
   }
-  ta.tl = Tiles{};
+  ta.tl = TilesOf<kWide>{};
   ta.tl.rows = R;
   ta.tl.lanes = L;
   ta.tl.reach_lo = reach_lo;
@@ -747,13 +1118,47 @@ bool fill_tiles(TileArgs& ta, const int* in, const Taps6& tp,
                reinterpret_cast<unsigned long long>(values) % 16 == 0;
   int next = 0;
   for (int g = 0; g < n_groups; ++g) {
-    if (g_rows[g] < 1 || g_slot[g] != next) return false;
+    if (g_rows[g] < 1 || g_slot[g] != next) return nullptr;
     next += g_rows[g];
     ta.tl.g_delta[g] = g_delta[g];
     ta.tl.g_rows[g] = g_rows[g];
     ta.tl.g_slot[g] = g_slot[g];
   }
-  if (next != n_staged) return false;
+  if (next != n_staged) return nullptr;
+  ta.grid = dim3(static_cast<unsigned>(grid_rows),
+                 static_cast<unsigned>(grid_lanes));
+  ta.smem_bytes = static_cast<int>(smem);
+  ta.threads = threads;
+  return slot;
+}
+
+// Whether tile row rr of a row combo with flat shift delta, staged from
+// stage row s0 on, reads its table rows: each of the R rows must lie in a
+// group, at its offset.
+template <typename TilesT>
+bool rows_staged(const TilesT& tl, int s0, int delta) {
+  for (int rr = 0; rr < tl.rows; ++rr) {
+    const int s = s0 + rr;
+    bool found = false;
+    for (int g = 0; g < tl.n_groups && !found; ++g) {
+      found = s >= tl.g_slot[g] && s < tl.g_slot[g] + tl.g_rows[g] &&
+              tl.g_delta[g] + (s - tl.g_slot[g]) == delta + rr;
+    }
+    if (!found) return false;
+  }
+  return true;
+}
+
+// The planner's tiles for backup6d_sweep into ta, checked against the tap
+// structure: every read of every cell must lie in its block's stage. False
+// when the kernel cannot take the plan.
+bool fill_tiles(TileArgs<false>& ta, const int* in, const Taps6& tp,
+                const float* values, int n_rows, int n_lanes) {
+  const int* slot =
+      read_tiles(ta, in, values, n_rows, n_lanes, kMaxGroups, kRowWeights);
+  if (slot == nullptr) return false;
+  const int reach_lo = ta.tl.reach_lo;
+  const int reach_hi = ta.tl.width - ta.tl.lanes - reach_lo;
   for (int e = 0; e < tp.n_lane_combos; ++e) {
     if (tp.lane_delta[e] < -reach_lo || tp.lane_delta[e] > reach_hi) {
       return false;
@@ -762,29 +1167,51 @@ bool fill_tiles(TileArgs& ta, const int* in, const Taps6& tp,
   for (int p = 0; p < kCube; ++p) {
     if (!((tp.row_live >> p) & 1)) continue;
     // tile row rr of combo p reads table row r0 + table_row0 + D_p + rr
-    for (int rr = 0; rr < R; ++rr) {
-      const int s = slot[p] + rr;
-      bool found = false;
-      for (int g = 0; g < n_groups && !found; ++g) {
-        found = s >= g_slot[g] && s < g_slot[g] + g_rows[g] &&
-                g_delta[g] + (s - g_slot[g]) == tp.row_delta[p] + rr;
-      }
-      if (!found) return false;
-    }
-    ta.tl.row_base[p] = 4 * slot[p] * width;
+    if (!rows_staged(ta.tl, slot[p], tp.row_delta[p])) return false;
+    ta.tl.row_base[p] = 4 * slot[p] * ta.tl.width;
   }
-  ta.grid = dim3(static_cast<unsigned>(grid_rows),
-                 static_cast<unsigned>(grid_lanes));
-  ta.smem_bytes = static_cast<int>(smem);
-  ta.threads = threads;
   return true;
 }
 
-template <typename ArgT, bool kTrack, bool kRecompute>
-int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-           const Block& blk, const TileArgs& ta, int n_rows, int n_lanes,
-           int n_actions, void* stream) {
-  auto kernel = backup6d_sweep<ArgT, kTrack, kRecompute>;
+// The planner's tiles for backup6d_wide into ta, checked as fill_tiles.
+bool fill_tiles_wide(TileArgs<true>& ta, const int* in, const TapsW& tp,
+                     const TapIn& tin, const float* values, int n_rows,
+                     int n_lanes) {
+  const int* slot =
+      read_tiles(ta, in, values, n_rows, n_lanes, kWideCombos,
+                 kComboWeights * tp.n_row_combos);
+  if (slot == nullptr) return false;
+  ta.tl.row_weights = kComboWeights * tp.n_row_combos;
+  const int reach_lo = ta.tl.reach_lo;
+  const int reach_hi = ta.tl.width - ta.tl.lanes - reach_lo;
+  for (int e = 0; e < tp.n_lane_combos; ++e) {
+    if (tp.lane_delta[e] < -reach_lo || tp.lane_delta[e] > reach_hi) {
+      return false;
+    }
+  }
+  for (int j = 0; j < tp.n_row_combos; ++j) {
+    const int* t = tp.row_tap[j];
+    const int delta = (t[0] * tin.n_r1 + t[1]) * tin.n_r2 + t[2];
+    if (slot[j] < 0 || !rows_staged(ta.tl, slot[j], delta)) return false;
+    ta.tl.row_base[j] = 4 * slot[j] * ta.tl.width;
+  }
+  return true;
+}
+
+template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
+constexpr auto kernel_of() {
+  if constexpr (kWide) {
+    return backup6d_wide<ArgT, kTrack, kRecompute>;
+  } else {
+    return backup6d_sweep<ArgT, kTrack, kRecompute>;
+  }
+}
+
+template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
+int launch(const SweepIo& io, const TapsOf<kWide>& tp, const LaneRec& rec,
+           const Block& blk, const TileArgs<kWide>& ta, int n_rows,
+           int n_lanes, int n_actions, void* stream) {
+  auto kernel = kernel_of<ArgT, kTrack, kRecompute, kWide>();
   // a stage above 48 KB needs the opt-in; two stages share an SM's 228 KB
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.smem_bytes);
@@ -804,36 +1231,65 @@ int launch(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The envelope instantiations: argmin_bytes 4 (int32) or 1 (uint8), track
-// 1 (argmin) or 0 (min-only, all-zero argmin).
-template <bool kRecompute>
-int launch_mode(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
-                const Block& blk, const TileArgs& ta, int n_rows,
-                int n_lanes, int n_actions, int argmin_bytes, int track,
-                void* stream) {
+// The instantiations of one kernel: argmin_bytes 4 (int32) or 1 (uint8),
+// track 1 (argmin) or 0 (min-only, all-zero argmin).
+template <bool kRecompute, bool kWide>
+int launch_mode(const SweepIo& io, const TapsOf<kWide>& tp,
+                const LaneRec& rec, const Block& blk,
+                const TileArgs<kWide>& ta, int n_rows, int n_lanes,
+                int n_actions, int argmin_bytes, int track, void* stream) {
   if (argmin_bytes == 4) {
-    return track ? launch<int, true, kRecompute>(io, tp, rec, blk, ta,
-                                                 n_rows, n_lanes, n_actions,
-                                                 stream)
-                 : launch<int, false, kRecompute>(io, tp, rec, blk, ta,
-                                                  n_rows, n_lanes, n_actions,
-                                                  stream);
-  }
-  if (argmin_bytes == 1) {
-    return track ? launch<unsigned char, true, kRecompute>(
+    return track ? launch<int, true, kRecompute, kWide>(
                        io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
                        stream)
-                 : launch<unsigned char, false, kRecompute>(
+                 : launch<int, false, kRecompute, kWide>(
+                       io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
+                       stream);
+  }
+  if (argmin_bytes == 1) {
+    return track ? launch<unsigned char, true, kRecompute, kWide>(
+                       io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
+                       stream)
+                 : launch<unsigned char, false, kRecompute, kWide>(
                        io, tp, rec, blk, ta, n_rows, n_lanes, n_actions,
                        stream);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// One sweep in one mode through the kernel the planner chose (the tiles'
+// wide flag): its tap structure and tiles filled and checked, then the
+// launch. cudaErrorInvalidValue when the kernel cannot take the plan.
+template <bool kRecompute>
+int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
+          const LaneRec& rec, const Block& blk, int n_rows, int n_lanes,
+          int argmin_bytes, int track, void* stream) {
+  if (tiles[kWideAt] == 0) {
+    Taps6 tp;
+    TileArgs<false> ta;
+    if (!fill_taps(tp, in) ||
+        !fill_tiles(ta, tiles, tp, io.values, n_rows, n_lanes)) {
+      return static_cast<int>(cudaErrorInvalidValue);
+    }
+    return launch_mode<kRecompute, false>(io, tp, rec, blk, ta, n_rows,
+                                          n_lanes, in.n_actions,
+                                          argmin_bytes, track, stream);
+  }
+  TapsW tp;
+  TileArgs<true> ta;
+  if (tiles[kWideAt] != 1 || !fill_taps_wide(tp, in) ||
+      !fill_tiles_wide(ta, tiles, tp, in, io.values, n_rows, n_lanes)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_mode<kRecompute, true>(io, tp, rec, blk, ta, n_rows, n_lanes,
+                                       in.n_actions, argmin_bytes, track,
+                                       stream);
+}
+
 // Resident blocks an SM of one instantiation at this block size and stage.
-template <typename ArgT, bool kTrack, bool kRecompute>
+template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
 int blocks_per_sm(int threads, int smem_bytes) {
-  auto kernel = backup6d_sweep<ArgT, kTrack, kRecompute>;
+  auto kernel = kernel_of<ArgT, kTrack, kRecompute, kWide>();
   int blocks = 0;
   if (cudaFuncSetAttribute(kernel,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -846,6 +1302,29 @@ int blocks_per_sm(int threads, int smem_bytes) {
     return -1;
   }
   return blocks;
+}
+
+template <bool kWide>
+int blocks_of_mode(int mode, int threads, int smem_bytes) {
+  switch (mode) {
+    case 0: return blocks_per_sm<int, false, false, kWide>(threads, smem_bytes);
+    case 1: return blocks_per_sm<int, false, true, kWide>(threads, smem_bytes);
+    case 2: return blocks_per_sm<int, true, false, kWide>(threads, smem_bytes);
+    case 3: return blocks_per_sm<int, true, true, kWide>(threads, smem_bytes);
+    case 4:
+      return blocks_per_sm<unsigned char, false, false, kWide>(threads,
+                                                               smem_bytes);
+    case 5:
+      return blocks_per_sm<unsigned char, false, true, kWide>(threads,
+                                                              smem_bytes);
+    case 6:
+      return blocks_per_sm<unsigned char, true, false, kWide>(threads,
+                                                              smem_bytes);
+    case 7:
+      return blocks_per_sm<unsigned char, true, true, kWide>(threads,
+                                                             smem_bytes);
+    default: return -1;
+  }
 }
 
 // B.5's lane generators into rec; false for a lane axis of fewer than 2
@@ -879,11 +1358,12 @@ bool fill_rec(LaneRec& rec, const float* w1, const float* w2, const float* w3,
 // One sweep (B.3). Device pointers: values (NW, NE); row_off/row_frac (3,
 // NW, A); lane_off{k}/lane_frac{k} (NW, NE); c_row (NW,); c_lane (NE,);
 // c_rowact (NW, A) and c_rowlane (NW, NE) may be null; out_v/out_a (NW,
-// NE). Host pointers: w_taps (3, 3) live row taps per axis, ascending,
+// NE). Host pointers: w_taps (3, 40) live row taps per axis, ascending,
 // n_taps (3,) their counts; row_combos (n_row_combos, 3) and lane_combos
 // (n_lane_combos, 3) the live combos, sorted; c_act (A,); tiles the tile
-// planner's kTileInts ints. digits: the action digit base m (A == m^3), or
-// 0 for the generic action phase. Returns a cudaError_t (0 on success):
+// planner's TILE_INTS ints, whose wide flag picks backup6d_sweep or
+// backup6d_wide. digits: the action digit base m (A == m^3), or 0 for the
+// generic action phase. Returns a cudaError_t (0 on success):
 // cudaErrorInvalidValue when the tap structure exceeds the kernel's
 // capacities or the tiles do not cover the reads, else the error of the
 // launch.
@@ -897,22 +1377,16 @@ extern "C" int backup6d_f32(
     const float* c_act, const int* tiles, int n_r0, int n_r1, int n_r2,
     int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
     int n_lane_combos, int digits, void* stream) {
-  Taps6 tp;
-  TileArgs ta;
+  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
+                    n_lane_combos, digits};
   const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits) ||
-      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch<int, true, false>(io, tp, LaneRec{},
-                                  full_block(n_rows, n_actions), ta, n_rows,
-                                  n_lanes, n_actions, stream);
+  return sweep<false>(io, in, tiles, LaneRec{}, full_block(n_rows, n_actions),
+                      n_rows, n_lanes, 4, 1, stream);
 }
 
 // One sweep on a flat plan (B.4): the arguments of backup6d_f32, with out_a
@@ -929,22 +1403,16 @@ extern "C" int backup6d_flat_f32(
     int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
     int n_lane_combos, int digits, int argmin_bytes, int track,
     void* stream) {
-  Taps6 tp;
-  TileArgs ta;
+  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
+                    n_lane_combos, digits};
   const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits) ||
-      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch_mode<false>(io, tp, LaneRec{}, full_block(n_rows, n_actions),
-                            ta, n_rows, n_lanes, n_actions, argmin_bytes,
-                            track, stream);
+  return sweep<false>(io, in, tiles, LaneRec{}, full_block(n_rows, n_actions),
+                      n_rows, n_lanes, argmin_bytes, track, stream);
 }
 
 // One sweep with the Euler lanes recomputed per cell (B.5). Device
@@ -963,24 +1431,20 @@ extern "C" int backup6d_recompute_f32(
     int n_r1, int n_r2, int n_l0, int n_l1, int n_l2, int n_actions,
     int n_row_combos, int n_lane_combos, int digits, int argmin_bytes,
     int track, int clamp, void* stream) {
-  Taps6 tp;
-  TileArgs ta;
+  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
+                    n_lane_combos, digits};
   LaneRec rec;
   const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits) ||
-      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes) ||
-      !fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
+  if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
                 n_l2, clamp)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
                       {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                       c_rowlane, out_v, out_a};
-  return launch_mode<true>(io, tp, rec, full_block(n_rows, n_actions), ta,
-                           n_rows, n_lanes, n_actions, argmin_bytes, track,
-                           stream);
+  return sweep<true>(io, in, tiles, rec, full_block(n_rows, n_actions),
+                     n_rows, n_lanes, argmin_bytes, track, stream);
 }
 
 // One sweep of one rank's row block and action range (B.7). The arguments
@@ -1007,15 +1471,10 @@ extern "C" int backup6d_block_f32(
     int n_lane_combos, int digits, int argmin_bytes, int track,
     int recompute, int clamp, int n_out_rows, int table_row0,
     int n_table_rows, int a_lo, int a_hi, void* stream) {
-  Taps6 tp;
-  TileArgs ta;
+  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
+                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
+                    n_lane_combos, digits};
   const int n_lanes = n_l0 * n_l1 * n_l2;
-  if (!fill_taps(tp, w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                 n_r2, n_l1, n_l2, n_actions, n_row_combos, n_lane_combos,
-                 digits) ||
-      !fill_tiles(ta, tiles, tp, values, n_out_rows, n_lanes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
   const int slice = digits * digits;
   if (n_out_rows < 1 || table_row0 < 0 ||
       n_table_rows < table_row0 + n_out_rows || a_lo < 0 || a_hi <= a_lo ||
@@ -1034,15 +1493,15 @@ extern "C" int backup6d_block_f32(
                         {nullptr, nullptr, nullptr},
                         {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                         c_rowlane, out_v, out_a};
-    return launch_mode<true>(io, tp, rec, blk, ta, n_out_rows, n_lanes,
-                             n_actions, argmin_bytes, track, stream);
+    return sweep<true>(io, in, tiles, rec, blk, n_out_rows, n_lanes,
+                       argmin_bytes, track, stream);
   }
   const SweepIo io = {values, row_off, row_frac,
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return launch_mode<false>(io, tp, LaneRec{}, blk, ta, n_out_rows, n_lanes,
-                            n_actions, argmin_bytes, track, stream);
+  return sweep<false>(io, in, tiles, LaneRec{}, blk, n_out_rows, n_lanes,
+                      argmin_bytes, track, stream);
 }
 
 // The most dynamic shared memory one block of the current device may ask
@@ -1058,28 +1517,17 @@ extern "C" int backup6d_smem_limit(void) {
 }
 
 // Resident blocks an SM of the kernel of one mode (argmin_bytes 4 or 1,
-// track, recompute) at threads a block and smem_bytes of stage, on the
-// current device: the occupancy of a launch; -1 on an error.
+// track, recompute; wide: backup6d_wide) at threads a block and smem_bytes
+// of stage, on the current device: the occupancy of a launch; -1 on an
+// error.
 extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
-                                      int recompute, int threads,
+                                      int recompute, int wide, int threads,
                                       int smem_bytes) {
+  if (argmin_bytes != 4 && argmin_bytes != 1) return -1;
   const int mode = (argmin_bytes == 1 ? 4 : 0) + (track ? 2 : 0) +
                    (recompute ? 1 : 0);
-  switch (argmin_bytes == 4 || argmin_bytes == 1 ? mode : -1) {
-    case 0: return blocks_per_sm<int, false, false>(threads, smem_bytes);
-    case 1: return blocks_per_sm<int, false, true>(threads, smem_bytes);
-    case 2: return blocks_per_sm<int, true, false>(threads, smem_bytes);
-    case 3: return blocks_per_sm<int, true, true>(threads, smem_bytes);
-    case 4:
-      return blocks_per_sm<unsigned char, false, false>(threads, smem_bytes);
-    case 5:
-      return blocks_per_sm<unsigned char, false, true>(threads, smem_bytes);
-    case 6:
-      return blocks_per_sm<unsigned char, true, false>(threads, smem_bytes);
-    case 7:
-      return blocks_per_sm<unsigned char, true, true>(threads, smem_bytes);
-    default: return -1;
-  }
+  return wide ? blocks_of_mode<true>(mode, threads, smem_bytes)
+              : blocks_of_mode<false>(mode, threads, smem_bytes);
 }
 
 extern "C" const char* backup6d_error_string(int err) {

@@ -89,7 +89,7 @@
 // A launch takes a batch of up to kMaxBatch channels, each with its own
 // pointers, shapes, tap structure, action count and stage map (x_failure
 // has 6 actions, the others 9), as one __grid_constant__ parameter block
-// (1,056 B a channel, 4.2 KB for 4: above the 4 KB of parameters a launch
+// (1,312 B a channel, 5.3 KB for 4: above the 4 KB of parameters a launch
 // took before CUDA 12.1, inside the 32,764 B it takes since on sm_70 and
 // later). The grid covers the largest channel; a
 // block past its own channel's rows or lanes returns. The launch sets no
@@ -97,6 +97,14 @@
 // memory limit beforehand, so a launch may be captured into a CUDA graph
 // (the batched converged engine replays the 50 sweeps between two checks
 // as one).
+//
+// Lane taps: the any-tap kinds (2 and 4) run their lane loops to each
+// axis's tap count, reading the tap weights from the stage, so they take a
+// lane axis of up to kMaxLaneTaps = 40 live taps, as many as the TPU
+// kernel's 40 live lane combos allow; the stage's lane window grows to the
+// taps' reach on each side (ops/rowlane.py::plan_tiles). A simplified
+// attitude axis on a finer theta grid has more than the 5 lane taps of the
+// default: AttitudeConfig(n_mesh_t=1000)'s three axes 11, 15 and 9.
 
 #include <cuda_runtime.h>
 
@@ -107,7 +115,7 @@ constexpr int kThreads = 256;
 // an H100: 7-13% faster than the uncapped 80-128 registers at 2-3 blocks)
 constexpr int kMinBlocks = 4;
 constexpr int kMaxBatch = 4;        // MAX_BATCH in ops/rowlane.py
-constexpr int kMaxLaneTaps = 8;     // MAX_LANE_TAPS
+constexpr int kMaxLaneTaps = 40;    // MAX_LANE_TAPS
 constexpr int kMaxRowCombos = 40;   // MAX_ROW_COMBOS
 constexpr int kMaxActions = 64;     // MAX_ACTIONS
 constexpr int kMaxGroups = 8;       // MAX_GROUPS
@@ -511,8 +519,8 @@ rowlane_tiles(const __grid_constant__ Batch b) {
 // The instantiations (kernel_of; _kind in ops/rowlane.py): kinds 0, 1 and
 // 3, lane taps exactly (-1, 0, 1) on both axes and at most 12, 20 or 40
 // row combos, kinds 0 and 1 with exact-count bodies for 9, 10 and 11 or
-// for 10, 11 and 17 (the pos-att channels); kinds 2 and 4, any taps (at
-// most kMaxLaneTaps an axis) and at most 32 or 40 row combos (a simplified
+// for 10, 11 and 17 (the pos-att channels); kinds 2 and 4, any taps (up
+// to kMaxLaneTaps an axis) and at most 32 or 40 row combos (a simplified
 // attitude axis: 25-27 combos at n_mesh_w=1000, 33-37 at 1400; the 40-combo
 // body spills more and runs a 25-combo axis about 10% slower, so the
 // 32-combo one stays).

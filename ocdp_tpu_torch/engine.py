@@ -121,6 +121,17 @@ def policy_dtype_for(n_actions: int) -> torch.dtype:
     return torch.int32
 
 
+def _policy_dtype(policy_dtype, n_actions: int) -> torch.dtype:
+    """``policy_dtype``, or :func:`policy_dtype_for` when it is None; raises
+    for a dtype too narrow for the actions."""
+    if policy_dtype is None:
+        return policy_dtype_for(n_actions)
+    if torch.iinfo(policy_dtype).max < n_actions - 1:
+        raise ValueError(
+            f"policy_dtype {policy_dtype} cannot hold {n_actions} actions")
+    return policy_dtype
+
+
 def _initial_values(plan: InterpPlan, init_values) -> torch.Tensor:
     if init_values is None:
         return torch.zeros(plan.grid_shape, dtype=torch.float32,
@@ -271,12 +282,7 @@ def value_iteration_finite(
         return _finite_graphed(plan, backup, num_sweeps, init_values,
                                narrow_argmin_result)
     v = _initial_values(plan, init_values)
-    n_actions = plan.query_shape[-1]
-    pdt = policy_dtype or policy_dtype_for(n_actions)
-    if policy_dtype is not None and \
-            torch.iinfo(policy_dtype).max < n_actions - 1:
-        raise ValueError(
-            f"policy_dtype {policy_dtype} cannot hold {n_actions} actions")
+    pdt = _policy_dtype(policy_dtype, plan.query_shape[-1])
     if backup is None:
         backup = lambda v: bellman_backup(v, plan, stage_cost)  # noqa: E731
 
@@ -581,6 +587,7 @@ def value_iteration_segmented(
     prev_f: Optional[float] = None,
     backup=None,
     store_policies: bool = False,
+    policy_dtype: Optional[torch.dtype] = None,
     checkpoint_path: Optional[str] = None,
     checkpoint_axes=None,
     on_segment=None,
@@ -593,9 +600,11 @@ def value_iteration_segmented(
     on the host between segments:
 
     * **policy streaming**: with ``store_policies``, each segment's per-sweep
-      policies (in the narrow policy dtype) go to HOST numpy at once, so the
-      device holds one segment of them; ``SolveResult.policies`` is then a
-      numpy array of shape ``(sweeps done, *state_shape)``;
+      policies (in ``policy_dtype``, by default the narrowest that holds the
+      actions, :func:`policy_dtype_for`; one too narrow raises) go to HOST
+      numpy at once, so the device holds one segment of them;
+      ``SolveResult.policies`` is then a numpy array of shape ``(sweeps
+      done, *state_shape)``;
     * **checkpoints**: with ``checkpoint_path``, the value table, the sweep
       index and the stop rule's last checksum ``prev_f`` are written
       (:func:`~ocdp_tpu_torch.io.save_values`) after every segment;
@@ -626,6 +635,7 @@ def value_iteration_segmented(
     """
     if segment_size < 1:
         raise ValueError(f"segment_size must be >= 1, got {segment_size}")
+    pdt = _policy_dtype(policy_dtype, plan.query_shape[-1])
     carry = getattr(backup, "carry_padded", False)
     if carry and store_policies:
         raise ValueError(
@@ -657,8 +667,8 @@ def value_iteration_segmented(
         else:
             res = value_iteration_finite(
                 plan, stage_cost, n, init_values=v,
-                store_policies=store_policies, backup=backup,
-                narrow_argmin_result=narrow_argmin_result)
+                store_policies=store_policies, policy_dtype=pdt,
+                backup=backup, narrow_argmin_result=narrow_argmin_result)
             v, argmin = res.values, res.argmin
             if store_policies:
                 host_policies.append(res.policies.cpu().numpy())

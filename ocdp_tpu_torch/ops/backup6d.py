@@ -20,7 +20,12 @@ attitude path:
   the actions factor (:func:`slice_args`, :func:`backup6d_slice_cuda`).
 
 The kernel source, with the note on its arithmetic, tie order and what
-bounds it, is ``csrc/backup6d.cu``.
+bounds it, is ``csrc/backup6d.cu``. It holds two kernels for every mode:
+``backup6d_sweep`` takes at most 3 live taps an axis, ``backup6d_wide`` any
+taps up to 40 live row and 40 live lane combos, the TPU kernel's
+``max_flat_taps`` (a 4 x 3 x 3 row structure: 36 combos); the tile plan
+(:attr:`TilePlan.wide`) says which a launch runs, and every wrapper reaches
+both.
 
 The state axes split into 3 ROW axes, whose next states depend on the action
 (attitude: omega1..3), and 3 LANE axes, whose next states do not but may
@@ -95,10 +100,14 @@ __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "backup6d_slice_cuda", "backup6d_block", "TilePlan",
            "plan_tiles", "tile_occupancy"]
 
-# the kernel's fixed capacities (kMaxTaps, kMaxActions, kMaxDigits in
-# csrc/backup6d.cu): live taps per row or lane axis (so at most 27 row and
-# 27 lane combos), actions, and the digit base of the factorized phase
+# the kernels' fixed capacities (csrc/backup6d.cu): backup6d_sweep takes
+# at most MAX_TAPS live taps per row or lane axis (kMaxTaps; so at most 27
+# row and 27 lane combos), backup6d_wide any taps up to MAX_COMBOS live row
+# and MAX_COMBOS live lane combos (kWideCombos; the TPU kernel's
+# max_flat_taps, ocdp_tpu/ops/pallas_backup6.py:478); both take MAX_ACTIONS
+# actions and the factorized phase's digit base up to MAX_DIGITS
 MAX_TAPS = 3
+MAX_COMBOS = 40
 MAX_ACTIONS = 64
 MAX_DIGITS = 3
 # past this many (row, lane) elements the tap-liveness encode runs over row
@@ -461,15 +470,18 @@ def _check_cuda_inputs(values, args: Backup6DArgs) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-# The tile planner (csrc/backup6d.cu's Tiles): a block owns R output rows x
-# L lanes and stages in shared memory the table rows they read. A stage is
-# sized for two blocks of 256 threads an SM, or, where the lane reach is
-# too wide for that, one block of 512: 16 warps an SM either way, at most
-# 128 registers a thread.
-TILE_INTS = 65                   # kTileInts
+# The tile planner (csrc/backup6d.cu's Tiles and TilesW): a block owns R
+# output rows x L lanes and stages in shared memory the table rows they
+# read. A stage is sized for two blocks of 256 threads an SM, or, where the
+# lane reach is too wide for that, one block of 512: 16 warps an SM either
+# way, at most 128 registers a thread.
+TILE_INTS = 9 + 4 * MAX_COMBOS + 4   # kTileInts
 MAX_GROUPS = MAX_TAPS * MAX_TAPS  # kMaxGroups: live (t0, t1) pairs
-# kRowWeights: the factorized phase's row tap weights a tile row stages
+# kRowWeights: the factorized phase's row tap weights a tile row stages in
+# backup6d_sweep; backup6d_wide stages COMBO_WEIGHTS a row combo
+# (kComboWeights: w_k of its tap k and digit d)
 ROW_WEIGHTS = 3 * MAX_TAPS * MAX_DIGITS
+COMBO_WEIGHTS = 3 * MAX_DIGITS
 MAX_TILE_ROWS = 16
 MAX_TILE_LANES = 2048
 SM_THREADS = 512
@@ -495,7 +507,9 @@ class TilePlan(NamedTuple):
     Output cell ``(r, c)`` reads row combo k at stage row ``slots[k] + r -
     i * rows`` and lane combo e at stage column ``c - j * lanes + reach_lo
     + dl_e``. After the table rows the block keeps each tile row's
-    ``ROW_WEIGHTS`` row tap weights of the factorized phase. ``cube`` is
+    ``row_weights`` row tap weights of the factorized phase. ``wide``: the
+    plan of ``backup6d_wide`` (a tap structure past ``backup6d_sweep``'s 3
+    taps an axis), whose stage slots go by row combo; else ``cube`` is
     ``slots`` by cube slot p = (i0 * 3 + i1) * 3 + i2 (-1: not live).
     """
 
@@ -511,6 +525,12 @@ class TilePlan(NamedTuple):
     n_lanes: int
     n_table_rows: int
     table_row0: int
+    wide: bool
+
+    @property
+    def row_weights(self) -> int:
+        """The factorized phase's row weights a tile row keeps."""
+        return COMBO_WEIGHTS * len(self.slots) if self.wide else ROW_WEIGHTS
 
     @property
     def width(self) -> int:
@@ -523,7 +543,8 @@ class TilePlan(NamedTuple):
     @property
     def smem_bytes(self) -> int:
         """The table rows' stage and each tile row's row tap weights."""
-        return 4 * (self.n_staged * self.width + self.rows * ROW_WEIGHTS)
+        return 4 * (self.n_staged * self.width
+                    + self.rows * self.row_weights)
 
     @property
     def grid(self) -> tuple:
@@ -541,16 +562,23 @@ class TilePlan(NamedTuple):
         return i * self.rows * self.n_lanes + j * self.lanes
 
     def ints(self) -> np.ndarray:
-        """The kernel's int32 array (``fill_tiles`` in csrc/backup6d.cu)."""
+        """The kernel's int32 array (``read_tiles`` in csrc/backup6d.cu):
+        9 ints, the groups' deltas, rows and first stage rows (MAX_COMBOS
+        each), the stage slots (by combo when ``wide``, else by cube slot;
+        -1 past them), 4 ints."""
         out = np.zeros(TILE_INTS, np.int32)
-        out[:7] = (self.rows, self.lanes, self.reach_lo, self.reach_hi,
-                   self.width, self.n_staged, len(self.groups))
+        out[:9] = (self.rows, self.lanes, self.reach_lo, self.reach_hi,
+                   self.width, self.n_staged, len(self.groups),
+                   self.row_weights, int(self.wide))
         first = 0
         for g, (d, n) in enumerate(self.groups):
-            out[[7 + g, 7 + MAX_GROUPS + g, 7 + 2 * MAX_GROUPS + g]] = \
+            out[[9 + g, 9 + MAX_COMBOS + g, 9 + 2 * MAX_COMBOS + g]] = \
                 d, n, first
             first += n
-        out[7 + 3 * MAX_GROUPS:7 + 3 * MAX_GROUPS + 27] = self.cube
+        slots = self.slots if self.wide else self.cube
+        at = 9 + 3 * MAX_COMBOS
+        out[at:at + MAX_COMBOS] = -1
+        out[at:at + len(slots)] = slots
         out[-4:] = (*self.grid, self.smem_bytes, self.threads)
         return out
 
@@ -590,8 +618,10 @@ def plan_tiles(args: Backup6DArgs, n_table_rows: int,
     MAX_TILE_LANES) whose stage fits half an SM (two blocks of 256 threads)
     or, failing that, one SM (one block of 512), with the least modelled
     cost: ``STAGE_COST`` a staged value plus one a stage read, over the
-    padded cells, times ``ONE_BLOCK_COST`` for one block an SM. Raises
-    ``ValueError`` when no tile fits."""
+    padded cells, times ``ONE_BLOCK_COST`` for one block an SM. The plan
+    is ``backup6d_wide``'s (:attr:`TilePlan.wide`) when an axis has more
+    than ``MAX_TAPS`` live taps. Raises ``ValueError`` when no tile
+    fits."""
     return _tiles(_plan_key(args), n_table_rows, smem_limit)[0]
 
 
@@ -613,6 +643,8 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
     ne = int(np.prod(lane_shape))
     reach_lo, reach_hi = _lane_reach(lane_combos, lane_shape)
     reads = len(row_combos) * len(lane_combos)
+    wide = _wide(w_taps, lane_combos)
+    row_weights = COMBO_WEIGHTS * len(row_combos) if wide else ROW_WEIGHTS
     best = None
     for blocks in (2, 1):
         budget = min(smem_limit, SMEM_PER_SM // blocks - SMEM_RESERVED)
@@ -623,7 +655,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
             for rows in range(1, MAX_TILE_ROWS + 1):
                 staged = sum(n for _, n in _row_groups(row_combos, row_shape,
                                                        rows))
-                if 4 * (staged * width + rows * ROW_WEIGHTS) > budget:
+                if 4 * (staged * width + rows * row_weights) > budget:
                     break
                 tiles = -(-n_rows // rows) * -(-ne // lanes)
                 passes = -(-rows * lanes // threads)
@@ -638,9 +670,9 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                          "bytes of shared memory")
     _, rows, lanes, threads = best
     groups = _row_groups(row_combos, row_shape, rows)
-    if len(groups) > MAX_GROUPS:
+    if len(groups) > (MAX_COMBOS if wide else MAX_GROUPS):
         raise ValueError(f"{len(groups)} row groups exceed the kernel's "
-                         f"{MAX_GROUPS}")
+                         f"{MAX_COMBOS if wide else MAX_GROUPS}")
     starts = np.cumsum([0] + [n for _, n in groups])
     slots = []
     for d in _flat_shifts(row_combos, row_shape):
@@ -648,19 +680,27 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                  if gd <= d and d + rows <= gd + n)
         slots.append(int(starts[g] + d - groups[g][0]))
     cube = [-1] * 27
-    for combo, slot in zip(row_combos, slots):
-        p = 0
-        for k, t in enumerate(combo):
-            p = p * 3 + list(w_taps[k]).index(t)
-        cube[p] = slot
+    if not wide:
+        for combo, slot in zip(row_combos, slots):
+            p = 0
+            for k, t in enumerate(combo):
+                p = p * 3 + list(w_taps[k]).index(t)
+            cube[p] = slot
     plan = TilePlan(rows=rows, lanes=lanes, reach_lo=reach_lo,
                     reach_hi=reach_hi, groups=groups, slots=tuple(slots),
                     cube=tuple(cube), threads=threads, n_rows=n_rows,
                     n_lanes=ne, n_table_rows=n_table_rows,
-                    table_row0=halo[0])
+                    table_row0=halo[0], wide=wide)
     ints = plan.ints()
     ints.flags.writeable = False
     return plan, ints
+
+
+def _wide(w_taps, lane_combos) -> bool:
+    """Whether a tap structure runs ``backup6d_wide``: some row or lane axis
+    has more than ``MAX_TAPS`` live taps."""
+    e_taps = [{c[k] for c in lane_combos} for k in range(3)]
+    return max(len(t) for t in (*w_taps, *e_taps)) > MAX_TAPS
 
 
 _SMEM_LIMIT = {}
@@ -695,7 +735,8 @@ def tile_occupancy(values: torch.Tensor, args: Backup6DArgs) -> tuple:
     with torch.cuda.device(values.device):
         blocks = lib.backup6d_blocks_per_sm(adt, track,
                                             int(args.lanes is not None),
-                                            plan.threads, plan.smem_bytes)
+                                            int(plan.wide), plan.threads,
+                                            plan.smem_bytes)
     return plan, blocks
 
 
@@ -729,7 +770,7 @@ def _outputs(values, args: Backup6DArgs, out_v, out_a):
 
 def _tap_arrays(args: Backup6DArgs):
     """The host arrays of the tap structure the C entries take."""
-    w_taps = np.zeros((3, MAX_TAPS), np.int32)
+    w_taps = np.zeros((3, MAX_COMBOS), np.int32)
     n_taps = np.zeros(3, np.int32)
     for k, taps in enumerate(args.w_taps):
         w_taps[k, :len(taps)] = taps
@@ -754,8 +795,8 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     """Launch the CUDA kernel (B.3) for one sweep of the ``(NW, NE)`` table
     on PyTorch's current stream, with a new int32 argmin. Raises on inputs
     it does not take and on a launch the device refuses. The tap structure
-    must fit the kernel's capacities, which :class:`Backup6D` checks when it
-    is built. The envelope modes are :func:`backup6d_flat_cuda` and
+    must fit the kernels' capacities, which :class:`Backup6D` checks when it
+    is built; its tile plan picks the kernel (:attr:`TilePlan.wide`). The envelope modes are :func:`backup6d_flat_cuda` and
     :func:`backup6d_recompute_cuda`."""
     from .. import _build
 
@@ -1172,10 +1213,12 @@ class Backup6D:
     plan that is not 6-D or in neither layout, a row axis whose query
     varies along the lanes, a lane axis whose query varies with the action,
     a cost term coupling lanes and actions, and a tap structure beyond the
-    kernel's capacities (3 live taps per row or lane axis, 64 actions,
-    digit base 3). The kernel runs on a CUDA tensor, the plain version on a
-    CPU tensor; there is no other device and no fallback from one to the
-    other.
+    kernels' capacities: more than ``MAX_COMBOS`` = 40 live row or lane
+    combos (the TPU kernel's ``max_flat_taps``, which refuses the same
+    plans), 64 actions or digit base 3. A plan of at most 3 live taps an
+    axis runs ``backup6d_sweep``, any other ``backup6d_wide``. The kernel
+    runs on a CUDA tensor, the plain version on a CPU tensor; there is no
+    other device and no fallback from one to the other.
     """
 
     ROW_AXES = 3
@@ -1199,13 +1242,17 @@ class Backup6D:
         else:
             self.args = self._analyse(plan, cost_terms)
         n_act = self.args.n_actions
-        if max(len(t) for t in self.w_taps + self.e_taps) > MAX_TAPS or \
-                n_act > MAX_ACTIONS or (self.action_digits or 0) > MAX_DIGITS:
+        if max(len(self.row_combos), len(self.lane_combos)) > MAX_COMBOS:
             raise ValueError(
-                f"row taps {self.w_taps}, lane taps {self.e_taps}, {n_act} "
-                f"actions and digit base {self.action_digits} exceed the "
-                f"kernel's {MAX_TAPS} taps per axis, {MAX_ACTIONS} actions "
-                f"and digit base {MAX_DIGITS}")
+                f"{len(self.row_combos)} row x {len(self.lane_combos)} lane "
+                f"flat taps (row taps {self.w_taps}) exceed the kernel's "
+                f"max_flat_taps={MAX_COMBOS} live combos, the TPU kernel's "
+                "too; use impl='gather'")
+        if n_act > MAX_ACTIONS or (self.action_digits or 0) > MAX_DIGITS:
+            raise ValueError(
+                f"{n_act} actions and digit base {self.action_digits} "
+                f"exceed the kernel's {MAX_ACTIONS} actions and digit base "
+                f"{MAX_DIGITS}; use impl='gather'")
 
     def _analyse(self, plan: InterpPlan, cost_terms) -> Backup6DArgs:
         """A non-flat plan, analysed on the host."""

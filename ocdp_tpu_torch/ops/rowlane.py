@@ -50,10 +50,14 @@ __all__ = ["RowLaneArgs", "RowLaneBackup", "RowLaneBatch", "RowLaneTiles",
            "plan_tiles", "rowlane_backup_cuda", "rowlane_backup_plain"]
 
 # the kernel's fixed capacities (kMaxLaneTaps, kMaxRowCombos, kMaxActions in
-# csrc/rowlane_backup.cu); the high-res y channel has 17 row combos, and 40
-# is the TPU kernel's max_flat_taps (ocdp_tpu/ops/pallas_backup6.py:478)
-MAX_LANE_TAPS = 8
+# csrc/rowlane_backup.cu): 40 live row combos and 40 live lane combos is the
+# TPU kernel's max_flat_taps (ocdp_tpu/ops/pallas_backup6.py:478, checked
+# at :732-736), so a lane axis has at most 40 live taps; the high-res y
+# channel has 17 row combos, a simplified attitude axis at n_mesh_t=1500
+# 21 lane taps
+MAX_LANE_TAPS = 40
 MAX_ROW_COMBOS = 40
+MAX_LANE_COMBOS = 40
 MAX_ACTIONS = 64
 
 
@@ -760,9 +764,11 @@ class RowLaneBackup:
     Raises ``ValueError`` for a row axis whose query varies along the
     lanes, a lane axis whose query varies with the action, lane axes whose
     queries couple (the joint-combo mode: :class:`~ocdp_tpu_torch.ops.
-    backup6d.Backup6D`), a cost term coupling lanes and actions, and a tap structure beyond the
-    kernel's capacities. Values come in and go out in the natural
-    (unpermuted) state order.
+    backup6d.Backup6D`), a cost term coupling lanes and actions, and a tap
+    structure beyond the kernel's capacities: more than 40 live row combos
+    or 40 live lane combos (counted as the TPU kernel's build counts them,
+    which refuses the same plans) or 64 actions. Values come in and go out
+    in the natural (unpermuted) state order.
     """
 
     def __init__(self, plan: InterpPlan, cost_terms, perm, *, row_axes: int):
@@ -826,18 +832,23 @@ class RowLaneBackup:
                              .reshape(nw, shape[k]))
 
         w_taps, row_combos = _corner_live_sets(w_off, w_frac)
-        e_taps, _ = _corner_live_sets(e_off, e_frac)
+        e_taps, lane_combos = _corner_live_sets(e_off, e_frac)
         self.w_taps = tuple(tuple(t) for t in w_taps)
         self.row_combos = tuple(row_combos)
         self.e_taps = tuple(tuple(t) for t in e_taps)
+        # the live lane pairs, as the TPU kernel counts them; the kernel
+        # sums each lane axis's taps in turn
+        self.lane_combos = tuple(lane_combos)
         if len(self.row_combos) > MAX_ROW_COMBOS or \
-                max(len(t) for t in self.e_taps) > MAX_LANE_TAPS or \
+                len(self.lane_combos) > MAX_LANE_COMBOS or \
                 n_act > MAX_ACTIONS:
             raise ValueError(
-                f"{len(self.row_combos)} row combos, lane taps "
-                f"{self.e_taps} and {n_act} actions exceed the kernel's "
-                f"{MAX_ROW_COMBOS} combos, {MAX_LANE_TAPS} taps per lane axis"
-                f" and {MAX_ACTIONS} actions; use impl='gather'")
+                f"{len(self.row_combos)} row combos, "
+                f"{len(self.lane_combos)} lane combos (lane taps "
+                f"{self.e_taps}) and {n_act} actions exceed the "
+                f"max_flat_taps={MAX_ROW_COMBOS} combos the TPU kernel takes "
+                f"too and the kernel's {MAX_ACTIONS} actions; use "
+                "impl='gather'")
 
         # the factorized stage cost
         c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(

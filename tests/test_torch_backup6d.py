@@ -158,7 +158,8 @@ def test_rejections():
                            + lo[4:]), tuple(frac), plan.grid_shape)
     with pytest.raises(ValueError, match="varies with the action"):
         b6.Backup6D(bad, cost)
-    # more than 3 live taps on a row axis: a coarse omega grid, a big step
+    # more than 40 live row combos (7 taps an axis): a coarse omega grid, a
+    # big step
     _, wide, wcost = tatt.build_full(
         tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=3, u_max=5.0),
         device="cpu")

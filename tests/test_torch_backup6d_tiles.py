@@ -12,7 +12,10 @@ planner's own numbers:
 * the stage fits the 227 KB a block may ask for, the grid covers each
   output cell once, and offsets past 2**31 cells are planned and accepted;
 * a sweep whose lane phase gathers the table through the planner's stages
-  (numpy) equals ``backup6d_plain`` bitwise, values and argmin.
+  (numpy) equals ``backup6d_plain`` bitwise, values and argmin;
+* a tap structure past 3 taps an axis (row taps (-1, 0, 1, 2) x (-1, 0, 1)
+  x (-1, 0, 1), 36 combos) plans ``backup6d_wide``'s tiles: up to 40 row
+  groups, its stage slots by combo, 9 row weights a combo.
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -48,11 +51,17 @@ def _synthetic(n_w: int, n_q: int, rows=None, halo=(0, 0), actions=None):
         c_rowlane=None, halo=halo, actions=actions)
 
 
+# a lighter roll axis and an asymmetric rate range: 36 live row combos
+WIDE = dict(h=0.02, w_min_deg=-50.0, w_max_deg=30.0,
+            inertia_diag=(0.0225, 0.028317, 0.0245))
+
+
 def _backup(case="extrapolate", n_w=5, n_q=4):
     edge = "clamp" if case == "clamp" else "extrapolate"
     _, plan, cost = tatt.build_full(
-        tatt.AttitudeConfig(n_mesh_w=n_w, n_mesh_q=n_q), edge=edge,
-        device="cpu")
+        tatt.AttitudeConfig(n_mesh_w=n_w, n_mesh_q=n_q,
+                            **(WIDE if case == "wide" else {})),
+        edge=edge, device="cpu")
     cost = list(cost)
     if case == "generic":
         perm = torch.from_numpy(np.random.default_rng(5).permutation(27))
@@ -95,7 +104,18 @@ SHAPES = {
     "clamp": lambda: _backup("clamp").args,
     "generic": lambda: _backup("generic").args,
     "b7b-row0": lambda: _block(_backup(), 40, 90)[0],
+    # backup6d_wide: 36 row combos at 15^3 x 3^3 and 15^3 x 10^3, a row
+    # block of the first with its halos
+    "wide-15x3": lambda: _backup("wide", 15, 3).args,
+    "wide-15x10": lambda: _backup("wide", 15, 10).args,
+    "wide-b7b": lambda: _block(_backup("wide", 15, 3), 1000, 1200)[0],
 }
+
+
+def args_wide(args) -> bool:
+    """More than 3 live taps on some row or lane axis."""
+    return max(len({c[k] for c in combos}) for combos in
+               (args.row_combos, args.lane_combos) for k in range(3)) > 3
 
 
 def _tiles_to_check(plan):
@@ -115,7 +135,9 @@ def test_every_read_lies_in_its_stage(shape):
     plan = _plan(args)
     R, L, ne = plan.rows, plan.lanes, plan.n_lanes
     assert plan.smem_bytes <= SMEM_BLOCK_MAX
-    assert len(plan.groups) <= b6.MAX_GROUPS
+    assert plan.wide == args_wide(args)
+    assert len(plan.groups) <= (b6.MAX_COMBOS if plan.wide
+                                else b6.MAX_GROUPS)
     assert plan.width == L + plan.reach_lo + plan.reach_hi
     assert L % 32 == 0 and plan.threads in (256, 512)
     assert plan.table_row0 == args.halo[0]
@@ -170,11 +192,22 @@ def test_ints_are_the_kernels_layout():
     ints = plan.ints()
     assert ints.shape == (b6.TILE_INTS,) and ints.dtype == np.int32
     g = len(plan.groups)
-    assert tuple(ints[:7]) == (plan.rows, plan.lanes, plan.reach_lo,
-                               plan.reach_hi, plan.width, plan.n_staged, g)
+    assert tuple(ints[:9]) == (plan.rows, plan.lanes, plan.reach_lo,
+                               plan.reach_hi, plan.width, plan.n_staged, g,
+                               b6.ROW_WEIGHTS, 0)
     assert tuple(ints[-4:]) == (*plan.grid, plan.smem_bytes, plan.threads)
-    cube = ints[7 + 3 * b6.MAX_GROUPS:7 + 3 * b6.MAX_GROUPS + 27]
+    at = 9 + 3 * b6.MAX_COMBOS
+    cube = ints[at:at + 27]
     assert sorted(int(s) for s in cube if s >= 0) == sorted(plan.slots)
+    assert (ints[at + 27:at + b6.MAX_COMBOS] == -1).all()
+    # backup6d_wide's: the stage slots by combo, 9 row weights a combo
+    wide = _plan(_backup("wide", 15, 3).args)
+    wints = wide.ints()
+    assert wide.wide and len(wide.slots) == 36
+    assert tuple(wints[7:9]) == (9 * 36, 1)
+    assert tuple(wints[at:at + 36]) == wide.slots
+    assert wide.smem_bytes == 4 * (wide.n_staged * wide.width
+                                   + wide.rows * 9 * 36)
 
 
 def test_row_groups_merge_where_runs_meet():
@@ -236,7 +269,7 @@ def _tiled_lane_phase(plan_of):
 
 
 @pytest.mark.parametrize("case", ["5x4", "7x5", "clamp", "generic",
-                                  "b7b-row0", "b7a-slice-row0"])
+                                  "b7b-row0", "b7a-slice-row0", "wide"])
 def test_sweep_through_the_stages_equals_plain(case, monkeypatch):
     rng = np.random.default_rng(17)
     if case.startswith("b7"):
@@ -244,6 +277,9 @@ def test_sweep_through_the_stages_equals_plain(case, monkeypatch):
         args, n_table = _block(bk, 40, 90)
         if case == "b7a-slice-row0":
             args = b6.slice_args(args, 9, 18)
+    elif case == "wide":
+        bk = _backup("wide", 15, 3)
+        args, n_table = bk.args, bk.NW
     else:
         bk = _backup(case if case in ("clamp", "generic") else "extrapolate",
                      *((7, 5) if case == "7x5" else (5, 4)))

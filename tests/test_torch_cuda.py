@@ -2,11 +2,13 @@
 modes, the affine one in CUDA graphs and the finite engine and in each of
 its three stages: every action record staged, the records staged in
 chunks, the table read from global memory; row/lane backup with its
-channel batch, tile map, CUDA graph replay and 40-combo kind, 6-D
-coupled-lane
+channel batch, tile map, CUDA graph replay, 40-combo kind and lane axes of
+up to 21 taps, 6-D coupled-lane
 backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
-edges of its shared-memory tiles and a grid past 2**31 cells; the
+edges of its shared-memory tiles and a grid past 2**31 cells, each mode
+also through its kernel for more than 3 taps an axis (``backup6d_wide``,
+36 row combos); the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
 PyTorch versions, on a card; and the surface's step through B.1
@@ -477,21 +479,33 @@ def test_fleet_member_equals_single_flight(device):
 def _attitude_backup(device, case, **kw):
     """The 6-D backup of ``build_full``'s plan; ``case`` 'tie' zeroes the
     cost (with ``h=0`` every action ties), 'permuted' reorders the actions
-    so that the generic action phase runs."""
+    so that the generic action phase runs, 'twice' lists every action
+    twice (54 actions: the generic phase, each action tied exactly with its
+    copy)."""
     _, plan, cost = attitude.build_full(attitude.AttitudeConfig(**kw),
                                         device=device)
     cost = list(cost)
     if case == "tie":
         cost = [torch.zeros_like(t) for t in cost]
-    elif case == "permuted":
-        perm = torch.from_numpy(np.random.default_rng(3).permutation(27)) \
-            .to(device)
+    elif case in ("permuted", "twice"):
+        idx = torch.arange(27).repeat(2) if case == "twice" else \
+            torch.from_numpy(np.random.default_rng(3).permutation(27))
+        idx = idx.to(device)
         plan = InterpPlan(
-            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.lo),
-            tuple(x[..., perm] if x.shape[-1] > 1 else x for x in plan.frac),
+            tuple(x[..., idx] if x.shape[-1] > 1 else x for x in plan.lo),
+            tuple(x[..., idx] if x.shape[-1] > 1 else x for x in plan.frac),
             plan.grid_shape)
-        cost[2] = cost[2][..., perm]
+        cost[2] = cost[2][..., idx]
     return b6.Backup6D(plan, cost)
+
+
+# the 6-D configurations past 3 taps an axis (backup6d_wide): a lighter
+# roll axis and an asymmetric rate range give row taps (-1, 0, 1, 2) x
+# (-1, 0, 1) x (-1, 0, 1), 36 and 31 live combos, 27 lane combos
+WIDE_6D = dict(n_mesh_w=15, h=0.02, w_min_deg=-50.0, w_max_deg=30.0,
+               inertia_diag=(0.0225, 0.028317, 0.0245))
+WIDE_6D_31 = dict(n_mesh_w=11, h=0.025, w_min_deg=-35.0, w_max_deg=50.0,
+                  inertia_diag=(0.019, 0.028317, 0.0245))
 
 
 @pytest.mark.parametrize("case,kw", [
@@ -499,12 +513,23 @@ def _attitude_backup(device, case, **kw):
     ("extrapolate", dict(n_mesh_w=11, n_mesh_q=10)),
     ("tie", dict(n_mesh_w=5, n_mesh_q=4, h=0.0)),
     ("permuted", dict(n_mesh_w=5, n_mesh_q=4)),
-], ids=["5x4", "11x10", "tie", "generic"])
+    ("extrapolate", dict(WIDE_6D, n_mesh_q=10)),
+    ("extrapolate", dict(WIDE_6D_31, n_mesh_q=4)),
+    ("permuted", dict(WIDE_6D, n_mesh_q=4)),
+    ("twice", dict(WIDE_6D, n_mesh_q=4)),
+], ids=["5x4", "11x10", "tie", "generic", "wide-36-15x10", "wide-31-11x4",
+        "wide-36-generic", "wide-36-ties"])
 def test_backup6d_one_sweep_bitwise(device, case, kw):
+    """One sweep through B.3's wrapper equal to the plain version bitwise:
+    ``backup6d_sweep`` on (-1, 0, 1) taps an axis, ``backup6d_wide`` past
+    them (the tile plan says which), in the factorized phase and in the
+    generic one; exact ties take the first action."""
     bk = _attitude_backup(device, case, **kw)
-    assert (bk.action_digits is None) == (case == "permuted")
+    assert (bk.action_digits is None) == (case in ("permuted", "twice"))
     v = torch.from_numpy(np.random.default_rng(9).uniform(
         0, 50, bk.state_shape).astype(np.float32)).to(device)
+    plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args)
+    assert plan.wide == ("w_min_deg" in kw) and blocks >= 1
     before = b6.backup6d_cuda.launches
     got = bk(v)
     torch.cuda.synchronize()
@@ -512,6 +537,8 @@ def test_backup6d_one_sweep_bitwise(device, case, kw):
     _bitwise(got, bk.plain(v))
     if case == "tie":
         assert int(got.argmin.max()) == 0
+    if case == "twice":
+        assert int(got.argmin.max()) < 27
 
 
 @pytest.mark.parametrize("case", ["edges", "lanes-cut", "both-halos",
@@ -572,8 +599,13 @@ def test_backup6d_past_2_31_cells_is_not_refused(device):
         b6._check_cuda_inputs(meta((nw, ne)), big)
 
 
-def test_solve_full_kernel_equals_plain(device):
-    cfg = attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5)
+@pytest.mark.parametrize("kw", [dict(n_mesh_w=7, n_mesh_q=5),
+                                dict(WIDE_6D, n_mesh_q=4)],
+                         ids=["7x5", "wide-36"])
+def test_solve_full_kernel_equals_plain(device, kw):
+    """``solve_full`` (auto) through B.3's wrapper, one launch a sweep
+    (``backup6d_wide`` at 36 combos), equals ``impl='plain'``."""
+    cfg = attitude.AttitudeConfig(**kw)
     before = b6.backup6d_cuda.launches
     sk = attitude.solve_full(cfg, num_sweeps=20)      # the card, the kernel
     assert b6.backup6d_cuda.launches == before + 20
@@ -593,12 +625,16 @@ ENVELOPE_MODES = [
                          ids=["b4-int32", "b4-uint8", "b4-min-only",
                               "b5-uint8", "b5-int32-min-only"])
 @pytest.mark.parametrize("edge", ["extrapolate", "clamp"])
-def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge):
+@pytest.mark.parametrize("size", [dict(n_mesh_w=7), WIDE_6D],
+                         ids=["7x5", "wide-36"])
+def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge,
+                                    size):
     """B.4 (flat stored plan) and B.5 (lane recompute) vs their plain
-    versions, one sweep: values and argmin bitwise."""
+    versions, one sweep: values and argmin bitwise, through
+    ``backup6d_sweep`` and, at 36 row combos, ``backup6d_wide``."""
     kw = dict(flat=True) if lane_mode == "plan" else dict(lane_mode=lane_mode)
     _, plan, cost = attitude.build_full(
-        attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5), edge=edge, **kw)
+        attitude.AttitudeConfig(**size, n_mesh_q=5), edge=edge, **kw)
     bk = b6.Backup6D(plan, cost, argmin_dtype=adt, track_argmin=track)
     fn = b6.backup6d_recompute_cuda if lane_mode == "recompute" \
         else b6.backup6d_flat_cuda
@@ -919,18 +955,32 @@ def test_rowlane_40_combo_kind_bitwise(device):
     assert torch.equal(out[0][1], out[1][1])
 
 
-@pytest.mark.parametrize("n_mesh_w,axis,combos,kind", [(1000, 0, 25, 2),
-                                                       (1400, 0, 33, 4)])
-def test_rowlane_any_tap_kinds_bitwise(device, n_mesh_w, axis, combos, kind):
-    """A simplified attitude axis at the full theta grid (lane taps -2..2)
-    runs the any-tap kinds: kind 2 up to 32 row combos, kind 4 past it (up
-    to 40); one sweep equal to the plain version bitwise, and 5 sweeps of
+# simplified attitude axes: the default theta grid (lane taps -2..2) at
+# n_mesh_w 1000 (kind 2) and 1400 (33 row combos: kind 4); finer theta grids,
+# whose lane axes have 9-21 taps (the TPU kernel takes up to 40 lane combos)
+ANY_TAP_AXES = {
+    "w1000": (dict(n_mesh_w=1000), 0, 25, 5, 2),
+    "w1400": (dict(n_mesh_w=1400), 0, 33, 5, 4),
+    "t1000-yaw": (dict(n_mesh_t=1000), 0, 25, 11, 2),
+    "t1000-pitch": (dict(n_mesh_t=1000), 1, 25, 15, 2),
+    "t1000-roll": (dict(n_mesh_t=1000), 2, 27, 9, 2),
+    "t1500-pitch": (dict(n_mesh_t=1500), 1, 25, 21, 2),
+    "w300-h002-roll": (dict(n_mesh_w=300, h=0.02), 2, 33, 11, 4),
+}
+
+
+@pytest.mark.parametrize("name", list(ANY_TAP_AXES))
+def test_rowlane_any_tap_kinds_bitwise(device, name):
+    """A simplified attitude axis runs the any-tap kinds: kind 2 up to 32
+    row combos, kind 4 past it (up to 40), on lane axes of 5-21 taps; one
+    sweep equal to the plain version bitwise, and 5 sweeps of
     ``solve_simplified(impl='rowlane')`` there through the kernel only."""
-    cfg = attitude.AttitudeConfig(n_mesh_w=n_mesh_w)
+    kw, axis, combos, taps, kind = ANY_TAP_AXES[name]
+    cfg = attitude.AttitudeConfig(**kw)
     _, plan, terms = attitude.build_simplified_axis(cfg, axis, device=device)
     bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
-    assert len(bk.row_combos) == combos
-    v = _seeded((n_mesh_w, 300), device, seed=23)
+    assert (len(bk.row_combos), len(bk.lane_combos)) == (combos, taps)
+    v = _seeded(plan.grid_shape, device, seed=23)
     assert rl.launch_plan(bk.to_table(v), [bk.args]).kind == kind
     _rowlane_vs_plain(bk, v)
     before = rl.rowlane_backup_cuda.launches
@@ -963,6 +1013,41 @@ def test_rowlane_kernel_refuses_a_plan_that_misses_a_read(device, fault,
     with pytest.raises(RuntimeError, match="invalid argument"):
         rl.rowlane_backup_cuda(t, bks[0].args)
     assert rl.rowlane_backup_cuda.launches == before
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "flat", "recompute"])
+def test_backup6d_wide_block_and_slices_bitwise(device, kind):
+    """backup6d_wide through B.7's wrappers: row blocks of the 36-combo
+    configuration (its halo rows reach 2 t0 steps down) and their digit
+    slices equal the plain version bitwise, and the slices combined by the
+    first minimum equal the block's sweep."""
+    from ocdp_tpu_torch.parallel.mesh import first_min
+
+    extra = {"broadcast": {}, "flat": {"flat": True},
+             "recompute": {"lane_mode": "recompute"}}[kind]
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(**WIDE_6D, n_mesh_q=4), **extra)
+    bk = b6.Backup6D(plan, cost)
+    v = _seeded((bk.NW, bk.NE), device, seed=41)
+    lo, hi = bk.row_reach()
+    assert (lo, hi) == (241, 466)
+    vp = torch.nn.functional.pad(v, (0, 0, lo, hi))
+    for r0, r1 in ((0, 1688), (1688, 3375), (1000, 1200)):
+        args = b6.block_args(bk.args, r0, r1, lo, hi)
+        local = vp[r0:r1 + lo + hi].contiguous()
+        assert b6.tile_occupancy(local, args)[0].wide
+        whole = b6.backup6d_block_cuda(local, args)
+        _bitwise(whole, b6.backup6d_plain(local, args))
+        vals, argm = [], []
+        for g in range(3):
+            sa = b6.slice_args(args, 9 * g, 9 * g + 9)
+            got = b6.backup6d_slice_cuda(local, sa)
+            _bitwise(got, b6.backup6d_plain(local, sa))
+            vals.append(got.values)
+            argm.append(got.argmin)
+        vmin, arg = first_min(vals, argm, 27)
+        assert torch.equal(vmin, whole.values)
+        assert torch.equal(arg, whole.argmin.to(torch.int32))
 
 
 B7_KINDS = {"broadcast": {}, "flat": {"flat": True},

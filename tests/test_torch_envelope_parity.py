@@ -24,10 +24,23 @@ port refuses with it. Checked on the CPU with each host's own analysis:
   against JAX's gather solve within rtol 2e-5 (the pos-att parity tests'
   tolerance: the two sum the interpolation in different orders) after 20 sweeps, argmins
   equal except where the two actions' totals tie within that tolerance;
+* B.2 on a simplified attitude axis (its rowlane route, ``row_axes=1``):
+  ``RowLaneBackup`` and its tile planner against
+  ``build_pallas_backup_6d(..., row_axes=1)`` over ``n_mesh_t`` in {300,
+  600, 1000, 1500}, ``(n_mesh_w=300, h=0.02)`` and ``h=0.01`` (47-53 row
+  combos: both refuse): equal row and lane combos, lane axes of 5-21
+  taps; at ``AttitudeConfig(n_mesh_w=200, n_mesh_t=1000)`` (7 x 9-15
+  combos) the port's plain rowlane solve against JAX's gather solve after
+  20 sweeps, within rtol 2e-5, argmins equal except where the two
+  actions' totals tie within that tolerance;
 * the 6-D kernel (B.3, ``ops/backup6d.py``): ``Backup6D`` and its tile
   planner against ``build_pallas_backup_6d`` over ``AttitudeConfig(
-  n_mesh_w, n_mesh_q=4, h)``: both take 27 combos and refuse together past
-  (-1, 0, 1) taps an axis.
+  n_mesh_w, n_mesh_q=4, h)``: both take 27 combos and refuse together
+  past 40; a lighter roll axis or an asymmetric rate range gives row taps
+  (-1, 0, 1, 2) x (-1, 0, 1) x (-1, 0, 1) (36 and 31 combos, both take
+  them, the port through ``backup6d_wide``) or 45 combos (both refuse);
+  at 36 combos the port's plain solve against JAX's gather solve after 3
+  sweeps, within rtol 2e-5, argmins as above.
 
 The kernels themselves run only on a card: tests/test_torch_cuda.py.
 """
@@ -40,6 +53,7 @@ import numpy as np
 import pytest
 import torch
 
+from ocdp_tpu.models import attitude as jatt
 from ocdp_tpu.models import kirk as jkirk
 from ocdp_tpu.models import pos_att as jpa
 from ocdp_tpu.ops.backup import bellman_backup as jax_bellman_backup
@@ -254,4 +268,141 @@ def test_attitude_6d_envelope_matches_jax(n_mesh_w, h):
                                                jbk.lane_combos)
     assert len(bk.row_combos) == 27
     b6.plan_tiles(bk.args, bk.NW, SMEM_BLOCK_MAX)
+    jax.clear_caches()
+
+
+WIDE_6D = dict(n_mesh_w=15, h=0.02, w_min_deg=-50.0, w_max_deg=30.0,
+               inertia_diag=(0.0225, 0.028317, 0.0245))
+
+
+def _jax_plan(plan):
+    return JaxPlan(tuple(jnp.asarray(x.numpy()) for x in plan.lo),
+                   tuple(jnp.asarray(x.numpy()) for x in plan.frac),
+                   plan.grid_shape)
+
+
+@pytest.mark.parametrize("kw,combos", [
+    (WIDE_6D, 36),
+    (dict(n_mesh_w=11, h=0.025, w_min_deg=-35.0, w_max_deg=50.0,
+          inertia_diag=(0.019, 0.028317, 0.0245)), 31),
+    (dict(WIDE_6D, inertia_diag=(0.02, 0.028317, 0.0245)), 45),
+], ids=["36", "31", "45-refused"])
+def test_attitude_6d_wide_taps_match_jax(kw, combos):
+    """Row taps past 3 an axis: the TPU kernel's build and ``Backup6D``
+    take the same plans, with the same combos and action digits, and
+    refuse past 40 live combos together; the port runs such a plan on
+    ``backup6d_wide``, whose stage fits."""
+    _, plan, cost = tatt.build_full(tatt.AttitudeConfig(**kw, n_mesh_q=4),
+                                    device="cpu")
+    try:
+        jbk = build_pallas_backup_6d(
+            _jax_plan(plan), [jnp.asarray(t.numpy()) for t in cost],
+            interpret=True)
+    except ValueError as err:
+        assert "max_flat_taps" in str(err) and combos > 40
+        with pytest.raises(ValueError, match="impl='gather'"):
+            b6.Backup6D(plan, cost)
+        return
+    bk = b6.Backup6D(plan, cost)
+    assert len(bk.row_combos) == combos
+    assert (bk.row_combos, bk.lane_combos) == (jbk.row_combos,
+                                               jbk.lane_combos)
+    assert [len(t) for t in bk.w_taps] == [4, 3, 3]
+    assert bk.action_digits == jbk.action_digits == 3
+    tiles = b6.plan_tiles(bk.args, bk.NW, SMEM_BLOCK_MAX)
+    assert tiles.wide and tiles.smem_bytes <= SMEM_BLOCK_MAX
+    jax.clear_caches()
+
+
+def _tie_close(got_v, got_a, want_v, want_a, totals):
+    """Values within rtol 2e-5 of JAX's; where the argmins differ, the two
+    actions' totals (``totals``, the port's last sweep of every action)
+    tie within that tolerance."""
+    np.testing.assert_allclose(got_v, want_v, rtol=2e-5)
+    differ = got_a != want_a
+    if differ.any():
+        at = np.take_along_axis(totals, got_a[..., None], -1)[..., 0]
+        aj = np.take_along_axis(totals, want_a[..., None], -1)[..., 0]
+        np.testing.assert_allclose(aj[differ], at[differ], rtol=2e-5)
+
+
+def test_attitude_6d_wide_solve_matches_jax_gather():
+    """36 row combos (backup6d_wide on a card): the port's plain 6-D solve
+    against the JAX package's gather solve, 3 sweeps."""
+    cfg = dict(WIDE_6D, n_mesh_q=4)
+    jsol = jatt.solve_full(jatt.AttitudeConfig(**cfg), num_sweeps=3,
+                           impl="gather")
+    tsol = tatt.solve_full(tatt.AttitudeConfig(**cfg), num_sweeps=3,
+                           device="cpu")
+    prev = tatt.solve_full(tatt.AttitudeConfig(**cfg), num_sweeps=2,
+                           device="cpu")
+    _, plan, cost = tatt.build_full(tatt.AttitudeConfig(**cfg), device="cpu")
+    totals = (interp_apply(prev.result.values, plan)
+              + cost[0] + cost[1] + cost[2]).numpy()
+    _tie_close(tsol.result.values.numpy(), tsol.result.argmin.numpy(),
+               np.asarray(jsol.result.values),
+               np.asarray(jsol.result.argmin), totals)
+    jax.clear_caches()
+
+
+SIMPLIFIED = {
+    "t300": dict(n_mesh_t=300), "t600": dict(n_mesh_t=600),
+    "t1000": dict(n_mesh_t=1000), "t1500": dict(n_mesh_t=1500),
+    "w300-h002": dict(n_mesh_w=300, h=0.02),
+    "h001-refused": dict(h=0.01),
+}
+
+
+@pytest.mark.parametrize("axis", [0, 1, 2])
+@pytest.mark.parametrize("name", list(SIMPLIFIED))
+def test_simplified_rowlane_envelope_matches_jax(name, axis):
+    """A simplified attitude axis on its rowlane route: the TPU kernel's
+    build at ``row_axes=1`` and ``RowLaneBackup`` accept together, with the
+    same live row and lane combos (the port's unit axis in front of each
+    group), and refuse together past 40 (the port's error names
+    ``impl='gather'``); an accepted plan's tiles fit."""
+    cfg = tatt.AttitudeConfig(**SIMPLIFIED[name])
+    _, plan, terms = tatt.build_simplified_axis(cfg, axis, device="cpu")
+    try:
+        jbk = build_pallas_backup_6d(
+            _jax_plan(plan), [jnp.asarray(t.numpy()) for t in terms],
+            row_axes=1, interpret=True)
+    except ValueError as err:
+        assert "max_flat_taps" in str(err) and name.endswith("refused")
+        with pytest.raises(ValueError, match="impl='gather'"):
+            rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+        return
+    assert not name.endswith("refused")
+    bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+    assert [c[1:] for c in bk.row_combos] == list(jbk.row_combos)
+    assert [c[1:] for c in bk.lane_combos] == list(jbk.lane_combos)
+    assert all(c[0] == 0 for c in bk.row_combos + bk.lane_combos)
+    assert len(bk.lane_combos) <= rl.MAX_LANE_COMBOS
+    tiles = rl.plan_tiles([rl._plan_key(bk.args)], SMEM_BLOCK_MAX)
+    assert len(bk.row_combos) <= rl.KIND_COMBOS[tiles.kind]
+    assert tiles.smem_bytes <= SMEM_BLOCK_MAX // rl.BLOCKS_PER_SM
+
+
+def test_simplified_wide_lane_solve_matches_jax_gather():
+    """``AttitudeConfig(n_mesh_w=200, n_mesh_t=1000)`` (7 row combos, lane
+    axes of 11, 15 and 9 taps): the port's plain rowlane solve against the
+    JAX package's gather solve, 20 sweeps, each axis."""
+    kw = dict(n_mesh_w=200, n_mesh_t=1000)
+    jsol = jatt.solve_simplified(jatt.AttitudeConfig(**kw), num_sweeps=20,
+                                 impl="gather")
+    cfg = tatt.AttitudeConfig(**kw)
+    tsol = tatt.solve_simplified(cfg, num_sweeps=20, impl="rowlane",
+                                 device="cpu")
+    prev = tatt.solve_simplified(cfg, num_sweeps=19, impl="rowlane",
+                                 device="cpu")
+    for axis in range(3):
+        _, plan, terms = tatt.build_simplified_axis(cfg, axis, device="cpu")
+        totals = (interp_apply(prev.values[axis], plan)
+                  + terms[0] + terms[1] + terms[2]).numpy()
+        got_a = torch.bucketize(tsol.u_tables[axis],
+                                torch.tensor([-0.05, 0.05])).numpy()
+        want_a = np.searchsorted([-0.05, 0.05],
+                                 np.asarray(jsol.u_tables[axis]))
+        _tie_close(tsol.values[axis].numpy(), got_a,
+                   np.asarray(jsol.values[axis]), want_a, totals)
     jax.clear_caches()

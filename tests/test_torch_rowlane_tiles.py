@@ -16,8 +16,9 @@ with the planner's own numbers:
   four pos-att channels batched (x_failure's 6 actions among 9), for a
   simplified attitude axis (5 row combos, lane taps (0,) and (-1, 0, 1)),
   for a fine omega grid (``n_mesh_w=120``: 35, 35 and 31 row combos, the
-  TPU kernel's envelope past the first 32) and for a fine simplified omega
-  grid (``n_mesh_w=1400``: 37 row combos);
+  TPU kernel's envelope past the first 32), for a fine simplified omega
+  grid (``n_mesh_w=1400``: 37 row combos) and for a fine theta grid
+  (``n_mesh_t=1000``: lane taps -7..7, a lane reach of 8 each side);
 * the kernel kind: the (-1, 0, 1)-tap kernels for the pos-att channels
   (the 40-combo one past 20 combos), the any-tap ones otherwise (the
   40-combo one past 32); past 40 combos the analysis refuses and names
@@ -67,9 +68,18 @@ def _wide_simplified():
     return _simplified(1400)
 
 
+# a fine theta grid: lane taps (0,), (-7..7), 15 lane combos
+def _fine_theta():
+    cfg = tatt.AttitudeConfig(n_mesh_w=40, n_mesh_t=1000)
+    _, plan, terms = tatt.build_simplified_axis(cfg, 1, device="cpu")
+    bk = rl.RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+    assert bk.e_taps[1] == tuple(range(-7, 8))
+    return [bk]
+
+
 CASES = {"small": lambda: _pos_att(SMALL), "mid": lambda: _pos_att(MID),
          "simplified": _simplified, "wide_omega": _wide,
-         "wide_simplified": _wide_simplified}
+         "wide_simplified": _wide_simplified, "fine_theta": _fine_theta}
 
 
 def _plan(bks):

@@ -14,13 +14,19 @@ and checkpoints (ocdp_tpu_torch/io.py), on the CPU.
   there (the fault ROADMAP C.1 records in the JAX package's engine).
 * Checkpoints load in both packages, and the full 6-D ``solve_full``
   segmented, killed and resumed equals the one-shot solve bitwise.
+* ``policy_dtype`` as the JAX engine takes it: by default the narrowest
+  that holds the actions, a wider one on request, and one too narrow
+  refused by both.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ocdp_tpu import io as jio
+from ocdp_tpu.engine import value_iteration_segmented as jax_segmented
+from ocdp_tpu.models import kirk as jkirk
 from ocdp_tpu_torch import io as tio
 from ocdp_tpu_torch.engine import (value_iteration_converged,
                                    value_iteration_finite,
@@ -214,3 +220,43 @@ def test_solve_full_segmented_kill_and_resume(tmp_path):
                           prev_f=ck.prev_f, verbose=True, device="cpu")
     np.testing.assert_array_equal(got.values_6d(), ref.values_6d())
     np.testing.assert_array_equal(got.argmin_6d(), ref.argmin_6d())
+
+
+@pytest.mark.parametrize("dtypes", [(None, None),
+                                    (torch.int16, jnp.int16),
+                                    (torch.int32, jnp.int32)],
+                         ids=["default", "int16", "int32"])
+def test_policy_dtype_as_the_jax_engine(kirk_problem, dtypes):
+    """The streamed policies in ``policy_dtype`` (default: uint8 for 9
+    actions, ``policy_dtype_for``) with the JAX engine's values and
+    policies on the same Kirk problem (its plain gather backup; XLA:CPU
+    contracts and fuses, so values to 2e-6 * max |V|, the envelope parity
+    tests' Kirk tolerance; policies equal)."""
+    tdt, jdt = dtypes
+    p = kirk_problem
+    jp = jkirk.build(jkirk.KirkConfig(N=14, dx=12, du=9))
+    want = jax_segmented(jp.plan, jp.stage_cost, 13, segment_size=5,
+                         store_policies=True, policy_dtype=jdt)
+    got = value_iteration_segmented(p.plan, p.stage_cost, 13, segment_size=5,
+                                    store_policies=True, policy_dtype=tdt)
+    assert got.policies.dtype == np.asarray(want.policies).dtype
+    assert got.policies.dtype == (np.uint8 if tdt is None
+                                  else np.dtype(str(tdt).split(".")[1]))
+    want_v = np.asarray(want.values)
+    np.testing.assert_allclose(got.values.numpy(), want_v, rtol=0,
+                               atol=2e-6 * float(np.abs(want_v).max()))
+    np.testing.assert_array_equal(got.policies, np.asarray(want.policies))
+
+
+def test_policy_dtype_too_narrow_is_refused(kirk_problem):
+    """300 actions do not fit uint8: both engines refuse it."""
+    p = tkirk.build(tkirk.KirkConfig(N=3, dx=6, du=300), device="cpu")
+    jp = jkirk.build(jkirk.KirkConfig(N=3, dx=6, du=300))
+    with pytest.raises(ValueError, match="cannot hold 300 actions"):
+        jax_segmented(jp.plan, jp.stage_cost, 2, policy_dtype=jnp.uint8)
+    with pytest.raises(ValueError, match="cannot hold 300 actions"):
+        value_iteration_segmented(p.plan, p.stage_cost, 2,
+                                  policy_dtype=torch.uint8)
+    got = value_iteration_segmented(p.plan, p.stage_cost, 2,
+                                    store_policies=True)
+    assert got.policies.dtype == np.int16
