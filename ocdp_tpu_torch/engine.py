@@ -56,6 +56,7 @@ import torch
 from .io import save_values
 from .ops.backup import bellman_backup
 from .ops.interp import InterpPlan
+from .profiling import span
 
 __all__ = [
     "GRAPH_SWEEPS",
@@ -175,19 +176,21 @@ class SweepGraph:
     COUNTERS = ("launches", "channel_sweeps")
 
     def __init__(self, step, cur, nxt, n: int, launchers=()):
-        before = [[getattr(f, k) for k in self.COUNTERS] for f in launchers]
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(self.graph):
-                ping_pong(step, cur, nxt, n)
-        finally:
-            after = [[getattr(f, k) for k in self.COUNTERS]
-                     for f in launchers]
-            for f, b in zip(launchers, before):
-                for k, v in zip(self.COUNTERS, b):
-                    setattr(f, k, v)
-        self.counts = [(f, [a - b for a, b in zip(aa, bb)])
-                       for f, aa, bb in zip(launchers, after, before)]
+        with span("ocdp.engine.capture"):
+            before = [[getattr(f, k) for k in self.COUNTERS]
+                      for f in launchers]
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(self.graph):
+                    ping_pong(step, cur, nxt, n)
+            finally:
+                after = [[getattr(f, k) for k in self.COUNTERS]
+                         for f in launchers]
+                for f, b in zip(launchers, before):
+                    for k, v in zip(self.COUNTERS, b):
+                        setattr(f, k, v)
+            self.counts = [(f, [a - b for a, b in zip(aa, bb)])
+                           for f, aa, bb in zip(launchers, after, before)]
 
     def replay(self) -> None:
         self.graph.replay()
@@ -221,16 +224,20 @@ def _finite_graphed(plan, backup, num_sweeps, init_values,
     for n in finite_schedule(num_sweeps, GRAPH_SWEEPS):
         if cur.is_cuda and n == GRAPH_SWEEPS:
             if graph is None:
-                backup.prepare()
+                with span("ocdp.engine.prepare"):
+                    backup.prepare()
                 graph = SweepGraph(step, cur, nxt, n, (backup.launcher,))
-            graph.replay()
+            with span("ocdp.engine.sweeps", str(n)):
+                graph.replay()
         else:
-            ping_pong(step, cur, nxt, n)
-    pdt = policy_dtype_for(plan.query_shape[-1])
-    return SolveResult(
-        values=cur,
-        argmin=argmin.to(pdt) if narrow_argmin_result else argmin,
-        policies=None, num_sweeps=num_sweeps, converged=False)
+            with span("ocdp.engine.sweeps", str(n)):
+                ping_pong(step, cur, nxt, n)
+    with span("ocdp.engine.finish"):
+        pdt = policy_dtype_for(plan.query_shape[-1])
+        if narrow_argmin_result:
+            argmin = argmin.to(pdt)
+    return SolveResult(values=cur, argmin=argmin, policies=None,
+                       num_sweeps=num_sweeps, converged=False)
 
 
 def value_iteration_finite(
@@ -304,23 +311,25 @@ def value_iteration_finite(
         getattr(backup, "argmin_dtypes", ())
     if into:
         v, spare = v.clone(), torch.empty_like(v)
-    for i in range(num_sweeps):
-        if into:
-            backup.sweep_into(v, spare,
-                              policies[i] if policies is not None else argmin)
-            v, spare = spare, v
-        else:
-            v, argmin = backup(v)
-            if policies is not None:
-                policies[i] = argmin
-        if probes is not None:
-            probes[i] = v[window]
-        if on_sweep is not None:
-            _sync_for_callback(v)
-            on_sweep(i)
-    if into and policies is not None and num_sweeps:
-        argmin = policies[num_sweeps - 1].clone()
-    argmin = argmin.to(pdt if narrow_argmin_result else torch.int32)
+    with span("ocdp.engine.sweeps", str(num_sweeps)):
+        for i in range(num_sweeps):
+            if into:
+                backup.sweep_into(
+                    v, spare, policies[i] if policies is not None else argmin)
+                v, spare = spare, v
+            else:
+                v, argmin = backup(v)
+                if policies is not None:
+                    policies[i] = argmin
+            if probes is not None:
+                probes[i] = v[window]
+            if on_sweep is not None:
+                _sync_for_callback(v)
+                on_sweep(i)
+    with span("ocdp.engine.finish"):
+        if into and policies is not None and num_sweeps:
+            argmin = policies[num_sweeps - 1].clone()
+        argmin = argmin.to(pdt if narrow_argmin_result else torch.int32)
     return SolveResult(
         values=v,
         argmin=argmin,
@@ -364,12 +373,13 @@ def _carry_buffers(plan, backup, init_values):
 def _carry_sweeps(backup, cur, nxt, argmin, n, on_sweep=None):
     """``n`` carry-mode sweeps; returns ``(cur, nxt)`` swapped as many
     times."""
-    for i in range(n):
-        backup.sweep_into(cur, nxt, argmin)
-        cur, nxt = nxt, cur
-        if on_sweep is not None:
-            _sync_for_callback(cur)
-            on_sweep(i)
+    with span("ocdp.engine.sweeps", str(n)):
+        for i in range(n):
+            backup.sweep_into(cur, nxt, argmin)
+            cur, nxt = nxt, cur
+            if on_sweep is not None:
+                _sync_for_callback(cur)
+                on_sweep(i)
     return cur, nxt
 
 
@@ -383,10 +393,11 @@ def _carry_view(plan, t: torch.Tensor) -> torch.Tensor:
 
 def _carry_result(plan, cur, argmin, narrow_argmin_result, num_sweeps,
                   converged) -> SolveResult:
-    if not narrow_argmin_result:
-        argmin = argmin.to(torch.int32)
-    return SolveResult(values=_carry_view(plan, cur),
-                       argmin=_carry_view(plan, argmin), policies=None,
+    with span("ocdp.engine.finish"):
+        if not narrow_argmin_result:
+            argmin = argmin.to(torch.int32)
+        values, argmin = _carry_view(plan, cur), _carry_view(plan, argmin)
+    return SolveResult(values=values, argmin=argmin, policies=None,
                        num_sweeps=num_sweeps, converged=converged)
 
 
@@ -426,12 +437,16 @@ def value_iteration_converged(
     checks = torch.zeros((n_checks, 3), dtype=torch.float32)
     argmin = torch.zeros(plan.grid_shape, dtype=torch.int32, device=v.device)
     fsum_prev = usum_prev = torch.zeros((), dtype=torch.float32)
-    c_idx = 0
-    k_s = max_sweeps
+    c_idx = num_sweeps = 0
     converged = False
-    while k_s >= 1 and not converged:
-        v, argmin = backup(v)
-        if k_s % check_every == 0:
+    for n, k_s, is_check in converged_schedule(max_sweeps, check_every):
+        with span("ocdp.engine.sweeps", str(n)):
+            for _ in range(n):
+                v, argmin = backup(v)
+        num_sweeps += n
+        if not is_check:
+            continue
+        with span("ocdp.engine.check"):
             fsum = v.sum(dtype=torch.float32).cpu()
             usum = argmin.sum(dtype=torch.float32).cpu()
             err_f, err_u = fsum - fsum_prev, usum - usum_prev
@@ -443,15 +458,13 @@ def value_iteration_converged(
                 on_check(k_s, float(err_f), float(err_u))
             c_idx += 1
             fsum_prev, usum_prev = fsum, usum
-        k_s -= 1
-    return SolveResult(
-        values=v,
-        argmin=argmin.to(pdt),
-        policies=None,
-        num_sweeps=max_sweeps - k_s,
-        converged=converged,
-        checks=checks.to(v.device),
-    )
+        if converged:
+            break
+    with span("ocdp.engine.finish"):
+        argmin, checks = argmin.to(pdt), checks.to(v.device)
+    return SolveResult(values=v, argmin=argmin, policies=None,
+                       num_sweeps=num_sweeps, converged=converged,
+                       checks=checks)
 
 
 def converged_schedule(max_sweeps: int, check_every: int) -> list:
@@ -519,46 +532,53 @@ def value_iteration_converged_batch(
         batch.sweep(src, dst, argmin, active)
 
     def finish(c, num_sweeps, converged, v=None, a=None):
-        v = batch.to_natural(c, cur[c]) if v is None else v
-        a = batch.to_natural(c, argmin[c]) if a is None else a
-        pdt = (policy_dtype_for(batch.backups[c].args.n_actions)
-               if narrow_argmin_result else torch.int32)
-        results[c] = SolveResult(values=v, argmin=a.to(pdt), policies=None,
-                                 num_sweeps=num_sweeps, converged=converged,
-                                 checks=checks[c].to(v.device))
+        with span("ocdp.engine.finish"):
+            v = batch.to_natural(c, cur[c]) if v is None else v
+            a = batch.to_natural(c, argmin[c]) if a is None else a
+            pdt = (policy_dtype_for(batch.backups[c].args.n_actions)
+                   if narrow_argmin_result else torch.int32)
+            results[c] = SolveResult(
+                values=v, argmin=a.to(pdt), policies=None,
+                num_sweeps=num_sweeps, converged=converged,
+                checks=checks[c].to(v.device))
 
     for n, k_s, is_check in converged_schedule(max_sweeps, check_every):
         if batch.launcher is not None and n == check_every:
             if active not in graphs:
-                batch.prepare(active)
+                with span("ocdp.engine.prepare"):
+                    batch.prepare(active)
                 graphs[active] = SweepGraph(step, cur, nxt, n,
                                             (batch.launcher,))
-            graphs[active].replay()
+            with span("ocdp.engine.sweeps", str(n)):
+                graphs[active].replay()
         else:
-            ping_pong(step, cur, nxt, n)
+            with span("ocdp.engine.sweeps", str(n)):
+                ping_pong(step, cur, nxt, n)
         if not is_check:
             continue
-        # each channel's sums from its own natural-order copy, brought to
-        # the host together: one wait for the device a check
-        nat = {c: (batch.to_natural(c, cur[c]), batch.to_natural(c, argmin[c]))
-               for c in active}
-        sums = torch.stack([x.sum(dtype=torch.float32)
-                            for c in active for x in nat[c]]).cpu()
-        still = []
-        for i, c in enumerate(active):
-            v, a = nat[c]
-            fsum, usum = sums[2 * i], sums[2 * i + 1]
-            err_f, err_u = fsum - prev[c][0], usum - prev[c][1]
-            stop = convergence_stop(float(err_f), float(fsum), tol, tol_mode)
-            checks[c][c_idx] = torch.stack(
-                [torch.tensor(float(k_s)), err_f, err_u])
-            if on_check[c] is not None:
-                on_check[c](k_s, float(err_f), float(err_u))
-            prev[c] = (fsum, usum)
-            if stop:
-                finish(c, max_sweeps - k_s + 1, True, v, a)
-            else:
-                still.append(c)
+        with span("ocdp.engine.check"):
+            # each channel's sums from its own natural-order copy, brought
+            # to the host together: one wait for the device a check
+            nat = {c: (batch.to_natural(c, cur[c]),
+                       batch.to_natural(c, argmin[c])) for c in active}
+            sums = torch.stack([x.sum(dtype=torch.float32)
+                                for c in active for x in nat[c]]).cpu()
+            still = []
+            for i, c in enumerate(active):
+                v, a = nat[c]
+                fsum, usum = sums[2 * i], sums[2 * i + 1]
+                err_f, err_u = fsum - prev[c][0], usum - prev[c][1]
+                stop = convergence_stop(float(err_f), float(fsum), tol,
+                                        tol_mode)
+                checks[c][c_idx] = torch.stack(
+                    [torch.tensor(float(k_s)), err_f, err_u])
+                if on_check[c] is not None:
+                    on_check[c](k_s, float(err_f), float(err_u))
+                prev[c] = (fsum, usum)
+                if stop:
+                    finish(c, max_sweeps - k_s + 1, True, v, a)
+                else:
+                    still.append(c)
         c_idx += 1
         active = tuple(still)
         if not active:
@@ -675,11 +695,13 @@ def value_iteration_segmented(
         sweep += n
         if tol is not None and _is_check_sweep(sweep, num_sweeps,
                                                segment_size):
-            fsum = v.sum(dtype=torch.float32).cpu()
-            err_f = fsum - torch.tensor(prev_f or 0.0, dtype=torch.float32)
-            converged = convergence_stop(float(err_f), float(fsum), tol,
-                                         tol_mode)
-            prev_f = float(fsum)
+            with span("ocdp.engine.check"):
+                fsum = v.sum(dtype=torch.float32).cpu()
+                err_f = fsum - torch.tensor(prev_f or 0.0,
+                                            dtype=torch.float32)
+                converged = convergence_stop(float(err_f), float(fsum), tol,
+                                             tol_mode)
+                prev_f = float(fsum)
         table = _carry_view(plan, v) if carry else v
         if checkpoint_path is not None:
             save_values(checkpoint_path, table, sweep,

@@ -68,7 +68,7 @@ from ..ops.interp import (AffineAxes, InterpPlan, PlanShape, affine_axes,
 from ..ops.kernelmath import quat_step_readback
 from ..ops.rowband import RowBandBackup2D
 from ..ops.rowlane import RowLaneBackup
-from ..profiling import SweepTimer, sweep_callback
+from ..profiling import SweepTimer, solve_span, span, sweep_callback
 from ..utils.device import resolve_device, resolve_impl
 from ..utils.frames import cross, matvec
 from ..utils.integrators import integrator_kwargs, rk4_step
@@ -272,44 +272,46 @@ def solve_simplified(
     package's docstring). ``verbose`` prints the reference's per-stage
     timing lines.
     """
-    device = resolve_device(device)
-    impl = resolve_impl(impl, device, SIMPLIFIED_IMPLS, cpu_auto="plain")
-    sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
-    on_sweep = sweep_callback(verbose)
-    u_vec = torch.as_tensor(cfg.u_vector, device=device)
-    built = [build_simplified_axis(cfg, i, edge=edge, device=device)
-             for i in range(3)]
-    axes_out = [grid.axes for grid, _, _ in built]
-    if impl in ("kernel", "plain"):
-        bk = BandBackup2D.stack([p for _, p, _ in built],
-                                [t for _, _, t in built])
-        n1, n2 = built[0][1].grid_shape
-        shape = PlanShape((3, n1, n2), (3, n1, n2, len(cfg.u_vector)),
-                          device)
-        res = value_iteration_finite(
-            shape, None, sweeps, backup=bk if impl == "kernel" else bk.plain,
-            on_sweep=on_sweep)
-        tables = [u_vec[res.argmin[i].long()] for i in range(3)]
-        values = [res.values[i] for i in range(3)]
+    with solve_span():
+        device = resolve_device(device)
+        impl = resolve_impl(impl, device, SIMPLIFIED_IMPLS, cpu_auto="plain")
+        sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
+        on_sweep = sweep_callback(verbose)
+        u_vec = torch.as_tensor(cfg.u_vector, device=device)
+        built = [build_simplified_axis(cfg, i, edge=edge, device=device)
+                 for i in range(3)]
+        axes_out = [grid.axes for grid, _, _ in built]
+        if impl in ("kernel", "plain"):
+            bk = BandBackup2D.stack([p for _, p, _ in built],
+                                    [t for _, _, t in built])
+            n1, n2 = built[0][1].grid_shape
+            shape = PlanShape((3, n1, n2), (3, n1, n2, len(cfg.u_vector)),
+                              device)
+            res = value_iteration_finite(
+                shape, None, sweeps,
+                backup=bk if impl == "kernel" else bk.plain,
+                on_sweep=on_sweep)
+            tables = [u_vec[res.argmin[i].long()] for i in range(3)]
+            values = [res.values[i] for i in range(3)]
+            return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),
+                                      tuple(values), edge)
+        tables, values = [], []
+        for _, plan, terms in built:
+            cost = backup = None
+            if impl == "rowband":
+                backup = RowBandBackup2D(plan, terms)
+            elif impl == "rowlane":
+                # (omega, theta) is row/lane separable as it stands: omega'
+                # depends on (omega, u), theta' on (theta, omega)
+                backup = RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
+            else:
+                cost = terms[0] + terms[1] + terms[2]
+            res = value_iteration_finite(plan, cost, sweeps, backup=backup,
+                                         on_sweep=on_sweep)
+            tables.append(u_vec[res.argmin.long()])
+            values.append(res.values)
         return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),
                                   tuple(values), edge)
-    tables, values = [], []
-    for _, plan, terms in built:
-        cost = backup = None
-        if impl == "rowband":
-            backup = RowBandBackup2D(plan, terms)
-        elif impl == "rowlane":
-            # (omega, theta) is row/lane separable as it stands: omega'
-            # depends on (omega, u), theta' on (theta, omega)
-            backup = RowLaneBackup(plan, terms, perm=(0, 1), row_axes=1)
-        else:
-            cost = terms[0] + terms[1] + terms[2]
-        res = value_iteration_finite(plan, cost, sweeps, backup=backup,
-                                     on_sweep=on_sweep)
-        tables.append(u_vec[res.argmin.long()])
-        values.append(res.values)
-    return SimplifiedSolution(cfg, tuple(axes_out), tuple(tables),
-                              tuple(values), edge)
 
 
 def _simplified_lookup(sol: SimplifiedSolution, device):
@@ -521,42 +523,43 @@ def build_full(cfg: AttitudeConfig, *, flat: Optional[bool] = None,
     'clamp' (boundary projection); see
     :func:`~ocdp_tpu_torch.ops.interp.build_plan`.
     """
-    device = resolve_device(device)
-    if edge not in ("extrapolate", "clamp"):
-        raise ValueError(f"unknown edge policy {edge!r}")
-    if lane_mode not in LANE_MODES:
-        raise ValueError(f"unknown lane_mode {lane_mode!r}; use one of "
-                         f"{LANE_MODES}")
-    s_w = linspace_axis(cfg.w_min_deg * _DEG, cfg.w_max_deg * _DEG,
-                        cfg.n_mesh_w)
-    (y_lo, y_hi), (p_lo, p_hi), (r_lo, r_hi) = cfg.euler_ranges
-    s_yaw = linspace_axis(y_lo, y_hi, cfg.n_mesh_q)
-    s_pitch = linspace_axis(p_lo, p_hi, cfg.n_mesh_q)
-    s_roll = linspace_axis(r_lo, r_hi, cfg.n_mesh_q)
-    grid = Grid((s_w, s_w, s_w, s_yaw, s_pitch, s_roll))
-    cells = int(np.prod(grid.shape))
-    if lane_mode == "auto":
-        lane_mode = "recompute" if cells > RECOMPUTE_MIN_CELLS else "plan"
-    if lane_mode == "recompute":
-        if flat is False:
-            raise ValueError("lane_mode='recompute' builds a flat plan")
-        plan, cost_terms = _plan_and_cost_flat_recompute(
-            cfg, grid, edge=edge, device=device)
+    with span("ocdp.build"):
+        device = resolve_device(device)
+        if edge not in ("extrapolate", "clamp"):
+            raise ValueError(f"unknown edge policy {edge!r}")
+        if lane_mode not in LANE_MODES:
+            raise ValueError(f"unknown lane_mode {lane_mode!r}; use one of "
+                             f"{LANE_MODES}")
+        s_w = linspace_axis(cfg.w_min_deg * _DEG, cfg.w_max_deg * _DEG,
+                            cfg.n_mesh_w)
+        (y_lo, y_hi), (p_lo, p_hi), (r_lo, r_hi) = cfg.euler_ranges
+        s_yaw = linspace_axis(y_lo, y_hi, cfg.n_mesh_q)
+        s_pitch = linspace_axis(p_lo, p_hi, cfg.n_mesh_q)
+        s_roll = linspace_axis(r_lo, r_hi, cfg.n_mesh_q)
+        grid = Grid((s_w, s_w, s_w, s_yaw, s_pitch, s_roll))
+        cells = int(np.prod(grid.shape))
+        if lane_mode == "auto":
+            lane_mode = "recompute" if cells > RECOMPUTE_MIN_CELLS else "plan"
+        if lane_mode == "recompute":
+            if flat is False:
+                raise ValueError("lane_mode='recompute' builds a flat plan")
+            plan, cost_terms = _plan_and_cost_flat_recompute(
+                cfg, grid, edge=edge, device=device)
+            return grid, plan, cost_terms
+        if flat is None:
+            flat = cells > FLAT_MIN_CELLS
+        if chunked is None:
+            chunked = flat and cells > CHUNKED_MIN_CELLS
+        if chunked:
+            if not flat:
+                raise ValueError("the chunked build makes the flat layout")
+            plan, cost_terms = _plan_and_cost_flat_chunked(
+                cfg, grid, edge=edge, block_rows=block_rows, device=device)
+        else:
+            plan, cost_terms = _plan_and_cost(cfg, grid, s_w, s_yaw, s_pitch,
+                                              s_roll, edge=edge, device=device,
+                                              flat=flat)
         return grid, plan, cost_terms
-    if flat is None:
-        flat = cells > FLAT_MIN_CELLS
-    if chunked is None:
-        chunked = flat and cells > CHUNKED_MIN_CELLS
-    if chunked:
-        if not flat:
-            raise ValueError("the chunked build makes the flat layout")
-        plan, cost_terms = _plan_and_cost_flat_chunked(
-            cfg, grid, edge=edge, block_rows=block_rows, device=device)
-    else:
-        plan, cost_terms = _plan_and_cost(cfg, grid, s_w, s_yaw, s_pitch,
-                                          s_roll, edge=edge, device=device,
-                                          flat=flat)
-    return grid, plan, cost_terms
 
 
 def _kirk_q_from_half_angles(cy, sy, cp, sp, cr, sr):
@@ -838,43 +841,46 @@ def solve_full(
     reference's per-stage timing lines, per sweep, or per segment when
     segmented.
     """
-    device = resolve_device(device)
-    if impl not in IMPLS:
-        raise ValueError(f"unknown impl {impl!r}; use one of {IMPLS}")
-    if impl == "kernel" and device.type != "cuda":
-        raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
-    grid, plan, cost = build_full(cfg, flat=flat, edge=edge,
-                                  lane_mode=lane_mode, device=device)
-    flat_solve = plan_is_flat(plan)
-    if flat_solve and impl == "gather":
-        raise ValueError("flat plans are consumed by the 6-D backup only; "
-                         "use impl='auto', 'kernel' or 'plain'")
-    sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
-    big = int(np.prod(grid.shape)) > FLAT_MIN_CELLS
-    backup = None
-    if impl != "gather":
-        bk = Backup6D(plan, cost,
-                      argmin_dtype=torch.uint8 if big else torch.int32,
-                      carry_padded=big if carry_padded is None
-                      else carry_padded,
-                      consume_plan=flat_solve)
-        backup = bk.plain if impl == "plain" else bk
-    if flat_solve:
-        # the backup holds what it needs of the plan: drop the rest
-        plan, cost = PlanShape.of(plan), None
-    if segment_size is not None:
-        res = value_iteration_segmented(
-            plan, cost, sweeps, segment_size=segment_size, backup=backup,
-            checkpoint_path=checkpoint_path, checkpoint_axes=grid.axes,
-            init_values=init_values, start_sweep=start_sweep, prev_f=prev_f,
-            tol=tol, tol_mode=tol_mode, narrow_argmin_result=flat_solve,
-            on_segment=SweepTimer(verbose=True).on_segment if verbose
-            else None)
+    with solve_span():
+        device = resolve_device(device)
+        if impl not in IMPLS:
+            raise ValueError(f"unknown impl {impl!r}; use one of {IMPLS}")
+        if impl == "kernel" and device.type != "cuda":
+            raise ValueError(
+                f"impl='kernel' needs a CUDA device, got {device}")
+        grid, plan, cost = build_full(cfg, flat=flat, edge=edge,
+                                      lane_mode=lane_mode, device=device)
+        flat_solve = plan_is_flat(plan)
+        if flat_solve and impl == "gather":
+            raise ValueError("flat plans are consumed by the 6-D backup only; "
+                             "use impl='auto', 'kernel' or 'plain'")
+        sweeps = (cfg.n_stage - 1) if num_sweeps is None else num_sweeps
+        big = int(np.prod(grid.shape)) > FLAT_MIN_CELLS
+        backup = None
+        if impl != "gather":
+            bk = Backup6D(plan, cost,
+                          argmin_dtype=torch.uint8 if big else torch.int32,
+                          carry_padded=big if carry_padded is None
+                          else carry_padded,
+                          consume_plan=flat_solve)
+            backup = bk.plain if impl == "plain" else bk
+        if flat_solve:
+            # the backup holds what it needs of the plan: drop the rest
+            plan, cost = PlanShape.of(plan), None
+        if segment_size is not None:
+            res = value_iteration_segmented(
+                plan, cost, sweeps, segment_size=segment_size, backup=backup,
+                checkpoint_path=checkpoint_path, checkpoint_axes=grid.axes,
+                init_values=init_values, start_sweep=start_sweep,
+                prev_f=prev_f, tol=tol, tol_mode=tol_mode,
+                narrow_argmin_result=flat_solve,
+                on_segment=SweepTimer(verbose=True).on_segment if verbose
+                else None)
+            return FullSolution(cfg, grid, res)
+        res = value_iteration_finite(plan, cost, sweeps,
+                                     init_values=init_values, backup=backup,
+                                     on_sweep=sweep_callback(verbose))
         return FullSolution(cfg, grid, res)
-    res = value_iteration_finite(plan, cost, sweeps, init_values=init_values,
-                                 backup=backup,
-                                 on_sweep=sweep_callback(verbose))
-    return FullSolution(cfg, grid, res)
 
 
 def attitude_rates_kirk(X, U, inertia, inertia_inv=None):

@@ -24,7 +24,7 @@ from ..engine import SolveResult, value_iteration_finite
 from ..grids import Grid, linspace_axis
 from ..ops.fused_backup2d import AffineBackup2D
 from ..ops.interp import InterpPlan, PlanShape, build_plan, interp_eval
-from ..profiling import sweep_callback
+from ..profiling import solve_span, sweep_callback
 from ..utils.device import resolve_device
 
 __all__ = ["KirkConfig", "KirkProblem", "KirkSolution", "affine_backup",
@@ -175,28 +175,31 @@ def solve(
     ``verbose``: per-stage 'step %d - %f seconds' prints (the reference's
     default console output) via :class:`~ocdp_tpu_torch.profiling.SweepTimer`.
     """
-    device = resolve_device(device)
-    if impl == "auto":
-        impl = "kernel" if device.type == "cuda" else "gather"
-    if impl not in ("kernel", "gather"):
-        raise ValueError(f"unknown impl {impl!r}; use 'auto', 'kernel' or "
-                         "'gather'")
-    if impl == "kernel" and device.type != "cuda":
-        raise ValueError(f"impl='kernel' needs a CUDA device, got {device}")
-    if impl == "kernel":
-        s_r, u_mesh = _meshes(config)
-        shape = PlanShape((config.dx, config.dx),
-                          (config.dx, config.dx, config.du), device)
-        problem = KirkProblem(config, Grid((s_r, s_r)), u_mesh, shape, None)
-        backup = affine_backup(problem)
-    else:
-        problem = build(config, device=device)
-        backup = None
-    result = value_iteration_finite(
-        problem.plan, problem.stage_cost, config.N - 1,
-        store_policies=store_policies, backup=backup,
-        on_sweep=sweep_callback(verbose))
-    return KirkSolution(problem, result)
+    with solve_span():
+        device = resolve_device(device)
+        if impl == "auto":
+            impl = "kernel" if device.type == "cuda" else "gather"
+        if impl not in ("kernel", "gather"):
+            raise ValueError(f"unknown impl {impl!r}; use 'auto', 'kernel' or "
+                             "'gather'")
+        if impl == "kernel" and device.type != "cuda":
+            raise ValueError(
+                f"impl='kernel' needs a CUDA device, got {device}")
+        if impl == "kernel":
+            s_r, u_mesh = _meshes(config)
+            shape = PlanShape((config.dx, config.dx),
+                              (config.dx, config.dx, config.du), device)
+            problem = KirkProblem(config, Grid((s_r, s_r)), u_mesh, shape,
+                                  None)
+            backup = affine_backup(problem)
+        else:
+            problem = build(config, device=device)
+            backup = None
+        result = value_iteration_finite(
+            problem.plan, problem.stage_cost, config.N - 1,
+            store_policies=store_policies, backup=backup,
+            on_sweep=sweep_callback(verbose))
+        return KirkSolution(problem, result)
 
 
 def optimal_path(

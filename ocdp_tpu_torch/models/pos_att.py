@@ -51,7 +51,7 @@ from ..io import ChannelController, save_channel_controller
 from ..ops.interp import (AffineAxes, InterpPlan, affine_axes, build_plan,
                           nearest_cell_index)
 from ..ops.rowlane import RowLaneBackup, RowLaneBatch
-from ..profiling import sweep_callback
+from ..profiling import solve_span, span, sweep_callback
 from ..utils.frames import cross, matvec, rsw_to_eci_matrix
 from ..utils.device import resolve_device, resolve_impl
 from ..utils.integrators import integrator_kwargs
@@ -197,38 +197,42 @@ def build_channel(cfg: PosAttConfig, channel: str, *, failure: bool = False,
     ``with_cost=False`` skips the dense (S, A) stage cost (``stage_cost``
     None), which only ``impl='gather'`` reads.
     """
-    device = resolve_device(device)
-    s_x, s_v, s_t, s_w = _channel_axes(cfg, channel)
-    grid = Grid((s_x, s_v, s_t, s_w))
-    forces = thruster_combinations(*cfg.thruster_value_sets(channel, failure))
-    h = cfg.h
+    with span("ocdp.build"):
+        device = resolve_device(device)
+        s_x, s_v, s_t, s_w = _channel_axes(cfg, channel)
+        grid = Grid((s_x, s_v, s_t, s_w))
+        forces = thruster_combinations(
+            *cfg.thruster_value_sets(channel, failure))
+        h = cfg.h
 
-    def col(a, k):
-        shape = [1] * 5
-        shape[k] = -1
-        return torch.as_tensor(a, device=device).reshape(shape)
+        def col(a, k):
+            shape = [1] * 5
+            shape[k] = -1
+            return torch.as_tensor(a, device=device).reshape(shape)
 
-    x, v, t, w = (col(a, k) for k, a in enumerate((s_x, s_v, s_t, s_w)))
-    f = torch.as_tensor(forces, device=device)
-    fsum = col(f[:, 0] + f[:, 1] + f[:, 2] + f[:, 3], 4)
-    # moment = (f0 - f1 + f6 - f7) * T_dist (wdynamics, :396-401)
-    fmom = col(f[:, 0] - f[:, 1] + f[:, 2] - f[:, 3], 4)
+        x, v, t, w = (col(a, k) for k, a in enumerate((s_x, s_v, s_t, s_w)))
+        f = torch.as_tensor(forces, device=device)
+        fsum = col(f[:, 0] + f[:, 1] + f[:, 2] + f[:, 3], 4)
+        # moment = (f0 - f1 + f6 - f7) * T_dist (wdynamics, :396-401)
+        fmom = col(f[:, 0] - f[:, 1] + f[:, 2] - f[:, 3], 4)
 
-    def scalar(value):
-        return torch.tensor(value, dtype=torch.float32, device=device)
+        def scalar(value):
+            return torch.tensor(value, dtype=torch.float32, device=device)
 
-    x_next = x + h * v
-    v_next = v + h * fsum / scalar(cfg.mass)
-    t_next = t + h * w
-    w_next = w + h * fmom * cfg.moment_arm / scalar(cfg.channel_inertia(channel))
-    plan = build_plan(grid.axes, (x_next, v_next, t_next, w_next))
+        x_next = x + h * v
+        v_next = v + h * fsum / scalar(cfg.mass)
+        t_next = t + h * w
+        w_next = w + h * fmom * cfg.moment_arm / scalar(
+            cfg.channel_inertia(channel))
+        plan = build_plan(grid.axes, (x_next, v_next, t_next, w_next))
 
-    cost = None
-    if with_cost:
-        fsq = col(f[:, 0] ** 2 + f[:, 1] ** 2 + f[:, 2] ** 2 + f[:, 3] ** 2, 4)
-        cost = (cfg.Qx * x**2 + cfg.Qv * v**2 + cfg.Qt * t**2 + cfg.Qw * w**2
-                + cfg.R * fsq)
-    return ChannelProblem(cfg, channel, failure, grid, forces, plan, cost)
+        cost = None
+        if with_cost:
+            fsq = col(f[:, 0] ** 2 + f[:, 1] ** 2 + f[:, 2] ** 2
+                      + f[:, 3] ** 2, 4)
+            cost = (cfg.Qx * x**2 + cfg.Qv * v**2 + cfg.Qt * t**2
+                    + cfg.Qw * w**2 + cfg.R * fsq)
+        return ChannelProblem(cfg, channel, failure, grid, forces, plan, cost)
 
 
 def build_channel_rowlane_backup(cfg: PosAttConfig,
@@ -282,31 +286,33 @@ def _solve_jobs(cfg, jobs, *, device, impl, max_sweeps, tol_mode, verbose):
     ``device``: with ``impl='gather'`` one after another through the
     converged engine, else as one batch of row/lane backups (the kernel or
     its plain version) through the batched converged engine."""
-    device = resolve_device(device)
-    impl = resolve_impl(impl, device, IMPLS, cpu_auto="rowlane")
-    sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
-    problems = [build_channel(cfg, ch, failure=failure,
-                              with_cost=impl == "gather", device=device)
-                for _, ch, failure in jobs]
-    # the timers start after the builds, so the first lines report sweeps
-    on_check = [sweep_callback(verbose, kind="check") for _ in jobs]
-    if impl == "gather":
-        results = [value_iteration_converged(
-            p.plan, p.stage_cost, sweeps, check_every=cfg.check_every,
-            tol=cfg.tol, tol_mode=tol_mode, on_check=cb)
-            for p, cb in zip(problems, on_check)]
-    else:
-        batch = RowLaneBatch([build_channel_rowlane_backup(cfg, p)
-                              for p in problems], plain=impl == "rowlane")
-        results = value_iteration_converged_batch(
-            batch, sweeps, check_every=cfg.check_every, tol=cfg.tol,
-            tol_mode=tol_mode, on_check=on_check)
-    controllers = {
-        name: ChannelController(axes=tuple(p.grid.axes), values=r.values,
-                                argmin=r.argmin, forces=p.forces)
-        for (name, _, _), p, r in zip(jobs, problems, results)}
-    return PosAttSolution(cfg, controllers,
-                          {name: r for (name, _, _), r in zip(jobs, results)})
+    with solve_span():
+        device = resolve_device(device)
+        impl = resolve_impl(impl, device, IMPLS, cpu_auto="rowlane")
+        sweeps = (cfg.n_stage - 1) if max_sweeps is None else max_sweeps
+        problems = [build_channel(cfg, ch, failure=failure,
+                                  with_cost=impl == "gather", device=device)
+                    for _, ch, failure in jobs]
+        # the timers start after the builds, so the first lines report sweeps
+        on_check = [sweep_callback(verbose, kind="check") for _ in jobs]
+        if impl == "gather":
+            results = [value_iteration_converged(
+                p.plan, p.stage_cost, sweeps, check_every=cfg.check_every,
+                tol=cfg.tol, tol_mode=tol_mode, on_check=cb)
+                for p, cb in zip(problems, on_check)]
+        else:
+            batch = RowLaneBatch([build_channel_rowlane_backup(cfg, p)
+                                  for p in problems], plain=impl == "rowlane")
+            results = value_iteration_converged_batch(
+                batch, sweeps, check_every=cfg.check_every, tol=cfg.tol,
+                tol_mode=tol_mode, on_check=on_check)
+        controllers = {
+            name: ChannelController(axes=tuple(p.grid.axes), values=r.values,
+                                    argmin=r.argmin, forces=p.forces)
+            for (name, _, _), p, r in zip(jobs, problems, results)}
+        return PosAttSolution(
+            cfg, controllers,
+            {name: r for (name, _, _), r in zip(jobs, results)})
 
 
 class PosAttSolution(NamedTuple):

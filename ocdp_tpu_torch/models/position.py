@@ -44,7 +44,7 @@ from ..engine import SolveResult, value_iteration_finite
 from ..grids import Grid, sym_linspace_inclusive
 from ..ops.band_backup2d import BandBackup2D
 from ..ops.interp import InterpPlan, affine_axes, build_plan, nearest_cell_index
-from ..profiling import sweep_callback
+from ..profiling import solve_span, sweep_callback
 from ..utils.device import resolve_device, resolve_impl
 from ..utils.integrators import rkf45_integrate
 
@@ -187,18 +187,19 @@ def solve(
     stencil is not ported. ``verbose`` prints the reference's per-stage
     timing lines.
     """
-    device = resolve_device(device)
-    impl = resolve_impl(impl, device, IMPLS, cpu_auto="plain")
-    problem = build(config, device=device)
-    sweeps = (config.n_stage - 1) if num_sweeps is None else num_sweeps
-    backup = None
-    if impl != "gather":
-        bk = BandBackup2D(problem.plan, problem.cost_terms)
-        backup = bk if impl == "kernel" else bk.plain
-    result = value_iteration_finite(problem.plan, problem.stage_cost, sweeps,
-                                    backup=backup,
-                                    on_sweep=sweep_callback(verbose))
-    return PositionSolution(problem, result)
+    with solve_span():
+        device = resolve_device(device)
+        impl = resolve_impl(impl, device, IMPLS, cpu_auto="plain")
+        problem = build(config, device=device)
+        sweeps = (config.n_stage - 1) if num_sweeps is None else num_sweeps
+        backup = None
+        if impl != "gather":
+            bk = BandBackup2D(problem.plan, problem.cost_terms)
+            backup = bk if impl == "kernel" else bk.plain
+        result = value_iteration_finite(problem.plan, problem.stage_cost,
+                                        sweeps, backup=backup,
+                                        on_sweep=sweep_callback(verbose))
+        return PositionSolution(problem, result)
 
 
 def get_optimal_path(

@@ -87,6 +87,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..profiling import span
 from .backup import BackupResult
 from .interp import InterpPlan
 from .kernelmath import asin_f32, atan2_f32, quat_step_readback
@@ -1237,10 +1238,11 @@ class Backup6D:
         self.carry_padded = bool(carry_padded)
         self.flat = plan_is_flat(plan)
         self.recompute = isinstance(plan, RecomputePlan)
-        if self.flat:
-            self.args = self._analyse_flat(plan, cost_terms, consume_plan)
-        else:
-            self.args = self._analyse(plan, cost_terms)
+        with span("ocdp.backup6d.analyse"):
+            if self.flat:
+                self.args = self._analyse_flat(plan, cost_terms, consume_plan)
+            else:
+                self.args = self._analyse(plan, cost_terms)
         n_act = self.args.n_actions
         if max(len(self.row_combos), len(self.lane_combos)) > MAX_COMBOS:
             raise ValueError(
@@ -1272,8 +1274,9 @@ class Backup6D:
             a = _as_numpy(a).astype(dtype, copy=False)
             return a.reshape((1,) * (d + 1 - a.ndim) + a.shape)
 
-        lo = [full_rank(x, np.int32) for x in plan.lo]
-        fr = [full_rank(x, np.float32) for x in plan.frac]
+        with span("ocdp.backup6d.read"):
+            lo = [full_rank(x, np.int32) for x in plan.lo]
+            fr = [full_rank(x, np.float32) for x in plan.frac]
         w_off, w_frac = _row_plan(lo, fr, shape, nr, n_act)
 
         # lane axes: offsets and fracs as broadcast views over the state
@@ -1355,8 +1358,9 @@ class Backup6D:
         row_off = torch.stack(w_off).contiguous()
         row_frac = torch.stack(w_frac).contiguous()
         # the row analysis is (3, NW, A): small, on the host
-        w_off_h, w_frac_h = list(row_off.cpu().numpy()), \
-            list(row_frac.cpu().numpy())
+        with span("ocdp.backup6d.read"):
+            w_off_h, w_frac_h = list(row_off.cpu().numpy()), \
+                list(row_frac.cpu().numpy())
         w_taps, row_combos = _corner_live_sets(w_off_h, w_frac_h)
         digits = _detect_action_digits(w_off_h, w_frac_h, nr)
 

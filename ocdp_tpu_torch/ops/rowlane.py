@@ -43,6 +43,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..profiling import span
 from .backup import BackupResult
 from .interp import InterpPlan
 
@@ -772,6 +773,12 @@ class RowLaneBackup:
     """
 
     def __init__(self, plan: InterpPlan, cost_terms, perm, *, row_axes: int):
+        with span("ocdp.rowlane.analyse"):
+            self._analyse(plan, cost_terms, perm, row_axes)
+
+    def _analyse(self, plan: InterpPlan, cost_terms, perm, row_axes: int):
+        """The host analysis of the taps, the cost split and the upload of
+        the kernel's arguments (``self.args``)."""
         d = plan.ndim
         if sorted(perm) != list(range(d)):
             raise ValueError(f"perm {perm} is not a permutation of 0..{d-1}")

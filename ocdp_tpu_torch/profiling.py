@@ -8,11 +8,18 @@ the times it prints are those of completed sweeps. :func:`cuda_time_ms`
 times device work with CUDA events. :func:`trace` records everything inside
 a block with ``torch.profiler`` and writes a Chrome trace (the JAX
 package's ``jax.profiler`` trace).
+
+:func:`span` names a layer of the port's own work in such a profile: the
+solves, builds, tap analyses and the engines' captures, runs of sweeps,
+checks and result casts record ``ocdp.*`` spans (``record_function``
+ranges on the profiler's clock, beside the kernels and copies they
+launch) while a profiler runs, and cost one flag check otherwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import os
 import statistics
 import time
@@ -21,7 +28,36 @@ from typing import Optional
 
 import torch
 
-__all__ = ["trace", "Trace", "SweepTimer", "sweep_callback", "cuda_time_ms"]
+__all__ = ["trace", "Trace", "SweepTimer", "sweep_callback", "cuda_time_ms",
+           "span", "solve_span"]
+
+# what :func:`span` returns while no profiler runs: one shared do-nothing
+# context, so an unprofiled span creates nothing
+_NO_SPAN = contextlib.nullcontext()
+_SOLVES = itertools.count(1)
+
+
+def span(name: str, args: Optional[str] = None):
+    """A ``torch.profiler.record_function(name, args)`` range while a
+    profiler runs (:func:`trace`, or any ``torch.profiler.profile``), else
+    a shared null context: with no profiler the port creates no
+    ``RecordFunction``, synchronizes nothing and launches nothing.
+
+    The port's names start with ``ocdp.`` and none nests inside itself::
+
+        with span("ocdp.engine.sweeps", str(n)):
+            ...
+    """
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name, args)
+    return _NO_SPAN
+
+
+def solve_span():
+    """The ``ocdp.solve`` span of one public solve; its ``args`` is the
+    process's solve number (every solve is counted, profiled or not), the
+    one identifier the spans inside it share."""
+    return span("ocdp.solve", str(next(_SOLVES)))
 
 
 class Trace:
