@@ -461,12 +461,15 @@ LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
 def reset_launch_counts() -> None:
     for fn in LAUNCHERS.values():
         fn.launches = 0
-        if hasattr(fn, "channel_sweeps"):
-            fn.channel_sweeps = 0
+        for counter in ("channel_sweeps", "cube_launches"):
+            if hasattr(fn, counter):
+                setattr(fn, counter, 0)
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in LAUNCHERS.items()}
+    """Each wrapper's launches, and B.3's of ``backup6d_sweep_cube``."""
+    return {**{name: fn.launches for name, fn in LAUNCHERS.items()},
+            "backup6d_cube": b6.backup6d_cuda.cube_launches}
 
 
 STAGE_NAMES = {fb.STAGE_ALL: "every record staged",
@@ -1320,9 +1323,12 @@ def rowlane_bound(bks) -> dict:
 ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
 # phase 13's and 14's one-device solves, which phases 28-29 are held to
 REF_6D = {}
-# the mangled names of the 6-D kernel's instantiations <ArgT, kTrack,
-# kRecompute>: B.3, B.4 with a uint8 argmin, B.5 with a uint8 argmin
-B3_KERNEL = "backup6d_sweepIiLb1ELb0E"
+# the mangled names of the 6-D kernels: B.3's backup6d_sweep_cube (no
+# c_rowact), then backup6d_sweep's instantiations <ArgT, kTrack,
+# kRecompute>: int32 tracking (B.3 on any other tap structure), B.4 with a
+# uint8 argmin, B.5 with a uint8 argmin
+B3_KERNEL = "backup6d_sweep_cubeILb0E"
+SWEEP_KERNEL = "backup6d_sweepIiLb1ELb0E"
 B4_KERNEL = "backup6d_sweepIhLb1ELb0E"
 B5_KERNEL = "backup6d_sweepIhLb1ELb1E"
 ATT_SERVE = dict(n_mesh_w=11, n_mesh_q=7)
@@ -1451,10 +1457,11 @@ def kernel_registers(name: str) -> str:
     raise RuntimeError(f"chip_smoke: {name} not in the build log")
 
 
-def tile_line(values, args) -> str:
+def tile_line(values, args, b3: bool = False) -> str:
     """The dynamic shared memory a 6-D launch on ``values`` asks for (the
-    tile planner's stage), its tile and its occupancy (the card's query)."""
-    plan, blocks = b6.tile_occupancy(values, args)
+    tile planner's stage; ``b3``: B.3's launch), its tile and its occupancy
+    (the card's query)."""
+    plan, blocks = b6.tile_occupancy(values, args, b3)
     return (f"{plan.smem_bytes} B dynamic shared memory a launch (tile "
             f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
             f"rows x {plan.width} lanes, {plan.threads} threads a block, "
@@ -1469,7 +1476,7 @@ def tile_edge_cases(bk, v) -> float:
     10-row block with no halo rows puts every row tile past both edges
     (0.0 there, as the plain version reads). Returns max |dV|."""
     v2 = v.reshape(bk.NW, bk.NE).contiguous()
-    plan, _ = b6.tile_occupancy(v2, bk.args)
+    plan, _ = b6.tile_occupancy(v2, bk.args, b3=True)
     top = int(plan.stage_rows(0).min())
     bottom = int(plan.stage_rows(plan.grid[0] - 1).max())
     print(f"{bk.NW}x{bk.NE} tiles {plan.rows} x {plan.lanes}: first row tile "
@@ -1534,8 +1541,9 @@ def attitude_phases(device) -> dict:
     print(f"attitude.solve_full(AttitudeConfig(n_mesh_w=11, n_mesh_q=10)): "
           f"{solve_s:.3f} s for {sweeps} sweeps incl. the build; launches "
           f"{counts}; peak device memory {peak_mib:.1f} MiB")
-    check(launches == sweeps,
-          f"backup6d launched {launches} times, want {sweeps}")
+    check(launches == sweeps and counts["backup6d_cube"] == sweeps,
+          f"backup6d launched {launches} times, {counts['backup6d_cube']} "
+          f"of them backup6d_sweep_cube, want {sweeps}")
     res = sol.result
     REF_6D["finite"] = res
     check(res.values.is_cuda and tuple(res.values.shape) == bk.state_shape
@@ -1643,17 +1651,25 @@ def attitude_phases(device) -> dict:
     v2 = v.reshape(bk.NW, bk.NE).contiguous()
     evals = bk.NW * bk.NE * bk.args.n_actions
     k_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, bk.args), inner=5)
+    # backup6d_sweep on the same inputs (the int32 tracking sweep through
+    # B.4's wrapper): the body every other structure and mode runs
+    s_ms = cuda_time_ms(lambda: b6.backup6d_flat_cuda(v2, bk.args), inner=5)
     p_ms = cuda_time_ms(lambda: b6.backup6d_plain(v2, bk.args))
+    b3_bound = backup6d_bound(bk)
     print(f"11^3x10^3 sweep, back to back: kernel {k_ms:.4f} ms "
-          f"({evals / k_ms * 1e3:.4e} evals/s), plain {p_ms:.4f} ms "
+          f"({evals / k_ms * 1e3:.4e} evals/s; bound {b3_bound['bound_ms']:.4f} "
+          f"ms, {b3_bound['bound_ms'] / k_ms:.1%} of it), backup6d_sweep on "
+          f"the same inputs {s_ms:.4f} ms, plain {p_ms:.4f} ms "
           f"({evals / p_ms * 1e3:.4e} evals/s)")
     print(f"full solve (5999 sweeps, incl. build) {solve_s:.3f} s, "
           f"{solve_s / sweeps * 1e3:.4f} ms per sweep; segmented with the "
           f"stop rule {seg_s:.3f} s; converged engine {conv_s:.3f} s; "
           f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
           f"memory of the main path {peak_mib:.1f} MiB")
-    print(f"backup6d_sweep<int32, tracking> (B.3): "
-          f"{kernel_registers(B3_KERNEL)}; {tile_line(v2, bk.args)}")
+    print(f"backup6d_sweep_cube (B.3): {kernel_registers(B3_KERNEL)}; "
+          f"{tile_line(v2, bk.args, b3=True)}")
+    print(f"backup6d_sweep<int32, tracking>: "
+          f"{kernel_registers(SWEEP_KERNEL)}; {tile_line(v2, bk.args)}")
     return {
         "name": "backup6d",
         "route": "cuda",
@@ -2682,7 +2698,7 @@ def wide_tap_phases(device) -> list:
                         ("<uint8, tracking> (B.4)", B4W_KERNEL),
                         ("<uint8, tracking, recompute> (B.5)", B5W_KERNEL)):
         print(f"backup6d_wide{label}: {kernel_registers(name)}")
-    print(f"backup6d_wide's launch: {tile_line(v2, bk6.args)}")
+    print(f"backup6d_wide's launch: {tile_line(v2, bk6.args, b3=True)}")
     k_ms, p_ms, rb = rl_ms[1]
     return [
         {"name": "rowlane_backup_wide_lanes", "route": "cuda",

@@ -130,6 +130,30 @@
 //   full sweep is generic. The engines combine the ranges by the first
 //   minimum in ascending order, so the combined argmin is the full sweep's.
 //
+// B.3's own body. At the attitude solve's tap structure (3 live taps (-1,
+// 0, 1) on every row and lane axis, all 27 row and 27 lane combos, digit
+// base 3) B.3's launch (backup6d_f32: a stored lane plan, the whole table,
+// every action, an int32 argmin) runs backup6d_sweep_cube, compiled for
+// that structure: no liveness, digit or tap test, no pick and no loop
+// bound is left to run time. A thread takes two cells, tile rows k and
+// k + 1 at one lane. Row combo (i0, i1, i2) of tile row k reads the stage
+// row k + i2 of its (i0, i1) row group, so for each lane combo the two
+// cells' six rows come from four stage rows, and each (t0, t1) lane pair's
+// three t2 lanes are three adjacent columns: 12 stage reads serve 18
+// terms. The stage rows' addresses sit in registers and each group's and
+// lane pair's offset is warp-uniform, so a read is one LDS. The lane phase
+// loops over t0 (its weights shifted a step a pass) and is straight-line
+// over (t1, t2) and the 9 row groups; the action phase (B, C and the 27
+// totals on registers, then the strict-'<' first minimum) is straight-line
+// per cell. Sums, their order and their -0.0 starts are backup6d_sweep's.
+// What bounds it (measured on an H100, PERF.md §6): its instruction
+// stream, about 3,000 instructions a cell, three quarters of them the
+// separately rounded products and sums (without its action phase it is
+// 19% faster, with half its stage reads 3%), at 123 registers and two
+// blocks of 256 an SM; 0.188 ms a reference sweep against backup6d_sweep's
+// 0.321. Its tiles are whole two-row chunks, planned over whole rounds of
+// the card's resident blocks (ops/backup6d.py::plan_tiles).
+//
 // Two kernels take the tap structures. backup6d_sweep, every mode above,
 // takes at most 3 live taps an axis (kMaxTaps): its row combos are the slots
 // of a 3 x 3 x 3 cube, summed without a branch, and its weights sit in
@@ -675,6 +699,224 @@ backup6d_sweep(const float* __restrict__ values,
   }
 }
 
+// The kernel for the attitude solve's own tap structure (see the head of
+// this file): B.3's launch of the full (-1, 0, 1) cube at digit base 3.
+// Thread (q, cl) of a tile takes the kCubeCells cells of tile rows q
+// kCubeCells + k at lane cl. Its lane phase runs over the lane taps t0 in
+// a loop and is one straight line over the (t1, t2) lane taps and the 9
+// (i0, i1) row groups; its action phase is one straight line per cell.
+// kRowAct: c_rowact is given. tp.c_act holds -0.0 where the action cost is
+// 0, so that the add is unconditional and exact (x + -0.0 == x for every
+// x, as the plain version's skipped add).
+constexpr int kCubeCells = 2;                // CUBE_CELLS in ops/backup6d.py
+constexpr int kCubeThreads = 256;            // CUBE_THREADS
+constexpr int kCubeRows = kCubeCells + 2;    // stage rows a group reads
+
+template <bool kRowAct>
+__global__ void __launch_bounds__(kCubeThreads, 2)
+backup6d_sweep_cube(const float* __restrict__ values,
+                    const int* __restrict__ row_off,
+                    const float* __restrict__ row_frac,
+                    const int* __restrict__ lane_off0,
+                    const float* __restrict__ lane_frac0,
+                    const int* __restrict__ lane_off1,
+                    const float* __restrict__ lane_frac1,
+                    const int* __restrict__ lane_off2,
+                    const float* __restrict__ lane_frac2,
+                    const float* __restrict__ c_row,
+                    const float* __restrict__ c_lane,
+                    const float* __restrict__ c_rowact,
+                    const float* __restrict__ c_rowlane,
+                    float* __restrict__ out_v, int* __restrict__ out_a,
+                    int n_rows, int n_lanes,
+                    const __grid_constant__ Taps6 tp,
+                    const __grid_constant__ Tiles tl) {
+  extern __shared__ __align__(16) float stage[];
+  const int r0 = blockIdx.x * tl.rows;
+  const int c0 = blockIdx.y * tl.lanes;
+  stage_tile(stage, values, tl, Block{n_rows, 0, 0, kCube}, r0,
+             c0 - tl.reach_lo, n_lanes);
+  // the row tap weights of each tile row: w_k[i][d] at (k * 3 + i) * 3 + d
+  float* row_w = stage + tl.weights_at;
+  const long long plane = static_cast<long long>(n_rows) * kCube;
+  for (int j = threadIdx.x; j < tl.rows * kRowWeights; j += blockDim.x) {
+    const int rr = j / kRowWeights, k = (j / 9) % 3, i = (j / 3) % 3;
+    const int d = j % 3, r = r0 + rr;
+    float w = 0.0f;
+    if (r < n_rows) {
+      const int a = k == 0 ? d * 9 : (k == 1 ? d * 3 : d);
+      const long long at = k * plane + static_cast<long long>(r) * kCube + a;
+      w = tap_weight(row_off[at], row_frac[at], i - 1);
+    }
+    row_w[j] = w;
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+
+  const int chunks = tl.rows / kCubeCells * tl.lanes;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const int q = i / tl.lanes;
+    const int cl = i - q * tl.lanes;
+    const int rr0 = q * kCubeCells;
+    const int c = c0 + cl;
+    if (r0 + rr0 >= n_rows || c >= n_lanes) continue;
+
+    // each cell's lane tap weights ew[k][axis][tap]; a cell past the
+    // table's last row takes zeros and writes nothing
+    float ew[kCubeCells][3][3];
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+      const int r = r0 + rr0 + k;
+      int o[3] = {0, 0, 0};
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      if (r < n_rows) {
+        const long long cell = static_cast<long long>(r) * n_lanes + c;
+        o[0] = lane_off0[cell], o[1] = lane_off1[cell], o[2] = lane_off2[cell];
+        f[0] = lane_frac0[cell], f[1] = lane_frac1[cell];
+        f[2] = lane_frac2[cell];
+      }
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          ew[k][ax][t] = tap_weight(o[ax], f[ax], t - 1);
+        }
+      }
+    }
+
+    // lane phase: A[k][p] of cell k and row combo p = (i0 * 3 + i1) * 3 +
+    // i2, summed over the lane combos e = (t0 * 3 + t1) * 3 + t2 in order,
+    // each sum started at -0.0. Row group g = (i0, i1) stages its rows at
+    // row_base[3 g] + 4 i2 width, so cell k's row i2 is the group's stage
+    // row k + i2 from the chunk's first: one read serves each (k, i2) of
+    // the same stage row. The stage rows' addresses stay in registers, the
+    // group's and the lane pair's offsets are uniform.
+    const char* rowp[kCubeRows];
+#pragma unroll
+    for (int s = 0; s < kCubeRows; ++s) {
+      rowp[s] = reinterpret_cast<const char*>(
+          stage + (rr0 + s) * tl.width + cl + tl.reach_lo);
+    }
+    float A[kCubeCells][kCube];
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+      for (int p = 0; p < kCube; ++p) A[k][p] = -0.0f;
+    }
+    float w0[kCubeCells][3];   // lane tap t0's weights, shifted a step a pass
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+      for (int t = 0; t < 3; ++t) w0[k][t] = ew[k][0][t];
+    }
+#pragma unroll 1
+    for (int e0 = 0; e0 < 3; ++e0) {
+#pragma unroll
+      for (int e1 = 0; e1 < 3; ++e1) {
+        const int e01 = e0 * 3 + e1;
+        float W[kCubeCells][3];
+#pragma unroll
+        for (int k = 0; k < kCubeCells; ++k) {
+          const float w01 = __fmul_rn(w0[k][0], ew[k][1][e1]);
+#pragma unroll
+          for (int t2 = 0; t2 < 3; ++t2) {
+            W[k][t2] = __fmul_rn(w01, ew[k][2][t2]);
+          }
+        }
+#pragma unroll
+        for (int g = 0; g < 9; ++g) {
+          const int off = tl.row_base[g * 3] + 4 * tp.lane_delta[e01 * 3 + 1];
+          float v[kCubeRows][3];
+#pragma unroll
+          for (int s = 0; s < kCubeRows; ++s) {
+#pragma unroll
+            for (int t2 = 0; t2 < 3; ++t2) {
+              v[s][t2] = *reinterpret_cast<const float*>(rowp[s] + off +
+                                                         4 * (t2 - 1));
+            }
+          }
+#pragma unroll
+          for (int t2 = 0; t2 < 3; ++t2) {
+#pragma unroll
+            for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+              for (int i2 = 0; i2 < 3; ++i2) {
+                float& a = A[k][g * 3 + i2];
+                a = __fadd_rn(a, __fmul_rn(W[k][t2], v[k + i2][t2]));
+              }
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kCubeCells; ++k) {
+        w0[k][0] = w0[k][1];
+        w0[k][1] = w0[k][2];
+      }
+    }
+
+    // action phase of each cell: B over i2, C over i1, the totals over i0,
+    // then the strict-'<' first minimum over a = (d0 * 3 + d1) * 3 + d2
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+      const int r = r0 + rr0 + k;
+      if (r >= n_rows) break;
+      const float* w_r = row_w + (rr0 + k) * kRowWeights;
+      float tot[kCube];
+#pragma unroll
+      for (int i0 = 0; i0 < 3; ++i0) {
+        float B[3][3], C[3][3];
+#pragma unroll
+        for (int i1 = 0; i1 < 3; ++i1) {
+#pragma unroll
+          for (int d2 = 0; d2 < 3; ++d2) {
+            const int p = (i0 * 3 + i1) * 3;
+            float acc = __fmul_rn(w_r[18 + d2], A[k][p]);
+            acc = __fadd_rn(acc, __fmul_rn(w_r[21 + d2], A[k][p + 1]));
+            B[i1][d2] = __fadd_rn(acc, __fmul_rn(w_r[24 + d2], A[k][p + 2]));
+          }
+        }
+#pragma unroll
+        for (int d1 = 0; d1 < 3; ++d1) {
+#pragma unroll
+          for (int d2 = 0; d2 < 3; ++d2) {
+            float cc = __fmul_rn(w_r[9 + d1], B[0][d2]);
+            cc = __fadd_rn(cc, __fmul_rn(w_r[12 + d1], B[1][d2]));
+            C[d1][d2] = __fadd_rn(cc, __fmul_rn(w_r[15 + d1], B[2][d2]));
+          }
+        }
+#pragma unroll
+        for (int d0 = 0; d0 < 3; ++d0) {
+#pragma unroll
+          for (int q9 = 0; q9 < 9; ++q9) {
+            const float term = __fmul_rn(w_r[i0 * 3 + d0], C[q9 / 3][q9 % 3]);
+            float& t = tot[d0 * 9 + q9];
+            t = i0 == 0 ? term : __fadd_rn(t, term);
+          }
+        }
+      }
+      float best = 0.0f;
+      int best_a = 0;
+#pragma unroll
+      for (int a = 0; a < kCube; ++a) {
+        float t = __fadd_rn(tot[a], tp.c_act[a]);
+        if constexpr (kRowAct) {
+          t = __fadd_rn(t, c_rowact[static_cast<long long>(r) * kCube + a]);
+        }
+        if (a == 0 || t < best) {   // strict: the first minimum wins
+          best = t;
+          best_a = a;
+        }
+      }
+      const long long cell = static_cast<long long>(r) * n_lanes + c;
+      float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
+      out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
+      out_v[cell] = out;
+      out_a[cell] = best_a;
+    }
+  }
+}
+
 // The kernel for any taps an axis (see the head of this file): the modes,
 // the stage and the sums of backup6d_sweep, by row combo j and lane combo e
 // in sorted tap order.
@@ -1056,13 +1298,15 @@ struct TileArgs {
 
 // The planner's int32 array (ops/backup6d.py::TilePlan.ints, TILE_INTS =
 // kTileHead + 4 kWideCombos + 4 ints): R, L, reach_lo, reach_hi, width,
-// staged rows, groups, the row weights a tile row keeps, wide (at kWideAt;
-// 1: backup6d_wide's plan); g_delta, g_rows, g_slot (kWideCombos each);
-// the stage slot of each row combo (kWideCombos; backup6d_sweep: by cube
-// slot p, -1 where not live; backup6d_wide: by combo); the grid's row and
-// lane tiles, the shared-memory bytes, the threads of a block.
+// staged rows, groups, the row weights a tile row keeps, the plan's kernel
+// (at kWideAt: kSweepKind, kWideKind or kCubeKind); g_delta, g_rows, g_slot
+// (kWideCombos each); the stage slot of each row combo (kWideCombos;
+// backup6d_sweep and backup6d_sweep_cube: by cube slot p, -1 where not
+// live; backup6d_wide: by combo); the grid's row and lane tiles, the
+// shared-memory bytes, the threads of a block.
 constexpr int kTileHead = 9;
 constexpr int kWideAt = 8;
+constexpr int kSweepKind = 0, kWideKind = 1, kCubeKind = 2;
 
 // The fields of the planner's array that both kernels read into ta, with
 // the checks that do not depend on the tap structure: the grid must cover
@@ -1072,7 +1316,7 @@ constexpr int kWideAt = 8;
 template <bool kWide>
 const int* read_tiles(TileArgs<kWide>& ta, const int* in, const float* values,
                       int n_rows, int n_lanes, int max_groups,
-                      int row_weights) {
+                      int row_weights, int kind) {
   const int R = in[0], L = in[1], reach_lo = in[2], reach_hi = in[3];
   const int width = in[4], n_staged = in[5], n_groups = in[6];
   const int* g_delta = in + kTileHead;
@@ -1083,7 +1327,7 @@ const int* read_tiles(TileArgs<kWide>& ta, const int* in, const float* values,
   const long long grid_rows = tail[0], grid_lanes = tail[1];
   const long long smem = tail[2];
   const int threads = tail[3];
-  if (in[7] != row_weights || in[kWideAt] != (kWide ? 1 : 0) ||
+  if (in[7] != row_weights || in[kWideAt] != kind ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
       L < 32 || L % 32 != 0 || reach_lo < 0 || reach_hi < 0 ||
       width != L + reach_lo + reach_hi || n_groups < 1 ||
@@ -1153,9 +1397,10 @@ bool rows_staged(const TilesT& tl, int s0, int delta) {
 // structure: every read of every cell must lie in its block's stage. False
 // when the kernel cannot take the plan.
 bool fill_tiles(TileArgs<false>& ta, const int* in, const Taps6& tp,
-                const float* values, int n_rows, int n_lanes) {
-  const int* slot =
-      read_tiles(ta, in, values, n_rows, n_lanes, kMaxGroups, kRowWeights);
+                const float* values, int n_rows, int n_lanes,
+                int kind = kSweepKind) {
+  const int* slot = read_tiles(ta, in, values, n_rows, n_lanes, kMaxGroups,
+                               kRowWeights, kind);
   if (slot == nullptr) return false;
   const int reach_lo = ta.tl.reach_lo;
   const int reach_hi = ta.tl.width - ta.tl.lanes - reach_lo;
@@ -1179,7 +1424,7 @@ bool fill_tiles_wide(TileArgs<true>& ta, const int* in, const TapsW& tp,
                      int n_lanes) {
   const int* slot =
       read_tiles(ta, in, values, n_rows, n_lanes, kWideCombos,
-                 kComboWeights * tp.n_row_combos);
+                 kComboWeights * tp.n_row_combos, kWideKind);
   if (slot == nullptr) return false;
   ta.tl.row_weights = kComboWeights * tp.n_row_combos;
   const int reach_lo = ta.tl.reach_lo;
@@ -1198,6 +1443,20 @@ bool fill_tiles_wide(TileArgs<true>& ta, const int* in, const TapsW& tp,
   return true;
 }
 
+// A kernel's stage: a stage above 48 KB needs the opt-in, and two stages
+// share an SM's 228 KB.
+template <typename KernelT>
+cudaError_t allow_stage(KernelT kernel, int smem_bytes) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  }
+  return err;
+}
+
 template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
 constexpr auto kernel_of() {
   if constexpr (kWide) {
@@ -1212,14 +1471,7 @@ int launch(const SweepIo& io, const TapsOf<kWide>& tp, const LaneRec& rec,
            const Block& blk, const TileArgs<kWide>& ta, int n_rows,
            int n_lanes, int n_actions, void* stream) {
   auto kernel = kernel_of<ArgT, kTrack, kRecompute, kWide>();
-  // a stage above 48 KB needs the opt-in; two stages share an SM's 228 KB
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, ta.smem_bytes);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxShared);
-  }
+  const cudaError_t err = allow_stage(kernel, ta.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<ta.grid, ta.threads, ta.smem_bytes,
            static_cast<cudaStream_t>(stream)>>>(
@@ -1264,7 +1516,7 @@ template <bool kRecompute>
 int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
           const LaneRec& rec, const Block& blk, int n_rows, int n_lanes,
           int argmin_bytes, int track, void* stream) {
-  if (tiles[kWideAt] == 0) {
+  if (tiles[kWideAt] == kSweepKind) {
     Taps6 tp;
     TileArgs<false> ta;
     if (!fill_taps(tp, in) ||
@@ -1277,7 +1529,7 @@ int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
   }
   TapsW tp;
   TileArgs<true> ta;
-  if (tiles[kWideAt] != 1 || !fill_taps_wide(tp, in) ||
+  if (tiles[kWideAt] != kWideKind || !fill_taps_wide(tp, in) ||
       !fill_tiles_wide(ta, tiles, tp, in, io.values, n_rows, n_lanes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1286,22 +1538,86 @@ int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
                                        stream);
 }
 
+// Whether tp is backup6d_sweep_cube's structure: 3 live taps (-1, 0, 1) on
+// every row and lane axis, every row combo and the 27 lane combos live in
+// sorted order, digit base 3.
+bool full_cube(const Taps6& tp) {
+  if (tp.digits != 3 || tp.row_live != (1 << kCube) - 1 ||
+      tp.n_lane_combos != kCube) {
+    return false;
+  }
+  for (int k = 0; k < 3; ++k) {
+    if (tp.n_row_taps[k] != kMaxTaps) return false;
+    for (int i = 0; i < kMaxTaps; ++i) {
+      if (tp.row_taps[k][i] != i - 1 || tp.lane_taps[k][i] != i - 1) {
+        return false;
+      }
+    }
+  }
+  for (int e = 0; e < kCube; ++e) {
+    if (tp.lane_idx[e][0] != e / 9 || tp.lane_idx[e][1] != (e / 3) % 3 ||
+        tp.lane_idx[e][2] != e % 3) {
+      return false;
+    }
+  }
+  return true;
+}
+
+// B.3's sweep through backup6d_sweep_cube: the full cube's tap structure
+// and the planner's tiles, checked as fill_tiles checks them and besides:
+// whole chunks of kCubeCells rows a tile, kCubeThreads threads, each row
+// group's three t2 rows consecutive in the stage. cudaErrorInvalidValue
+// when the kernel cannot take the plan.
+int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
+               int n_rows, int n_lanes, void* stream) {
+  Taps6 tp;
+  TileArgs<false> ta;
+  if (!fill_taps(tp, in) || !full_cube(tp) ||
+      !fill_tiles(ta, tiles, tp, io.values, n_rows, n_lanes, kCubeKind) ||
+      ta.tl.rows % kCubeCells != 0 || ta.threads != kCubeThreads) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int g = 0; g < kMaxGroups; ++g) {
+    for (int i2 = 1; i2 < kMaxTaps; ++i2) {
+      if (ta.tl.row_base[3 * g + i2] !=
+          ta.tl.row_base[3 * g] + 4 * i2 * ta.tl.width) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      }
+    }
+  }
+  // the action costs as the kernel adds them: -0.0 for a skipped 0
+  for (int a = 0; a < kCube; ++a) {
+    if (tp.c_act[a] == 0.0f) tp.c_act[a] = -0.0f;
+  }
+  auto kernel = io.c_rowact != nullptr ? backup6d_sweep_cube<true>
+                                       : backup6d_sweep_cube<false>;
+  const cudaError_t err = allow_stage(kernel, ta.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ta.grid, ta.threads, ta.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      io.values, io.row_off, io.row_frac, io.lane_off[0], io.lane_frac[0],
+      io.lane_off[1], io.lane_frac[1], io.lane_off[2], io.lane_frac[2],
+      io.c_row, io.c_lane, io.c_rowact, io.c_rowlane, io.out_v,
+      static_cast<int*>(io.out_a), n_rows, n_lanes, tp, ta.tl);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Resident blocks an SM of one instantiation at this block size and stage.
-template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
-int blocks_per_sm(int threads, int smem_bytes) {
-  auto kernel = kernel_of<ArgT, kTrack, kRecompute, kWide>();
+template <typename KernelT>
+int blocks_of_kernel(KernelT kernel, int threads, int smem_bytes) {
   int blocks = 0;
-  if (cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           smem_bytes) != cudaSuccess ||
-      cudaFuncSetAttribute(kernel,
-                           cudaFuncAttributePreferredSharedMemoryCarveout,
-                           cudaSharedmemCarveoutMaxShared) != cudaSuccess ||
+  if (allow_stage(kernel, smem_bytes) != cudaSuccess ||
       cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &blocks, kernel, threads, smem_bytes) != cudaSuccess) {
     return -1;
   }
   return blocks;
+}
+
+template <typename ArgT, bool kTrack, bool kRecompute, bool kWide>
+int blocks_per_sm(int threads, int smem_bytes) {
+  return blocks_of_kernel(kernel_of<ArgT, kTrack, kRecompute, kWide>(),
+                          threads, smem_bytes);
 }
 
 template <bool kWide>
@@ -1385,6 +1701,9 @@ extern "C" int backup6d_f32(
                       {lane_off0, lane_off1, lane_off2},
                       {lane_frac0, lane_frac1, lane_frac2},
                       c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
+  if (tiles[kWideAt] == kCubeKind) {
+    return sweep_cube(io, in, tiles, n_rows, n_lanes, stream);
+  }
   return sweep<false>(io, in, tiles, LaneRec{}, full_block(n_rows, n_actions),
                       n_rows, n_lanes, 4, 1, stream);
 }
@@ -1517,17 +1836,25 @@ extern "C" int backup6d_smem_limit(void) {
 }
 
 // Resident blocks an SM of the kernel of one mode (argmin_bytes 4 or 1,
-// track, recompute; wide: backup6d_wide) at threads a block and smem_bytes
-// of stage, on the current device: the occupancy of a launch; -1 on an
-// error.
+// track, recompute; kind: the plan's kernel, 0 backup6d_sweep, 1
+// backup6d_wide, 2 backup6d_sweep_cube, B.3's mode alone) at threads a
+// block and smem_bytes of stage, on the current device: the occupancy of a
+// launch; -1 on an error.
 extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
-                                      int recompute, int wide, int threads,
+                                      int recompute, int kind, int threads,
                                       int smem_bytes) {
   if (argmin_bytes != 4 && argmin_bytes != 1) return -1;
   const int mode = (argmin_bytes == 1 ? 4 : 0) + (track ? 2 : 0) +
                    (recompute ? 1 : 0);
-  return wide ? blocks_of_mode<true>(mode, threads, smem_bytes)
-              : blocks_of_mode<false>(mode, threads, smem_bytes);
+  switch (kind) {
+    case kSweepKind: return blocks_of_mode<false>(mode, threads, smem_bytes);
+    case kWideKind: return blocks_of_mode<true>(mode, threads, smem_bytes);
+    case kCubeKind:
+      return mode == 2 ? blocks_of_kernel(backup6d_sweep_cube<false>,
+                                          threads, smem_bytes)
+                       : -1;
+    default: return -1;
+  }
 }
 
 extern "C" const char* backup6d_error_string(int err) {

@@ -25,7 +25,10 @@ bounds it, is ``csrc/backup6d.cu``. It holds two kernels for every mode:
 taps up to 40 live row and 40 live lane combos, the TPU kernel's
 ``max_flat_taps`` (a 4 x 3 x 3 row structure: 36 combos); the tile plan
 (:attr:`TilePlan.wide`) says which a launch runs, and every wrapper reaches
-both.
+both. Besides, B.3's launch of the attitude solve's own structure, the
+full (-1, 0, 1) tap cube at action digit base 3 (:func:`cube_body`), runs
+``backup6d_sweep_cube``, a body compiled for that structure
+(:attr:`TilePlan.cube_body`; counted in ``backup6d_cuda.cube_launches``).
 
 The state axes split into 3 ROW axes, whose next states depend on the action
 (attitude: omega1..3), and 3 LANE axes, whose next states do not but may
@@ -82,6 +85,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -99,7 +103,7 @@ __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain",
            "block_args", "slice_args", "digit_path", "backup6d_block_cuda",
            "backup6d_slice_cuda", "backup6d_block", "TilePlan",
-           "plan_tiles", "tile_occupancy"]
+           "plan_tiles", "tile_occupancy", "cube_body"]
 
 # the kernels' fixed capacities (csrc/backup6d.cu): backup6d_sweep takes
 # at most MAX_TAPS live taps per row or lane axis (kMaxTaps; so at most 27
@@ -486,6 +490,15 @@ COMBO_WEIGHTS = 3 * MAX_DIGITS
 MAX_TILE_ROWS = 16
 MAX_TILE_LANES = 2048
 SM_THREADS = 512
+# backup6d_sweep_cube (kCubeCells, kCubeThreads): the cells a thread takes,
+# consecutive tile rows at one lane, and its block, two an SM; the kernels'
+# plan kinds at TilePlan.ints()[8] (kSweepKind, kWideKind, kCubeKind)
+CUBE_CELLS = 2
+CUBE_THREADS = 256
+SWEEP_KIND, WIDE_KIND, CUBE_KIND = 0, 1, 2
+# the tap structure backup6d_sweep_cube is compiled for
+CUBE_TAPS = (-1, 0, 1)
+FULL_CUBE = tuple(itertools.product(CUBE_TAPS, repeat=3))
 # an H100 SM's shared memory and what the card reserves of it per block
 SMEM_PER_SM = 233_472
 SMEM_RESERVED = 1_024
@@ -495,6 +508,13 @@ SMEM_RESERVED = 1_024
 # 30^3 x 16^3 on an H100; PERF.md §6)
 STAGE_COST = 6
 ONE_BLOCK_COST = 1.2
+# backup6d_sweep_cube's plans count whole rounds of the card's resident
+# blocks (two on each of an H100's SM_COUNT SMs), and each staged row as a
+# loop trip of every thread at STAGE_ROW_COST (fitted to tile sweeps of the
+# cube body at 7^3 x 5^3, 11^3 x 10^3 and 13^3 x 12^3 on an H100; PERF.md
+# §6)
+SM_COUNT = 132
+STAGE_ROW_COST = 10
 
 
 class TilePlan(NamedTuple):
@@ -512,6 +532,10 @@ class TilePlan(NamedTuple):
     plan of ``backup6d_wide`` (a tap structure past ``backup6d_sweep``'s 3
     taps an axis), whose stage slots go by row combo; else ``cube`` is
     ``slots`` by cube slot p = (i0 * 3 + i1) * 3 + i2 (-1: not live).
+    ``cube_body``: the plan of ``backup6d_sweep_cube`` (B.3's launch of
+    the full tap cube, :func:`cube_body`), whose thread takes
+    ``CUBE_CELLS`` consecutive rows of a tile at one lane: ``rows`` is a
+    multiple of ``CUBE_CELLS``, ``threads`` is ``CUBE_THREADS``.
     """
 
     rows: int
@@ -527,6 +551,13 @@ class TilePlan(NamedTuple):
     n_table_rows: int
     table_row0: int
     wide: bool
+    cube_body: bool = False
+
+    @property
+    def kind(self) -> int:
+        """The plan's kernel, as the kernel's array holds it."""
+        return (WIDE_KIND if self.wide else
+                CUBE_KIND if self.cube_body else SWEEP_KIND)
 
     @property
     def row_weights(self) -> int:
@@ -564,13 +595,13 @@ class TilePlan(NamedTuple):
 
     def ints(self) -> np.ndarray:
         """The kernel's int32 array (``read_tiles`` in csrc/backup6d.cu):
-        9 ints, the groups' deltas, rows and first stage rows (MAX_COMBOS
-        each), the stage slots (by combo when ``wide``, else by cube slot;
-        -1 past them), 4 ints."""
+        9 ints (the last :attr:`kind`), the groups' deltas, rows and first
+        stage rows (MAX_COMBOS each), the stage slots (by combo when
+        ``wide``, else by cube slot; -1 past them), 4 ints."""
         out = np.zeros(TILE_INTS, np.int32)
         out[:9] = (self.rows, self.lanes, self.reach_lo, self.reach_hi,
                    self.width, self.n_staged, len(self.groups),
-                   self.row_weights, int(self.wide))
+                   self.row_weights, self.kind)
         first = 0
         for g, (d, n) in enumerate(self.groups):
             out[[9 + g, 9 + MAX_COMBOS + g, 9 + 2 * MAX_COMBOS + g]] = \
@@ -611,60 +642,105 @@ def _lane_reach(lane_combos, lane_shape) -> tuple:
     return (-(-max(-min(dl), 0) // 4) * 4, -(-max(max(dl), 0) // 4) * 4)
 
 
-def plan_tiles(args: Backup6DArgs, n_table_rows: int,
-               smem_limit: int) -> TilePlan:
+def plan_tiles(args: Backup6DArgs, n_table_rows: int, smem_limit: int,
+               b3: bool = False) -> TilePlan:
     """The tiles of one sweep of ``args`` over a table of ``n_table_rows``
     rows, on a card that lets a block ask for ``smem_limit`` bytes of shared
     memory: the R x L tile (R <= MAX_TILE_ROWS, L a multiple of 32 up to
     MAX_TILE_LANES) whose stage fits half an SM (two blocks of 256 threads)
     or, failing that, one SM (one block of 512), with the least modelled
     cost: ``STAGE_COST`` a staged value plus one a stage read, over the
-    padded cells, times ``ONE_BLOCK_COST`` for one block an SM. The plan
+    padded cells, times ``ONE_BLOCK_COST`` for one block an SM (the cube
+    body: over whole rounds of resident blocks, with ``STAGE_ROW_COST``
+    a thread and staged row). The plan
     is ``backup6d_wide``'s (:attr:`TilePlan.wide`) when an axis has more
-    than ``MAX_TAPS`` live taps. Raises ``ValueError`` when no tile
-    fits."""
-    return _tiles(_plan_key(args), n_table_rows, smem_limit)[0]
+    than ``MAX_TAPS`` live taps. ``b3``: the launch is B.3's
+    (:func:`backup6d_cuda`); where :func:`cube_body` holds too, the plan is
+    ``backup6d_sweep_cube``'s (:attr:`TilePlan.cube_body`: rows a multiple
+    of ``CUBE_CELLS``, two blocks of ``CUBE_THREADS`` an SM), or, where no
+    such tile fits, ``backup6d_sweep``'s. Raises ``ValueError`` when no
+    tile fits."""
+    return _tiles(_plan_key(args, b3), n_table_rows, smem_limit)[0]
 
 
-def _plan_key(args: Backup6DArgs) -> tuple:
+def cube_body(args: Backup6DArgs) -> bool:
+    """Whether the tap structure and the launch mode of ``args`` are the
+    ones ``backup6d_sweep_cube`` is compiled for: 3 live taps (-1, 0, 1) on
+    every row and lane axis, all 27 row and 27 lane combos live, action
+    digit base 3; a stored lane plan swept whole (no halo) over every
+    action. B.3's launch (:func:`backup6d_cuda`) of such inputs runs it;
+    every other launch, and every other structure, runs ``backup6d_sweep``
+    or ``backup6d_wide``."""
+    return (args.action_digits == 3 and args.lanes is None
+            and tuple(args.halo) == (0, 0) and args.actions is None
+            and _full_cube(args.w_taps, args.row_combos, args.lane_combos))
+
+
+@functools.lru_cache(maxsize=64)
+def _full_cube(w_taps, row_combos, lane_combos) -> bool:
+    """The tap structure half of :func:`cube_body`, once per structure (a
+    launch pays a lookup)."""
+    def canon(combos):
+        return tuple(tuple(int(t) for t in c) for c in combos)
+
+    return (canon(w_taps) == (CUBE_TAPS,) * 3
+            and canon(row_combos) == FULL_CUBE
+            and canon(lane_combos) == FULL_CUBE)
+
+
+def _plan_key(args: Backup6DArgs, b3: bool = False) -> tuple:
     """What the planner reads of ``args``: the tap structure, the shapes,
-    the output rows and the halo."""
+    the output rows and the halo, and whether the launch runs
+    ``backup6d_sweep_cube``."""
     return (args.row_combos, args.lane_combos, args.w_taps,
             tuple(args.row_shape), tuple(args.lane_shape), args.n_rows,
-            tuple(args.halo))
+            tuple(args.halo), b3 and cube_body(args))
 
 
 @functools.lru_cache(maxsize=256)
 def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
     """``(plan, plan.ints())`` of :func:`plan_tiles`, once per key."""
-    row_combos, lane_combos, w_taps, row_shape, lane_shape, n_rows, halo = key
+    (row_combos, lane_combos, w_taps, row_shape, lane_shape, n_rows, halo,
+     body) = key
     if n_table_rows != halo[0] + n_rows + halo[1]:
         raise ValueError(f"a table of {n_table_rows} rows for {n_rows} "
                          f"output rows and halo {halo}")
     ne = int(np.prod(lane_shape))
     reach_lo, reach_hi = _lane_reach(lane_combos, lane_shape)
-    reads = len(row_combos) * len(lane_combos)
     wide = _wide(w_taps, lane_combos)
     row_weights = COMBO_WEIGHTS * len(row_combos) if wide else ROW_WEIGHTS
+    # a work item: one cell, or a cube thread's CUBE_CELLS cells, whose
+    # reads its row groups share
+    step = CUBE_CELLS if body else 1
+    reads = (3 * 9 * 9 * (CUBE_CELLS + 2) if body
+             else len(row_combos) * len(lane_combos))
     best = None
-    for blocks in (2, 1):
+    for blocks in ((2,) if body else (2, 1)):
         budget = min(smem_limit, SMEM_PER_SM // blocks - SMEM_RESERVED)
-        threads = SM_THREADS // blocks
+        threads = CUBE_THREADS if body else SM_THREADS // blocks
         for lanes in range(32, min(-(-ne // 32) * 32, MAX_TILE_LANES) + 1,
                            32):
             width = lanes + reach_lo + reach_hi
-            for rows in range(1, MAX_TILE_ROWS + 1):
+            for rows in range(step, MAX_TILE_ROWS + 1, step):
                 staged = sum(n for _, n in _row_groups(row_combos, row_shape,
                                                        rows))
                 if 4 * (staged * width + rows * row_weights) > budget:
                     break
                 tiles = -(-n_rows // rows) * -(-ne // lanes)
-                passes = -(-rows * lanes // threads)
-                cost = tiles * (STAGE_COST * staged * width
-                                + reads * passes * threads)
-                cost *= 1.0 if blocks == 2 else ONE_BLOCK_COST
+                passes = -(-(rows // step) * lanes // threads)
+                if body:
+                    cost = -(-tiles // (2 * SM_COUNT)) * (
+                        STAGE_COST * staged * width
+                        + STAGE_ROW_COST * staged * threads
+                        + reads * passes * threads)
+                else:
+                    cost = tiles * (STAGE_COST * staged * width
+                                    + reads * passes * threads)
+                    cost *= 1.0 if blocks == 2 else ONE_BLOCK_COST
                 if best is None or cost < best[0]:
                     best = (cost, rows, lanes, threads)
+    if best is None and body:
+        return _tiles(key[:-1] + (False,), n_table_rows, smem_limit)
     if best is None:
         raise ValueError(f"no tile's stage of a {ne}-lane table with lane "
                          f"reach ({reach_lo}, {reach_hi}) fits {smem_limit} "
@@ -691,7 +767,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                     reach_hi=reach_hi, groups=groups, slots=tuple(slots),
                     cube=tuple(cube), threads=threads, n_rows=n_rows,
                     n_lanes=ne, n_table_rows=n_table_rows,
-                    table_row0=halo[0], wide=wide)
+                    table_row0=halo[0], wide=wide, cube_body=body)
     ints = plan.ints()
     ints.flags.writeable = False
     return plan, ints
@@ -717,26 +793,29 @@ def _smem_limit(lib, device: torch.device) -> int:
     return _SMEM_LIMIT[dev]
 
 
-def _tile_ints(lib, values: torch.Tensor, args: Backup6DArgs) -> np.ndarray:
-    """The planner's array for one launch on ``values``'s device."""
-    return _tiles(_plan_key(args), values.shape[0],
-                  _smem_limit(lib, values.device))[1]
+def _tiles_for(lib, values: torch.Tensor, args: Backup6DArgs,
+               b3: bool = False) -> tuple:
+    """``(plan, plan.ints())`` for one launch on ``values``'s device."""
+    return _tiles(_plan_key(args, b3), values.shape[0],
+                  _smem_limit(lib, values.device))
 
 
-def tile_occupancy(values: torch.Tensor, args: Backup6DArgs) -> tuple:
+def tile_occupancy(values: torch.Tensor, args: Backup6DArgs,
+                   b3: bool = False) -> tuple:
     """``(plan, blocks)``: the :class:`TilePlan` a launch of the kernel on
-    the CUDA tensor ``values`` takes, and how many of its blocks an SM of
-    that card holds (the CUDA occupancy query for the launch's mode, block
+    the CUDA tensor ``values`` takes (``b3``: B.3's launch,
+    :func:`backup6d_cuda`), and how many of its blocks an SM of that card
+    holds (the CUDA occupancy query for the launch's kernel, mode, block
     size and stage)."""
     from .. import _build
 
     lib = _build.load()
-    plan = plan_tiles(args, values.shape[0], _smem_limit(lib, values.device))
+    plan = _tiles_for(lib, values, args, b3)[0]
     adt, track = _mode_ints(args)
     with torch.cuda.device(values.device):
         blocks = lib.backup6d_blocks_per_sm(adt, track,
                                             int(args.lanes is not None),
-                                            int(plan.wide), plan.threads,
+                                            plan.kind, plan.threads,
                                             plan.smem_bytes)
     return plan, blocks
 
@@ -770,16 +849,27 @@ def _outputs(values, args: Backup6DArgs, out_v, out_a):
 
 
 def _tap_arrays(args: Backup6DArgs):
-    """The host arrays of the tap structure the C entries take."""
+    """The host arrays of the tap structure the C entries take, made once
+    per structure and costs (a launch pays a lookup: the eager 6-D loop's
+    host work a launch is about the cube body's device time)."""
+    return _tap_arrays_of(args.w_taps, args.row_combos, args.lane_combos,
+                          args.c_act)
+
+
+@functools.lru_cache(maxsize=64)
+def _tap_arrays_of(w_taps_in, row_combos, lane_combos, c_act):
     w_taps = np.zeros((3, MAX_COMBOS), np.int32)
     n_taps = np.zeros(3, np.int32)
-    for k, taps in enumerate(args.w_taps):
+    for k, taps in enumerate(w_taps_in):
         w_taps[k, :len(taps)] = taps
         n_taps[k] = len(taps)
-    return (w_taps, n_taps,
-            np.ascontiguousarray(args.row_combos, dtype=np.int32),
-            np.ascontiguousarray(args.lane_combos, dtype=np.int32),
-            np.ascontiguousarray(args.c_act, dtype=np.float32))
+    out = (w_taps, n_taps,
+           np.ascontiguousarray(row_combos, dtype=np.int32),
+           np.ascontiguousarray(lane_combos, dtype=np.int32),
+           np.ascontiguousarray(c_act, dtype=np.float32))
+    for a in out:
+        a.flags.writeable = False
+    return out
 
 
 def _ptr(t):
@@ -797,8 +887,11 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     on PyTorch's current stream, with a new int32 argmin. Raises on inputs
     it does not take and on a launch the device refuses. The tap structure
     must fit the kernels' capacities, which :class:`Backup6D` checks when it
-    is built; its tile plan picks the kernel (:attr:`TilePlan.wide`). The envelope modes are :func:`backup6d_flat_cuda` and
-    :func:`backup6d_recompute_cuda`."""
+    is built; its tile plan picks the kernel: ``backup6d_sweep_cube`` where
+    :func:`cube_body` holds (counted in ``.cube_launches`` besides
+    ``.launches``), else ``backup6d_sweep`` or ``backup6d_wide``
+    (:attr:`TilePlan.wide`). The envelope modes are
+    :func:`backup6d_flat_cuda` and :func:`backup6d_recompute_cuda`."""
     from .. import _build
 
     if args.lanes is not None or args.argmin_dtype != torch.int32 or \
@@ -810,6 +903,7 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     lib = _build.load()
     out_v, out_a = _outputs(values, args, None, None)
     w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
+    plan, ints = _tiles_for(lib, values, args, b3=True)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.backup6d_f32(
         _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
@@ -818,16 +912,17 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
         _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
-        lane_combos.ctypes.data, c_act.ctypes.data,
-        _tile_ints(lib, values, args).ctypes.data,
+        lane_combos.ctypes.data, c_act.ctypes.data, ints.ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, stream)
     _raise_on(lib, err, "backup6d")
     backup6d_cuda.launches += 1
+    backup6d_cuda.cube_launches += plan.cube_body
     return BackupResult(out_v, out_a)
 
 
 backup6d_cuda.launches = 0
+backup6d_cuda.cube_launches = 0
 
 
 def _mode_ints(args: Backup6DArgs) -> tuple:
@@ -860,7 +955,7 @@ def backup6d_flat_cuda(values: torch.Tensor, args: Backup6DArgs,
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
-        _tile_ints(lib, values, args).ctypes.data,
+        _tiles_for(lib, values, args)[1].ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, *_mode_ints(args),
         stream)
@@ -902,7 +997,7 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
-        _tile_ints(lib, values, args).ctypes.data,
+        _tiles_for(lib, values, args)[1].ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, *_mode_ints(args),
         int(rec.edge == "clamp"), stream)
@@ -998,7 +1093,7 @@ def _launch_block(values, args: Backup6DArgs, out_v, out_a) -> BackupResult:
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a), *rec_ptrs,
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data,
-        _tile_ints(lib, values, args).ctypes.data,
+        _tiles_for(lib, values, args)[1].ctypes.data,
         *args.row_shape[1:], *args.lane_shape, args.n_actions,
         len(row_combos), len(lane_combos), args.action_digits or 0,
         *_mode_ints(args), int(rec is not None),

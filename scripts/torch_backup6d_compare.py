@@ -16,7 +16,10 @@ Timed, at the shapes the main paths run (kernels: CUDA events, warm,
 median of 10 back-to-back calls; solves: host clock around work that ends
 in a synchronize, the build included):
 
-* B.3 ``backup6d_cuda``, one sweep of a seeded 11^3 x 10^3 table;
+* ``nvcc`` on the tree's ``csrc/backup6d.cu`` alone, after the library's
+  build (``nvcc_backup6d_s``);
+* B.3 ``backup6d_cuda``, one sweep of a seeded 11^3 x 10^3 table (the full
+  tap cube: ``backup6d_sweep_cube`` where the tree has it);
 * B.4 ``backup6d_flat_cuda`` (uint8, tracking, carry buffers) and B.5
   ``backup6d_recompute_cuda`` at 30^3 x 16^3 (median of 5);
 * B.7b ``backup6d_block_cuda``, rank 0 of 2 at 11^3 x 10^3 (666 rows of a
@@ -87,6 +90,13 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.load()
     out["build_s"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                        str(Path(tmp) / "backup6d.o"),
+                        str(Path(_build.CSRC) / "backup6d.cu")],
+                       check=True, capture_output=True, timeout=600)
+        out["nvcc_backup6d_s"] = time.perf_counter() - t0
 
     # B.3, B.7b, B.7a at 11^3 x 10^3
     cfg = attitude.AttitudeConfig(n_mesh_w=11, n_mesh_q=10)
@@ -95,8 +105,11 @@ def main() -> None:
     rng = np.random.default_rng(0)
     v = torch.from_numpy(rng.uniform(0.0, 100.0, (bk.NW, bk.NE))
                          .astype(np.float32)).to(dev)
+    cube0 = getattr(b6.backup6d_cuda, "cube_launches", None)
     out["b3_ms"] = cuda_time_ms(lambda: b6.backup6d_cuda(v, bk.args),
                                 inner=5)
+    if cube0 is not None:
+        out["b3_cube_launches"] = b6.backup6d_cuda.cube_launches - cube0
     lo, hi = bk.row_reach()
     r1 = (bk.NW + 1) // 2
     blk = b6.block_args(bk.args, 0, r1, lo, hi)

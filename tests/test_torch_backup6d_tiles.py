@@ -15,12 +15,19 @@ planner's own numbers:
   (numpy) equals ``backup6d_plain`` bitwise, values and argmin;
 * a tap structure past 3 taps an axis (row taps (-1, 0, 1, 2) x (-1, 0, 1)
   x (-1, 0, 1), 36 combos) plans ``backup6d_wide``'s tiles: up to 40 row
-  groups, its stage slots by combo, 9 row weights a combo.
+  groups, its stage slots by combo, 9 row weights a combo;
+* B.3's launch of the full (-1, 0, 1) tap cube at digit base 3 plans
+  ``backup6d_sweep_cube``'s tiles, whose thread takes ``CUBE_CELLS``
+  consecutive rows of a tile at one lane and reads each row group's stage
+  rows once for all of them; every other launch and structure keeps its
+  kernel (the host's choice, through the wrappers with a stand-in
+  library).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
 
 import itertools
+import types
 
 import numpy as np
 import pytest
@@ -208,6 +215,20 @@ def test_ints_are_the_kernels_layout():
     assert tuple(wints[at:at + 36]) == wide.slots
     assert wide.smem_bytes == 4 * (wide.n_staged * wide.width
                                    + wide.rows * 9 * 36)
+    # backup6d_sweep_cube's: kind 2, the cube slots and row weights of
+    # backup6d_sweep, CUBE_THREADS threads, rows a multiple of CUBE_CELLS
+    cplan = b6.plan_tiles(_backup().args, 125, SMEM_BLOCK_MAX, b3=True)
+    cints = cplan.ints()
+    assert cplan.cube_body and not cplan.wide
+    assert tuple(cints[:9]) == (cplan.rows, cplan.lanes, cplan.reach_lo,
+                                cplan.reach_hi, cplan.width, cplan.n_staged,
+                                len(cplan.groups), b6.ROW_WEIGHTS,
+                                b6.CUBE_KIND)
+    assert tuple(cints[at:at + 27]) == cplan.cube == cplan.slots
+    assert (cints[at + 27:at + b6.MAX_COMBOS] == -1).all()
+    assert tuple(cints[-4:]) == (*cplan.grid, cplan.smem_bytes,
+                                 b6.CUBE_THREADS)
+    assert cplan.rows % b6.CUBE_CELLS == 0
 
 
 def test_row_groups_merge_where_runs_meet():
@@ -324,3 +345,271 @@ def test_offsets_past_2_31_cells_are_planned_and_accepted():
         c_row=meta((nw,)), c_lane=meta((ne,)))
     with pytest.raises(ValueError, match="must be on the CUDA device"):
         b6._check_cuda_inputs(meta((nw, ne)), full)
+
+
+# backup6d_sweep_cube: B.3's launch of the full (-1, 0, 1) tap cube. 11^3
+# rows are odd (the last chunk's second cell lies past the table) and 10^3
+# lanes are no multiple of the tile; 12^3 rows and 30^3 x 16^3 take other
+# tiles.
+CUBE_SHAPES = {
+    "5x4": lambda: _backup().args,
+    "7x5": lambda: _backup(n_w=7, n_q=5).args,
+    "clamp": lambda: _backup("clamp").args,
+    "11x10": lambda: _synthetic(11, 10),
+    "12x10": lambda: _synthetic(12, 10),
+    "19x14": lambda: _synthetic(19, 14),
+    "30x16": lambda: _synthetic(30, 16),
+}
+
+
+def _cube_plan(args):
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX, b3=True)
+    assert plan.cube_body and plan.kind == b6.CUBE_KIND and not plan.wide
+    assert plan.rows % b6.CUBE_CELLS == 0
+    assert plan.threads == b6.CUBE_THREADS
+    # two blocks an SM
+    assert plan.smem_bytes <= b6.SMEM_PER_SM // 2 - b6.SMEM_RESERVED
+    return plan
+
+
+def _cube_chunks(plan, i, j, n_rows):
+    """The chunks ``(q, cl)`` of tile ``(i, j)`` whose first cell lies in
+    the table (the kernel skips the others)."""
+    q = np.arange(plan.rows // b6.CUBE_CELLS)[:, None]
+    cl = np.arange(plan.lanes)[None, :]
+    live = (i * plan.rows + q * b6.CUBE_CELLS < n_rows) & \
+        (j * plan.lanes + cl < plan.n_lanes)
+    q, cl = np.broadcast_arrays(q, cl)
+    return q[live], cl[live]
+
+
+@pytest.mark.parametrize("shape", list(CUBE_SHAPES))
+def test_cube_reads_lie_in_their_stage(shape):
+    """Cell k of a chunk (tile rows rr0 + k, rr0 = q CUBE_CELLS) reads row
+    combo (g, i2) at stage row cube[3 g] + rr0 + k + i2 and lane combo
+    (e01, t2) at column cl + reach_lo + dl(e01, t2=0) + t2: each row
+    group's three t2 rows are consecutive stage rows, each lane pair's three
+    t2 lanes consecutive columns, and every read of every chunk (past the
+    table's last row too) lies in the stage and finds there the table row
+    and lane the plain version reads."""
+    args = CUBE_SHAPES[shape]()
+    plan = _cube_plan(args)
+    C, R, L = b6.CUBE_CELLS, plan.rows, plan.lanes
+    cube = np.asarray(plan.cube).reshape(9, 3)
+    np.testing.assert_array_equal(cube - cube[:, :1], [[0, 1, 2]] * 9)
+    row_d = np.asarray(args.row_deltas()).reshape(9, 3)
+    lane_d = np.asarray(args.lane_deltas()).reshape(9, 3)
+    np.testing.assert_array_equal(lane_d - lane_d[:, 1:2], [[-1, 0, 1]] * 9)
+    for i, j in _tiles_to_check(plan):
+        srows = plan.stage_rows(i)
+        scols = j * L - plan.reach_lo + np.arange(plan.width)
+        q, cl = _cube_chunks(plan, i, j, args.n_rows)
+        for k in range(C):
+            rr = q * C + k
+            for g, i2 in itertools.product(range(9), range(3)):
+                srow = cube[g, 0] + q * C + k + i2
+                assert srow.min() >= 0 and srow.max() < plan.n_staged
+                np.testing.assert_array_equal(
+                    srows[srow], i * R + rr + plan.table_row0 + row_d[g, i2])
+        for e01, t2 in itertools.product(range(9), range(3)):
+            scol = cl + plan.reach_lo + lane_d[e01, 1] + t2 - 1
+            assert scol.min() >= 0 and scol.max() < plan.width
+            np.testing.assert_array_equal(scols[scol],
+                                          j * L + cl + lane_d[e01, t2])
+
+
+@pytest.mark.parametrize("shape", list(CUBE_SHAPES))
+def test_cube_grid_covers_each_output_cell_once(shape):
+    """The chunks of every tile cover each output cell once; no chunk
+    straddles two tiles (rows a multiple of CUBE_CELLS)."""
+    args = CUBE_SHAPES[shape]()
+    plan = _cube_plan(args)
+    C, R, L = b6.CUBE_CELLS, plan.rows, plan.lanes
+    gi, gj = plan.grid
+    nw, ne = args.n_rows, plan.n_lanes
+    assert (gi - 1) * R < nw <= gi * R and (gj - 1) * L < ne <= gj * L
+    if nw * ne > 10**6:
+        return
+    count = np.zeros((gi * R, gj * L), np.int32)
+    for i, j in itertools.product(range(gi), range(gj)):
+        q, cl = _cube_chunks(plan, i, j, nw)
+        for k in range(C):
+            np.add.at(count, (i * R + q * C + k, j * L + cl), 1)
+    assert (count[:nw, :ne] == 1).all()
+    assert (count[nw:] <= 1).all() and (count[:, ne:] == 0).all()
+
+
+def test_cube_plan_edges():
+    """At 11^3 x 10^3 the cube plan's row tiles are clipped at both table
+    edges, the last lane tile is cut, and the last chunk's second cell lies
+    past the table."""
+    args = _synthetic(11, 10)
+    plan = _cube_plan(args)
+    nw = args.n_rows
+    assert plan.stage_rows(0).min() < 0
+    assert plan.stage_rows(plan.grid[0] - 1).max() >= nw
+    assert plan.n_lanes % plan.lanes != 0
+    assert nw % b6.CUBE_CELLS != 0 and nw % plan.rows != 0
+
+
+def _cube_lane_phase(plan_of):
+    """``_lane_phase`` read as ``backup6d_sweep_cube`` reads it: each
+    chunk's cells from the stage of its tile, row combo (g, i2) of cell k at
+    group g's first stage row + rr0 + k + i2, lane combo (e01, t2) at lane
+    pair e01's middle column + t2 - 1; the joint weights and the sums in
+    ``_lane_phase``'s order."""
+
+    def lane_phase(values, args):
+        plan = plan_of(args, values.shape[0])
+        assert plan.cube_body
+        C = b6.CUBE_CELLS
+        v = values.numpy()
+        nw, ne = args.n_rows, v.shape[1]
+        ew = [{t: b6._tap_weight(args.lane_off[k], args.lane_frac[k], t)
+               for t in b6.CUBE_TAPS} for k in range(3)]
+        joint = [((ew[0][t0] * ew[1][t1]) * ew[2][t2]).numpy()
+                 for t0, t1, t2 in args.lane_combos]
+        lane_d = np.asarray(args.lane_deltas()).reshape(9, 3)
+        cube = np.asarray(plan.cube).reshape(9, 3)
+        out = [np.zeros((nw, ne), np.float32) for _ in range(27)]
+        gi, gj = plan.grid
+        for i, j in itertools.product(range(gi), range(gj)):
+            srows = plan.stage_rows(i)
+            rin = (srows >= 0) & (srows < plan.n_table_rows)
+            c0 = j * plan.lanes
+            scols = c0 - plan.reach_lo + np.arange(plan.width)
+            cin = (scols >= 0) & (scols < ne)
+            stage = np.zeros((plan.n_staged, plan.width), np.float32)
+            stage[np.ix_(rin, cin)] = v[np.ix_(srows[rin], scols[cin])]
+            q, cl = _cube_chunks(plan, i, j, nw)
+            for k in range(C):
+                rr0 = q * C
+                r = i * plan.rows + rr0 + k
+                keep = r < nw
+                r, c, rr0, cl_k = r[keep], c0 + cl[keep], rr0[keep], cl[keep]
+                for g, i2 in itertools.product(range(9), range(3)):
+                    acc = None
+                    for e in range(27):
+                        e01, t2 = divmod(e, 3)
+                        term = joint[e][r, c] * stage[
+                            cube[g, 0] + rr0 + k + i2,
+                            cl_k + plan.reach_lo + lane_d[e01, 1] + t2 - 1]
+                        acc = term if acc is None else acc + term
+                    out[g * 3 + i2][r, c] = acc
+        return [torch.from_numpy(o) for o in out]
+
+    return lane_phase
+
+
+@pytest.mark.parametrize("case", ["5x4", "7x5", "clamp"])
+def test_cube_sweep_through_the_stages_equals_plain(case, monkeypatch):
+    """A sweep whose lane phase gathers the table as ``backup6d_sweep_cube``
+    reads it, through the cube plan's stages, equals ``backup6d_plain``
+    bitwise, values and argmin."""
+    rng = np.random.default_rng(23)
+    bk = _backup(case if case == "clamp" else "extrapolate",
+                 *((7, 5) if case == "7x5" else (5, 4)))
+    assert b6.cube_body(bk.args)
+    v = torch.from_numpy(rng.uniform(0.0, 50.0, (bk.NW, bk.NE))
+                         .astype(np.float32))
+    want = b6.backup6d_plain(v, bk.args)
+    plans = []
+
+    def plan_of(a, n):
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX, b3=True))
+        return plans[-1]
+
+    monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(plan_of))
+    got = b6.backup6d_plain(v, bk.args)
+    assert plans and plans[0].grid[0] * plans[0].grid[1] >= 2
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.argmin, want.argmin)
+
+
+class _StandInLibrary:
+    """The kernel library's entries, each returning 0 (success) unrun."""
+
+    def __getattr__(self, name):
+        return lambda *args: 0
+
+
+def _synthetic_taps(w_taps, row_combos, digits=3, n_act=27):
+    nw = 5**3
+    return _synthetic(5, 4)._replace(
+        row_off=torch.zeros((), dtype=torch.int32).expand(3, nw, n_act),
+        row_combos=tuple(row_combos), w_taps=tuple(w_taps),
+        action_digits=digits, c_act=(0.0,) * n_act)
+
+
+def _wrapper_case(case):
+    """``(wrapper, values, args)`` of one launch, the wrapper the engines
+    take for it (``Backup6D._kernel``, or B.7's)."""
+    if case in ("tap2", "dead-combo", "m2"):
+        args = {
+            "tap2": lambda: _synthetic_taps(
+                ((-1, 0), (-1, 0, 1), (-1, 0, 1)),
+                itertools.product((-1, 0), (-1, 0, 1), (-1, 0, 1))),
+            "dead-combo": lambda: _synthetic_taps(((-1, 0, 1),) * 3,
+                                                  CUBE[:-1]),
+            "m2": lambda: _synthetic_taps(((-1, 0, 1),) * 3, CUBE, 2, 8),
+        }[case]()
+        return b6.backup6d_cuda, torch.zeros((args.n_rows, 64)), args
+    if case in ("flat", "recompute", "uint8"):
+        kw = {"flat": dict(flat=True), "recompute": dict(
+            lane_mode="recompute"), "uint8": {}}[case]
+        _, plan, cost = tatt.build_full(
+            tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device="cpu", **kw)
+        bk = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8
+                         if case == "uint8" else torch.int32)
+        return bk._kernel(), torch.zeros((bk.NW, bk.NE)), bk.args
+    if case in ("block-halos", "digit-slice"):
+        args, n = _block(_backup(), 40, 90)
+        if case == "digit-slice":
+            return b6.backup6d_slice_cuda, torch.zeros((n, 64)), \
+                b6.slice_args(args, 9, 18)
+        return b6.backup6d_block_cuda, torch.zeros((n, 64)), args
+    bk = {"reference": lambda: _backup(), "generic": lambda: _backup(
+        "generic"), "wide-36": lambda: _backup("wide", 15, 3)}[case]()
+    return bk._kernel(), torch.zeros((bk.NW, bk.NE)), bk.args
+
+
+@pytest.mark.parametrize("case,kind", [
+    ("reference", b6.CUBE_KIND), ("tap2", b6.SWEEP_KIND),
+    ("dead-combo", b6.SWEEP_KIND), ("m2", b6.SWEEP_KIND),
+    ("generic", b6.SWEEP_KIND), ("wide-36", b6.WIDE_KIND),
+    ("flat", b6.SWEEP_KIND), ("uint8", b6.SWEEP_KIND),
+    ("recompute", b6.SWEEP_KIND), ("block-halos", b6.SWEEP_KIND),
+    ("digit-slice", b6.SWEEP_KIND)])
+def test_host_picks_the_cube_body(case, kind, monkeypatch):
+    """The host picks ``backup6d_sweep_cube`` for B.3's launch of the full
+    (-1, 0, 1) tap cube at digit base 3 (the attitude reference's
+    structure) and counts it in ``backup6d_cuda.cube_launches``; a 2-tap
+    axis, a dead row combo, digit base 2, the generic phase, a 36-combo
+    structure, a flat plan, a uint8 or recompute launch, a row block with
+    its halos and a digit slice keep their kernel. Run through the wrappers
+    with a stand-in library: the plan each launch hands the kernel."""
+    from ocdp_tpu_torch import _build
+
+    seen = []
+    real = b6._tiles_for
+
+    def spy(*a, **kw):
+        out = real(*a, **kw)
+        seen.append(out[0])
+        return out
+
+    monkeypatch.setattr(b6, "_tiles_for", spy)
+    monkeypatch.setattr(b6, "_check_cuda_inputs", lambda *a: None)
+    monkeypatch.setattr(b6, "_smem_limit", lambda lib, dev: SMEM_BLOCK_MAX)
+    monkeypatch.setattr(_build, "load", lambda: _StandInLibrary())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: types.SimpleNamespace(
+                            cuda_stream=0))
+    fn, values, args = _wrapper_case(case)
+    before = b6.backup6d_cuda.cube_launches
+    fn(values, args)
+    assert len(seen) == 1 and seen[0].kind == kind
+    assert seen[0].cube_body == (kind == b6.CUBE_KIND)
+    assert b6.cube_body(args) == (case in ("reference", "flat", "uint8"))
+    assert b6.backup6d_cuda.cube_launches == before + (
+        kind == b6.CUBE_KIND)

@@ -8,7 +8,9 @@ backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells, each mode
 also through its kernel for more than 3 taps an axis (``backup6d_wide``,
-36 row combos); the
+36 row combos); B.3's body for the full (-1, 0, 1) tap cube
+(``backup6d_sweep_cube``: the reference shape, exact ties, row-action and
+row-lane costs, its tile edges); the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
 PyTorch versions, on a card; and the surface's step through B.1
@@ -521,19 +523,25 @@ WIDE_6D_31 = dict(n_mesh_w=11, h=0.025, w_min_deg=-35.0, w_max_deg=50.0,
         "wide-36-generic", "wide-36-ties"])
 def test_backup6d_one_sweep_bitwise(device, case, kw):
     """One sweep through B.3's wrapper equal to the plain version bitwise:
-    ``backup6d_sweep`` on (-1, 0, 1) taps an axis, ``backup6d_wide`` past
-    them (the tile plan says which), in the factorized phase and in the
-    generic one; exact ties take the first action."""
+    ``backup6d_sweep_cube`` on the full (-1, 0, 1) tap cube at digit base
+    3, ``backup6d_sweep`` on other structures of at most 3 taps an axis,
+    ``backup6d_wide`` past them (the tile plan says which), in the
+    factorized phase and in the generic one; exact ties take the first
+    action."""
     bk = _attitude_backup(device, case, **kw)
     assert (bk.action_digits is None) == (case in ("permuted", "twice"))
     v = torch.from_numpy(np.random.default_rng(9).uniform(
         0, 50, bk.state_shape).astype(np.float32)).to(device)
-    plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args)
+    plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args,
+                                     b3=True)
     assert plan.wide == ("w_min_deg" in kw) and blocks >= 1
+    assert plan.cube_body == (case == "extrapolate" and "w_min_deg" not in kw)
     before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
     got = bk(v)
     torch.cuda.synchronize()
     assert b6.backup6d_cuda.launches == before + 1
+    assert b6.backup6d_cuda.cube_launches == cube_before + plan.cube_body
     _bitwise(got, bk.plain(v))
     if case == "tie":
         assert int(got.argmin.max()) == 0
@@ -563,14 +571,14 @@ def test_backup6d_tiles_bitwise(device, case):
     else:
         args, t = bk.args, v
     t = t.contiguous()
-    plan, blocks = b6.tile_occupancy(t, args)
+    fn = b6.backup6d_cuda if case in ("lanes-cut", "ties") \
+        else b6.backup6d_block_cuda
+    plan, blocks = b6.tile_occupancy(t, args, b3=fn is b6.backup6d_cuda)
     assert plan.smem_bytes > 0 and blocks >= 1
     if case == "edges":
         assert plan.stage_rows(0).min() < 0 and plan.stage_rows(0).max() >= 10
     if case == "lanes-cut":
         assert bk.NE % plan.lanes != 0
-    fn = b6.backup6d_cuda if case in ("lanes-cut", "ties") \
-        else b6.backup6d_block_cuda
     got = fn(t, args)
     torch.cuda.synchronize()
     _bitwise(got, b6.backup6d_plain(t, args))
@@ -604,15 +612,82 @@ def test_backup6d_past_2_31_cells_is_not_refused(device):
                          ids=["7x5", "wide-36"])
 def test_solve_full_kernel_equals_plain(device, kw):
     """``solve_full`` (auto) through B.3's wrapper, one launch a sweep
-    (``backup6d_wide`` at 36 combos), equals ``impl='plain'``."""
+    (``backup6d_sweep_cube`` at the full tap cube, counted in
+    ``cube_launches``; ``backup6d_wide`` at 36 combos, not counted there),
+    equals ``impl='plain'``."""
     cfg = attitude.AttitudeConfig(**kw)
     before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
     sk = attitude.solve_full(cfg, num_sweeps=20)      # the card, the kernel
     assert b6.backup6d_cuda.launches == before + 20
+    cube = 0 if "w_min_deg" in kw else 20
+    assert b6.backup6d_cuda.cube_launches == cube_before + cube
     sp = attitude.solve_full(cfg, num_sweeps=20, impl="plain", device=device)
     assert b6.backup6d_cuda.launches == before + 20
+    assert b6.backup6d_cuda.cube_launches == cube_before + cube
     assert sk.result.values.is_cuda
     _bitwise(sk.result, sp.result)
+
+
+def _twin_actions(args):
+    """``args`` with the row plan of digit 2 made that of digit 0 on each
+    axis, and each action's cost that of its twin: every action with a
+    digit 2 ties exactly with the one that has 0 there, which comes first.
+    The declared tap structure stays the full cube."""
+    twin = [int("".join("0" if d == "2" else d for d in np.base_repr(a, 3)
+                        .zfill(3)), 3) for a in range(27)]
+    cols = [[a - 2 * 3 ** (2 - k) if (a // 3 ** (2 - k)) % 3 == 2 else a
+             for a in range(27)] for k in range(3)]
+
+    def per_axis(t):
+        return torch.stack([t[k][:, cols[k]] for k in range(3)]).contiguous()
+
+    return args._replace(row_off=per_axis(args.row_off),
+                         row_frac=per_axis(args.row_frac),
+                         c_act=tuple(args.c_act[twin[a]] for a in range(27)))
+
+
+@pytest.mark.parametrize("case", ["11x10", "7x5", "twins", "rowact-rowlane",
+                                  "tile-edges"])
+def test_backup6d_cube_body_bitwise(device, case):
+    """``backup6d_sweep_cube``, B.3's body for the full (-1, 0, 1) tap cube
+    at digit base 3, equal to ``backup6d_plain`` bit for bit: the reference
+    shape; 7^3 x 5^3; exact ties (every action with a digit 2 has a twin,
+    digit 0 there, with the same total: the argmin never holds a 2); row-
+    action and row-lane costs present; the tile edges at 11^3 x 10^3 (row
+    tiles clipped at both table edges, a cut lane tile, an odd row count:
+    the last chunk's second cell past the table)."""
+    kw = dict(n_mesh_w=7, n_mesh_q=5) if case == "7x5" else \
+        dict(n_mesh_w=11, n_mesh_q=10)
+    bk = _attitude_backup(device, "extrapolate", **kw)
+    rng = np.random.default_rng(29)
+    v = torch.from_numpy(rng.uniform(0, 50, (bk.NW, bk.NE))
+                         .astype(np.float32)).to(device)
+    args = bk.args
+    if case == "twins":
+        args = _twin_actions(args)
+    elif case == "rowact-rowlane":
+        args = args._replace(
+            c_rowact=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, 27))
+                                      .astype(np.float32)).to(device),
+            c_rowlane=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, bk.NE))
+                                       .astype(np.float32)).to(device))
+    assert b6.cube_body(args)
+    plan, blocks = b6.tile_occupancy(v, args, b3=True)
+    assert plan.cube_body and blocks >= 1
+    if case == "tile-edges":
+        assert plan.stage_rows(0).min() < 0
+        assert plan.stage_rows(plan.grid[0] - 1).max() >= bk.NW
+        assert bk.NE % plan.lanes != 0 and bk.NW % b6.CUBE_CELLS != 0
+    before = b6.backup6d_cuda.cube_launches
+    got = b6.backup6d_cuda(v, args)
+    torch.cuda.synchronize()
+    assert b6.backup6d_cuda.cube_launches == before + 1
+    _bitwise(got, b6.backup6d_plain(v, args))
+    if case == "twins":
+        a = got.argmin
+        assert not bool(((a // 9 == 2) | (a // 3 % 3 == 2) | (a % 3 == 2))
+                        .any())
 
 
 ENVELOPE_MODES = [
