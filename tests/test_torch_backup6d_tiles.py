@@ -583,7 +583,8 @@ def _wrapper_case(case):
 def test_host_picks_the_cube_body(case, kind, monkeypatch):
     """The host picks ``backup6d_sweep_cube`` for B.3's launch of the full
     (-1, 0, 1) tap cube at digit base 3 (the attitude reference's
-    structure) and counts it in ``backup6d_cuda.cube_launches``; a 2-tap
+    structure) and counts it in ``backup6d_cuda.cube_launches`` (B.5's
+    launch, and no other, in ``backup6d_recompute_cuda.launches``); a 2-tap
     axis, a dead row combo, digit base 2, the generic phase, a 36-combo
     structure, a flat plan, a uint8 or recompute launch, a row block with
     its halos and a digit slice keep their kernel. Run through the wrappers
@@ -607,9 +608,12 @@ def test_host_picks_the_cube_body(case, kind, monkeypatch):
                             cuda_stream=0))
     fn, values, args = _wrapper_case(case)
     before = b6.backup6d_cuda.cube_launches
+    recompute = b6.backup6d_recompute_cuda.launches
     fn(values, args)
     assert len(seen) == 1 and seen[0].kind == kind
     assert seen[0].cube_body == (kind == b6.CUBE_KIND)
     assert b6.cube_body(args) == (case in ("reference", "flat", "uint8"))
     assert b6.backup6d_cuda.cube_launches == before + (
         kind == b6.CUBE_KIND)
+    assert b6.backup6d_recompute_cuda.launches == recompute + (
+        case == "recompute")

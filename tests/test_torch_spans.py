@@ -19,6 +19,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ocdp_tpu_torch import engine, profiling
 from ocdp_tpu_torch.models import attitude, kirk, pos_att, position
+from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import rowlane as rl
 
 PKG = Path(__file__).resolve().parents[1] / "ocdp_tpu_torch"
@@ -283,6 +284,24 @@ def test_segmented_engine_checks_are_spanned():
     assert len(_named(spans, "ocdp.engine.check")) == 4
     assert _parents(spans, "ocdp.engine.check", "ocdp.solve")
     assert len(_named(spans, "ocdp.engine.sweeps")) == 5
+
+
+@pytest.mark.cuda
+def test_card_recompute_launches_one_a_sweep():
+    """On a card: a segmented solve on the recompute plan counts one B.5
+    launch a sweep in ``backup6d_recompute_cuda.launches``, a solve on the
+    broadcast plan none (the stand-in library's count of each wrapper:
+    ``tests/test_torch_backup6d_tiles.py``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    cfg = attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4, T_final=0.05)
+    for kw, want in ((dict(lane_mode="recompute", segment_size=4,
+                           tol=1e-6, tol_mode="rel"), 9), ({}, 0)):
+        before = b6.backup6d_recompute_cuda.launches
+        sol = attitude.solve_full(cfg, device="cuda", **kw)
+        torch.cuda.synchronize()
+        assert sol.result.num_sweeps == 9
+        assert b6.backup6d_recompute_cuda.launches - before == want
 
 
 @pytest.mark.cuda
