@@ -7,7 +7,8 @@ Run from the root of the repository, on a machine with a CUDA device and
 the CUDA toolkit (nvcc). Phases, each of which raises on failure:
 
 1. check the device and print its name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``ocdp_tpu_torch/csrc`` (timed);
+2. build the CUDA kernels from ``ocdp_tpu_torch/csrc`` (timed), and time
+   ``nvcc`` on ``csrc/backup6d.cu`` alone;
 
 Kirk ch.3 (kernel ``fused_backup2d``, B.1, in two modes: plan-streamed, and
 affine-query, the main path's, which forms ``x' = A x + B u`` in the
@@ -133,15 +134,16 @@ The 6-D envelope (kernels ``backup6d_flat``, B.4, and
     n_mesh_q=16), num_sweeps=100, segment_size=50, checkpoint_path=...,
     tol=1e-6, tol_mode='rel')`` (the README's envelope quick start, 110.6M
     cells, 100 of its 5999 sweeps): auto picks the recompute plan, flat
-    carry-mode tables and a uint8 argmin, and B.5 launches 100 times; a solve
+    carry-mode tables and a uint8 argmin, and B.5 launches 100 times, each
+    through ``backup6d_sweep_recompute_cube`` (the full tap cube); a solve
     killed after its first checkpoint past sweep 50 and resumed equals it
     bitwise; the same solve with ``lane_mode='plan'`` (the chunked build,
     B.4, 100 launches) agrees to 1e-4 x max|V| with >= 99.9% equal argmins;
     the chunked build equals the one-shot flat build bitwise; a lane plan
-    filled from the plain recompute, swept once by B.4, equals one B.5
-    sweep of the same table bitwise (the kernel's recomputed lanes are the
-    plain version's on every cell), and its live taps lie in B.5's
-    admitted ones;
+    filled from the plain recompute, swept once by B.4 (``backup6d_sweep``),
+    equals one B.5 sweep of the same table (``backup6d_sweep_recompute_
+    cube``) bitwise (the kernel's recomputed lanes are the plain version's
+    on every cell), and its live taps lie in B.5's admitted ones;
 19. serving: a 1000-stage flat-argmin rollout of that solution;
 20. past 2^31 cells: ``solve_full(AttitudeConfig(n_mesh_w=60,
     n_mesh_q=22), num_sweeps=1, init_values=...)`` (2.30B cells, B.5) from
@@ -151,7 +153,13 @@ The 6-D envelope (kernels ``backup6d_flat``, B.4, and
     table, bitwise;
 21. timing with CUDA events, warm, median of 10: B.4 (uint8, tracking) and
     B.5 at 30^3 x 16^3 beside their bounds and B.3's ns per cell, with
-    each mode's registers, shared memory and occupancy.
+    each mode's registers, shared memory and occupancy; B.5 at the
+    envelope cell's 48^3 x 10^3 (median of 5) beside its bound, every
+    launch through ``backup6d_sweep_recompute_cube``; that timed sweep's
+    first, a middle and its last 97 rows equal the plain version of their
+    row blocks bitwise, and a lane plan filled from the plain recompute,
+    swept once by B.4, equals one B.5 sweep of the same table bitwise on
+    every cell (as in phase 18).
 
 Simplified attitude and position (kernel ``band_backup2d``, B.6):
 
@@ -422,6 +430,14 @@ def main() -> None:
     _build.load()
     print(f"built {_build.library_path().name} in "
           f"{time.perf_counter() - t0:.3f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o",
+                        str(Path(tmp) / "backup6d.o"),
+                        str(_build.CSRC / "backup6d.cu")],
+                       check=True, capture_output=True, timeout=900)
+        print(f"nvcc on csrc/backup6d.cu alone: "
+              f"{time.perf_counter() - t0:.3f} s")
 
     kernels = [*kirk_phases(device), *pos_att_phases(device)]
     b3 = attitude_phases(device)
@@ -467,9 +483,12 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Each wrapper's launches, and B.3's of ``backup6d_sweep_cube``."""
+    """Each wrapper's launches, B.3's of ``backup6d_sweep_cube`` and B.5's
+    of ``backup6d_sweep_recompute_cube``."""
     return {**{name: fn.launches for name, fn in LAUNCHERS.items()},
-            "backup6d_cube": b6.backup6d_cuda.cube_launches}
+            "backup6d_cube": b6.backup6d_cuda.cube_launches,
+            "backup6d_recompute_cube":
+                b6.backup6d_recompute_cuda.cube_launches}
 
 
 STAGE_NAMES = {fb.STAGE_ALL: "every record staged",
@@ -1324,10 +1343,12 @@ ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
 # phase 13's and 14's one-device solves, which phases 28-29 are held to
 REF_6D = {}
 # the mangled names of the 6-D kernels: B.3's backup6d_sweep_cube (no
+# c_rowact), B.5's backup6d_sweep_recompute_cube (uint8 argmin, no
 # c_rowact), then backup6d_sweep's instantiations <ArgT, kTrack,
 # kRecompute>: int32 tracking (B.3 on any other tap structure), B.4 with a
-# uint8 argmin, B.5 with a uint8 argmin
+# uint8 argmin, B.5 with a uint8 argmin (on any other structure)
 B3_KERNEL = "backup6d_sweep_cubeILb0E"
+B5_CUBE_KERNEL = "backup6d_sweep_recompute_cubeIhLb0E"
 SWEEP_KERNEL = "backup6d_sweepIiLb1ELb0E"
 B4_KERNEL = "backup6d_sweepIhLb1ELb0E"
 B5_KERNEL = "backup6d_sweepIhLb1ELb1E"
@@ -1457,11 +1478,12 @@ def kernel_registers(name: str) -> str:
     raise RuntimeError(f"chip_smoke: {name} not in the build log")
 
 
-def tile_line(values, args, b3: bool = False) -> str:
+def tile_line(values, args, body: int = b6.SWEEP_KIND) -> str:
     """The dynamic shared memory a 6-D launch on ``values`` asks for (the
-    tile planner's stage; ``b3``: B.3's launch), its tile and its occupancy
-    (the card's query)."""
-    plan, blocks = b6.tile_occupancy(values, args, b3)
+    tile planner's stage; ``body``: the cube body the launch asks for,
+    ``b6.CUBE_KIND`` for B.3's, ``b6.RECOMPUTE_CUBE_KIND`` for B.5's), its
+    tile and its occupancy (the card's query)."""
+    plan, blocks = b6.tile_occupancy(values, args, body)
     return (f"{plan.smem_bytes} B dynamic shared memory a launch (tile "
             f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
             f"rows x {plan.width} lanes, {plan.threads} threads a block, "
@@ -1476,7 +1498,7 @@ def tile_edge_cases(bk, v) -> float:
     10-row block with no halo rows puts every row tile past both edges
     (0.0 there, as the plain version reads). Returns max |dV|."""
     v2 = v.reshape(bk.NW, bk.NE).contiguous()
-    plan, _ = b6.tile_occupancy(v2, bk.args, b3=True)
+    plan, _ = b6.tile_occupancy(v2, bk.args, b6.CUBE_KIND)
     top = int(plan.stage_rows(0).min())
     bottom = int(plan.stage_rows(plan.grid[0] - 1).max())
     print(f"{bk.NW}x{bk.NE} tiles {plan.rows} x {plan.lanes}: first row tile "
@@ -1667,7 +1689,7 @@ def attitude_phases(device) -> dict:
           f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
           f"memory of the main path {peak_mib:.1f} MiB")
     print(f"backup6d_sweep_cube (B.3): {kernel_registers(B3_KERNEL)}; "
-          f"{tile_line(v2, bk.args, b3=True)}")
+          f"{tile_line(v2, bk.args, b6.CUBE_KIND)}")
     print(f"backup6d_sweep<int32, tracking>: "
           f"{kernel_registers(SWEEP_KERNEL)}; {tile_line(v2, bk.args)}")
     return {
@@ -1687,6 +1709,7 @@ def attitude_phases(device) -> dict:
 ENV_CHECK = dict(n_mesh_w=19, n_mesh_q=14)   # 18.8M cells: the plain fits
 ENV_MAIN = dict(n_mesh_w=30, n_mesh_q=16)    # 110.6M cells (README)
 ENV_MAX = dict(n_mesh_w=60, n_mesh_q=22)     # 2.30B cells, past 2^31
+ENV_CELL = dict(n_mesh_w=48, n_mesh_q=10)    # 110.6M cells (the cell's)
 ENV_SWEEPS = 100                             # of the main path's 5999
 ENV_TOL = dict(tol=1e-6, tol_mode="rel")
 
@@ -1743,9 +1766,11 @@ def recompute_vs_filled_plan(bk5, v) -> None:
     """B.5's in-kernel lane (lo, frac) against the plain recompute's on
     every cell of the grid: a stored ``(NW, NE)`` lane plan is filled from
     :meth:`LaneRecompute.lane_block` in row blocks, B.4 sweeps ``v`` once on
-    it with B.5's tap structure, and B.5 sweeps the same table once; values
-    and argmin must be bitwise equal. The filled plan's live lane taps (the
-    stored-plan liveness pass) must lie in B.5's admitted combos."""
+    it with B.5's tap structure (``backup6d_sweep``), and B.5 sweeps the
+    same table once (``backup6d_sweep_recompute_cube`` where the structure
+    is the full tap cube: across the two bodies); values and argmin must be
+    bitwise equal. The filled plan's live lane taps (the stored-plan
+    liveness pass) must lie in B.5's admitted combos."""
     a5 = bk5.args
     nw, ne = bk5.NW, bk5.NE
     offs = [torch.empty((nw, ne), dtype=torch.int32, device=v.device)
@@ -1766,19 +1791,48 @@ def recompute_vs_filled_plan(bk5, v) -> None:
     outside = sorted(set(live) - set(bk5.lane_combos))
     a4 = a5._replace(lane_off=tuple(offs), lane_frac=tuple(fracs), lanes=None)
     got4 = b6.backup6d_flat_cuda(v, a4)
+    cube0 = b6.backup6d_recompute_cuda.cube_launches
     got5 = b6.backup6d_recompute_cuda(v, a5)
     torch.cuda.synchronize()
+    body5 = ("backup6d_sweep_recompute_cube"
+             if b6.backup6d_recompute_cuda.cube_launches > cube0
+             else "backup6d_sweep")
+    cube = b6.recompute_cube_body(a5)
     same_v = torch.equal(got4.values, got5.values)
     same_a = torch.equal(got4.argmin, got5.argmin)
     print(f"{nw}x{ne} lane plan filled from the plain recompute in "
           f"{fill_s:.3f} s: its {len(live)} live lane combos outside B.5's "
           f"{len(bk5.lane_combos)} admitted: {len(outside)}; one B.4 sweep "
-          f"on it vs one B.5 sweep: values bitwise {same_v}, argmin "
-          f"identical {same_a}")
+          f"on it vs one B.5 sweep ({body5}): values bitwise {same_v}, "
+          f"argmin identical {same_a}")
     check(not outside, f"plain recompute taps outside the admitted combos: "
           f"{outside[:5]}")
     check(same_v and same_a, "B.5's recomputed lanes != the plain "
           "recompute's")
+    check((body5 == "backup6d_sweep_recompute_cube") == cube,
+          f"B.5 ran {body5} on a structure the cube body "
+          f"{'fits' if cube else 'does not fit'}")
+
+
+def recompute_rows_vs_plain(bk5, v, got, blocks) -> None:
+    """B.5's output rows ``got`` of one sweep of the ``(NW, NE)`` table
+    ``v`` against :func:`backup6d_plain` with the plain recompute, on each
+    row block ``(r0, r1)`` of ``blocks``: the block's local table holds its
+    halo rows, 0.0 past the table's edges; values and argmin bitwise."""
+    lo, hi = bk5.row_reach()
+    nw = bk5.NW
+    for r0, r1 in blocks:
+        local = torch.nn.functional.pad(
+            v[max(r0 - lo, 0):min(r1 + hi, nw)],
+            (0, 0, max(lo - r0, 0), max(r1 + hi - nw, 0))).contiguous()
+        want = b6.backup6d_plain(local, b6.block_args(bk5.args, r0, r1, lo,
+                                                      hi))
+        same_v = torch.equal(got.values[r0:r1], want.values)
+        same_a = torch.equal(got.argmin[r0:r1], want.argmin)
+        print(f"rows [{r0}, {r1}) of {nw} vs backup6d_plain on their block: "
+              f"values bitwise {same_v}, argmin identical {same_a}")
+        check(same_v and same_a, f"B.5's rows [{r0}, {r1}) != the plain "
+              "version")
 
 
 def envelope_phases(device, b3) -> list:
@@ -1885,6 +1939,9 @@ def envelope_phases(device, b3) -> list:
           and counts["backup6d_recompute"] == ENV_SWEEPS
           and counts["backup6d_flat"] == 0 and counts["backup6d"] == 0,
           "main path: not the recompute, flat, uint8, carry-mode envelope")
+    check(counts["backup6d_recompute_cube"] == ENV_SWEEPS,
+          f"main path: {counts['backup6d_recompute_cube']} of "
+          f"{ENV_SWEEPS} B.5 launches through backup6d_sweep_recompute_cube")
     check(bool(torch.isfinite(res.values).all()), "main path: non-finite")
     print(f"V range [{float(res.values.min())}, {float(res.values.max())}]")
     main_launches = counts["backup6d_recompute"]
@@ -2077,8 +2134,48 @@ def envelope_phases(device, b3) -> list:
           f"{bound5['bound_ms']:.4f} ms by {bound5['bound_by']}); B.3 at "
           f"11^3x10^3 {b3_ns:.3f} ns per cell")
     print(line4)
-    print(f"B.5 (uint8, tracking): {kernel_registers(B5_KERNEL)}; "
-          f"{tile_line(v_main, bk5.args)}")
+    print(f"B.5 (uint8, tracking), backup6d_sweep_recompute_cube: "
+          f"{kernel_registers(B5_CUBE_KERNEL)}; "
+          f"{tile_line(v_main, bk5.args, b6.RECOMPUTE_CUBE_KIND)}")
+    print(f"backup6d_sweep<uint8, tracking, recompute> (B.5 on any other "
+          f"structure, and min-only): {kernel_registers(B5_KERNEL)}")
+    del bk5, rplan, rcost
+    free_cuda()
+    # the envelope cell's configuration, 48^3 x 10^3
+    _, rplan, rcost = attitude.build_full(
+        attitude.AttitudeConfig(**ENV_CELL))
+    bk5c = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
+                       carry_padded=True)
+    del rplan, rcost
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    v_cell = torch.rand((bk5c.NW, bk5c.NE), generator=gen, device=device)
+    v_cell.mul_(100.0)
+    out_vc = torch.empty_like(v_cell)
+    out_ac = torch.empty(v_cell.shape, dtype=torch.uint8, device=device)
+    cube0 = b6.backup6d_recompute_cuda.cube_launches
+    ms5c = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+        v_cell, bk5c.args, out_v=out_vc, out_a=out_ac), repeats=5)
+    bound5c = backup6d_bound(bk5c)
+    print(f"48^3x10^3 sweep (the envelope cell's): B.5 {ms5c:.4f} ms "
+          f"({ms5c * 1e6 / (bk5c.NW * bk5c.NE):.3f} ns per cell) vs bound "
+          f"{bound5c['bound_ms']:.4f} ms by {bound5c['bound_by']} "
+          f"({bound5c['bound_ms'] / ms5c:.1%} of it); "
+          f"{b6.backup6d_recompute_cuda.cube_launches - cube0} of its "
+          f"launches through backup6d_sweep_recompute_cube; "
+          f"{tile_line(v_cell, bk5c.args, b6.RECOMPUTE_CUBE_KIND)}")
+    check(b6.backup6d_recompute_cuda.cube_launches - cube0 == 6,
+          "the 48^3x10^3 sweeps did not run backup6d_sweep_recompute_cube")
+    # the timed body at the cell's shape, bitwise: its first, a middle and
+    # its last rows (ragged against the 2-row chunks) against the plain
+    # version, then every cell against B.4 on a lane plan filled from the
+    # plain recompute
+    nw5 = bk5c.NW
+    recompute_rows_vs_plain(
+        bk5c, v_cell, b6.BackupResult(out_vc, out_ac),
+        [(0, 97), (nw5 // 2 - 51, nw5 // 2 + 46), (nw5 - 97, nw5)])
+    recompute_vs_filled_plan(bk5c, v_cell)
+    del bk5c, v_cell, out_vc, out_ac
+    free_cuda()
     print("plain_ms of B.4 and B.5 are at 19^3x14^3 (phase 17); ms and "
           "bound_ms at 30^3x16^3")
     tmp.cleanup()
@@ -2698,7 +2795,8 @@ def wide_tap_phases(device) -> list:
                         ("<uint8, tracking> (B.4)", B4W_KERNEL),
                         ("<uint8, tracking, recompute> (B.5)", B5W_KERNEL)):
         print(f"backup6d_wide{label}: {kernel_registers(name)}")
-    print(f"backup6d_wide's launch: {tile_line(v2, bk6.args, b3=True)}")
+    print(f"backup6d_wide's launch: "
+          f"{tile_line(v2, bk6.args, b6.CUBE_KIND)}")
     k_ms, p_ms, rb = rl_ms[1]
     return [
         {"name": "rowlane_backup_wide_lanes", "route": "cuda",

@@ -154,6 +154,17 @@
 // 0.321. Its tiles are whole two-row chunks, planned over whole rounds of
 // the card's resident blocks (ops/backup6d.py::plan_tiles).
 //
+// B.5's own body. B.5's whole tracking sweep of the same structure
+// (backup6d_recompute_f32: the Euler lanes recomputed, the whole table,
+// every action, an int32 or uint8 argmin) runs
+// backup6d_sweep_recompute_cube: the cube body's tiles, stage, lane phase
+// and action phase, with the stored lane plan's loads replaced by the lane
+// recompute in its prologue. The lane's four kirk-q loads and its index on
+// each Euler axis serve the thread's two cells; each row's omegas and
+// everything after them are the cell's own, recompute_lanes' operations in
+// its order. 15.7 ms a sweep at 48^3 x 10^3 on an H100 against
+// backup6d_sweep's 25.7, at 123-128 registers and no spills (PERF.md §6).
+//
 // Two kernels take the tap structures. backup6d_sweep, every mode above,
 // takes at most 3 live taps an axis (kMaxTaps): its row combos are the slots
 // of a 3 x 3 x 3 cube, summed without a branch, and its weights sit in
@@ -352,25 +363,35 @@ __device__ __forceinline__ float asin_f32(float x) {
 }
 
 // _affine_locate: t = (coord - start) * (1 / step), lo = clip(floor(t)),
-// frac = t - lo; then the offset from the lane's own index on the axis
+// frac = t - lo; then the offset from the lane's own index own on the axis
 __device__ __forceinline__ void locate(const LaneRec& rec, int k, float coord,
-                                       int c, int& off, float& frac) {
+                                       int own, int& off, float& frac) {
   const float t = __fmul_rn(__fsub_rn(coord, rec.start[k]), rec.inv_step[k]);
   const float lo = fminf(fmaxf(floorf(t), 0.0f), rec.top[k]);
   frac = __fsub_rn(t, lo);
   if (rec.clamp) frac = fminf(fmaxf(frac, 0.0f), 1.0f);
-  off = static_cast<int>(lo) - (c / rec.stride[k]) % rec.size[k];
+  off = static_cast<int>(lo) - own;
+}
+
+// The lane's share of the recompute: lane c's kirk-q components and its
+// index on each Euler axis
+__device__ __forceinline__ void lane_inputs(const LaneRec& rec, int c,
+                                            float (&q)[4], int (&own)[3]) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) q[k] = rec.q[k][c];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) own[k] = (c / rec.stride[k]) % rec.size[k];
 }
 
 // kernelmath.quat_step_readback(h, q, w1, w2, w3, atan2_f32, asin_f32)
-// followed by the locate of each Euler axis, for cell (r, c)
-__device__ __forceinline__ void recompute_lanes(const LaneRec& rec, int r,
-                                                int c, int& o0, int& o1,
-                                                int& o2, float& f0,
-                                                float& f1, float& f2) {
-  const float w1 = rec.w[0][r], w2 = rec.w[1][r], w3 = rec.w[2][r];
-  const float q1 = rec.q[0][c], q2 = rec.q[1][c], q3 = rec.q[2][c],
-              q4 = rec.q[3][c];
+// followed by the locate of each Euler axis, for a row's omegas and a
+// lane's lane_inputs
+__device__ __forceinline__ void cell_lanes(const LaneRec& rec, float w1,
+                                           float w2, float w3,
+                                           const float (&q)[4],
+                                           const int (&own)[3], int (&o)[3],
+                                           float (&f)[3]) {
+  const float q1 = q[0], q2 = q[1], q3 = q[2], q4 = q[3];
   const float h2 = rec.half_h;
   const float a1 = __fadd_rn(
       q1, __fmul_rn(__fadd_rn(__fsub_rn(__fmul_rn(w3, q2), __fmul_rn(w2, q3)),
@@ -402,9 +423,23 @@ __device__ __forceinline__ void recompute_lanes(const LaneRec& rec, int r,
   const float roll = atan2_f32(
       __fmul_rn(__fadd_rn(__fmul_rn(n2, n1), __fmul_rn(n4, n3)), 2.0f),
       __fadd_rn(__fsub_rn(__fsub_rn(sq(n4), sq(n3)), sq(n2)), sq(n1)));
-  locate(rec, 0, yaw, c, o0, f0);
-  locate(rec, 1, pitch, c, o1, f1);
-  locate(rec, 2, roll, c, o2, f2);
+  locate(rec, 0, yaw, own[0], o[0], f[0]);
+  locate(rec, 1, pitch, own[1], o[1], f[1]);
+  locate(rec, 2, roll, own[2], o[2], f[2]);
+}
+
+// The recompute of cell (r, c)
+__device__ __forceinline__ void recompute_lanes(const LaneRec& rec, int r,
+                                                int c, int& o0, int& o1,
+                                                int& o2, float& f0,
+                                                float& f1, float& f2) {
+  float q[4];
+  int own[3], o[3];
+  float f[3];
+  lane_inputs(rec, c, q, own);
+  cell_lanes(rec, rec.w[0][r], rec.w[1][r], rec.w[2][r], q, own, o, f);
+  o0 = o[0], o1 = o[1], o2 = o[2];
+  f0 = f[0], f1 = f[1], f2 = f[2];
 }
 
 // w[i] for a tap index i uniform across the warp (no local memory)
@@ -699,15 +734,17 @@ backup6d_sweep(const float* __restrict__ values,
   }
 }
 
-// The kernel for the attitude solve's own tap structure (see the head of
-// this file): B.3's launch of the full (-1, 0, 1) cube at digit base 3.
-// Thread (q, cl) of a tile takes the kCubeCells cells of tile rows q
-// kCubeCells + k at lane cl. Its lane phase runs over the lane taps t0 in
-// a loop and is one straight line over the (t1, t2) lane taps and the 9
-// (i0, i1) row groups; its action phase is one straight line per cell.
-// kRowAct: c_rowact is given. tp.c_act holds -0.0 where the action cost is
-// 0, so that the add is unconditional and exact (x + -0.0 == x for every
-// x, as the plain version's skipped add).
+// The kernels for the attitude solve's own tap structure (see the head of
+// this file): B.3's launch of the full (-1, 0, 1) cube at digit base 3
+// (backup6d_sweep_cube, a stored lane plan) and B.5's
+// (backup6d_sweep_recompute_cube, the Euler lanes recomputed in its
+// prologue). Thread (q, cl) of a tile takes the kCubeCells cells of tile
+// rows q kCubeCells + k at lane cl. Its lane phase runs over the lane taps
+// t0 in a loop and is one straight line over the (t1, t2) lane taps and
+// the 9 (i0, i1) row groups; its action phase is one straight line per
+// cell. kRowAct: c_rowact is given. tp.c_act holds -0.0 where the action
+// cost is 0, so that the add is unconditional and exact (x + -0.0 == x for
+// every x, as the plain version's skipped add).
 constexpr int kCubeCells = 2;                // CUBE_CELLS in ops/backup6d.py
 constexpr int kCubeThreads = 256;            // CUBE_THREADS
 constexpr int kCubeRows = kCubeCells + 2;    // stage rows a group reads
@@ -914,6 +951,246 @@ backup6d_sweep_cube(const float* __restrict__ values,
       out_v[cell] = out;
       out_a[cell] = best_a;
     }
+  }
+}
+
+// B.5's cube body in three pieces, each as backup6d_sweep_cube runs it
+// (which keeps its own copy: built from these pieces it took 125
+// registers, not 123).
+//
+// The stage: the tile's table rows and each tile row's row tap weights
+// w_k[i][d] at (k * 3 + i) * 3 + d; returns the weights.
+__device__ __forceinline__ const float* cube_stage(
+    float* stage, const float* __restrict__ values,
+    const int* __restrict__ row_off, const float* __restrict__ row_frac,
+    int n_rows, int n_lanes, const Tiles& tl, int r0, int c0) {
+  stage_tile(stage, values, tl, Block{n_rows, 0, 0, kCube}, r0,
+             c0 - tl.reach_lo, n_lanes);
+  float* row_w = stage + tl.weights_at;
+  const long long plane = static_cast<long long>(n_rows) * kCube;
+  for (int j = threadIdx.x; j < tl.rows * kRowWeights; j += blockDim.x) {
+    const int rr = j / kRowWeights, k = (j / 9) % 3, i = (j / 3) % 3;
+    const int d = j % 3, r = r0 + rr;
+    float w = 0.0f;
+    if (r < n_rows) {
+      const int a = k == 0 ? d * 9 : (k == 1 ? d * 3 : d);
+      const long long at = k * plane + static_cast<long long>(r) * kCube + a;
+      w = tap_weight(row_off[at], row_frac[at], i - 1);
+    }
+    row_w[j] = w;
+  }
+  asm volatile("cp.async.wait_all;\n" ::);
+  __syncthreads();
+  return row_w;
+}
+
+// The lane phase: A[k][p] of cell k and row combo p = (i0 *
+// 3 + i1) * 3 + i2, summed over the lane combos e = (t0 * 3 + t1) * 3 +
+// t2 in order, each sum started at -0.0, from the cells' lane tap weights
+// ew[k][axis][tap]. Row group g = (i0, i1) stages its rows at row_base[3
+// g] + 4 i2 width, so cell k's row i2 is the group's stage row k + i2 from
+// the chunk's first: one read serves each (k, i2) of the same stage row.
+// The stage rows' addresses stay in registers, the group's and the lane
+// pair's offsets are uniform.
+__device__ __forceinline__ void cube_lane_phase(
+    const float* stage, const Tiles& tl, const Taps6& tp, int rr0, int cl,
+    const float (&ew)[kCubeCells][3][3], float (&A)[kCubeCells][kCube]) {
+  const char* rowp[kCubeRows];
+#pragma unroll
+  for (int s = 0; s < kCubeRows; ++s) {
+    rowp[s] = reinterpret_cast<const char*>(
+        stage + (rr0 + s) * tl.width + cl + tl.reach_lo);
+  }
+#pragma unroll
+  for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+    for (int p = 0; p < kCube; ++p) A[k][p] = -0.0f;
+  }
+  float w0[kCubeCells][3];   // lane tap t0's weights, shifted a step a pass
+#pragma unroll
+  for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+    for (int t = 0; t < 3; ++t) w0[k][t] = ew[k][0][t];
+  }
+#pragma unroll 1
+  for (int e0 = 0; e0 < 3; ++e0) {
+#pragma unroll
+    for (int e1 = 0; e1 < 3; ++e1) {
+      const int e01 = e0 * 3 + e1;
+      float W[kCubeCells][3];
+#pragma unroll
+      for (int k = 0; k < kCubeCells; ++k) {
+        const float w01 = __fmul_rn(w0[k][0], ew[k][1][e1]);
+#pragma unroll
+        for (int t2 = 0; t2 < 3; ++t2) {
+          W[k][t2] = __fmul_rn(w01, ew[k][2][t2]);
+        }
+      }
+#pragma unroll
+      for (int g = 0; g < 9; ++g) {
+        const int off = tl.row_base[g * 3] + 4 * tp.lane_delta[e01 * 3 + 1];
+        float v[kCubeRows][3];
+#pragma unroll
+        for (int s = 0; s < kCubeRows; ++s) {
+#pragma unroll
+          for (int t2 = 0; t2 < 3; ++t2) {
+            v[s][t2] = *reinterpret_cast<const float*>(rowp[s] + off +
+                                                       4 * (t2 - 1));
+          }
+        }
+#pragma unroll
+        for (int t2 = 0; t2 < 3; ++t2) {
+#pragma unroll
+          for (int k = 0; k < kCubeCells; ++k) {
+#pragma unroll
+            for (int i2 = 0; i2 < 3; ++i2) {
+              float& a = A[k][g * 3 + i2];
+              a = __fadd_rn(a, __fmul_rn(W[k][t2], v[k + i2][t2]));
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+      w0[k][0] = w0[k][1];
+      w0[k][1] = w0[k][2];
+    }
+  }
+}
+
+// The action phase of each cell of the chunk at tile row rr0
+// and lane c: B over i2, C over i1, the totals over i0, then the strict-'<'
+// first minimum over a = (d0 * 3 + d1) * 3 + d2; the cell's value and
+// argmin written (a cell past the table's last row writes nothing).
+template <typename ArgT, bool kRowAct>
+__device__ __forceinline__ void cube_actions(
+    const float* row_w, const Taps6& tp, const float (&A)[kCubeCells][kCube],
+    const float* __restrict__ c_row, const float* __restrict__ c_lane,
+    const float* __restrict__ c_rowact, const float* __restrict__ c_rowlane,
+    float* __restrict__ out_v, ArgT* __restrict__ out_a, int n_rows,
+    int n_lanes, int r0, int rr0, int c) {
+#pragma unroll
+  for (int k = 0; k < kCubeCells; ++k) {
+    const int r = r0 + rr0 + k;
+    if (r >= n_rows) break;
+    const float* w_r = row_w + (rr0 + k) * kRowWeights;
+    float tot[kCube];
+#pragma unroll
+    for (int i0 = 0; i0 < 3; ++i0) {
+      float B[3][3], C[3][3];
+#pragma unroll
+      for (int i1 = 0; i1 < 3; ++i1) {
+#pragma unroll
+        for (int d2 = 0; d2 < 3; ++d2) {
+          const int p = (i0 * 3 + i1) * 3;
+          float acc = __fmul_rn(w_r[18 + d2], A[k][p]);
+          acc = __fadd_rn(acc, __fmul_rn(w_r[21 + d2], A[k][p + 1]));
+          B[i1][d2] = __fadd_rn(acc, __fmul_rn(w_r[24 + d2], A[k][p + 2]));
+        }
+      }
+#pragma unroll
+      for (int d1 = 0; d1 < 3; ++d1) {
+#pragma unroll
+        for (int d2 = 0; d2 < 3; ++d2) {
+          float cc = __fmul_rn(w_r[9 + d1], B[0][d2]);
+          cc = __fadd_rn(cc, __fmul_rn(w_r[12 + d1], B[1][d2]));
+          C[d1][d2] = __fadd_rn(cc, __fmul_rn(w_r[15 + d1], B[2][d2]));
+        }
+      }
+#pragma unroll
+      for (int d0 = 0; d0 < 3; ++d0) {
+#pragma unroll
+        for (int q9 = 0; q9 < 9; ++q9) {
+          const float term = __fmul_rn(w_r[i0 * 3 + d0], C[q9 / 3][q9 % 3]);
+          float& t = tot[d0 * 9 + q9];
+          t = i0 == 0 ? term : __fadd_rn(t, term);
+        }
+      }
+    }
+    float best = 0.0f;
+    int best_a = 0;
+#pragma unroll
+    for (int a = 0; a < kCube; ++a) {
+      float t = __fadd_rn(tot[a], tp.c_act[a]);
+      if constexpr (kRowAct) {
+        t = __fadd_rn(t, c_rowact[static_cast<long long>(r) * kCube + a]);
+      }
+      if (a == 0 || t < best) {   // strict: the first minimum wins
+        best = t;
+        best_a = a;
+      }
+    }
+    const long long cell = static_cast<long long>(r) * n_lanes + c;
+    float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
+    out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
+    out_v[cell] = out;
+    out_a[cell] = static_cast<ArgT>(best_a);
+  }
+}
+
+// B.5's body for the same structure: backup6d_sweep_cube's pieces, with
+// the stored lane plan's loads replaced by the lane recompute of each cell
+// (its quaternion Euler step, renormalization, Euler readback and locates,
+// as recompute_lanes), the lane's kirk-q and its index on each Euler axis
+// read and formed once for the chunk's cells. ArgT: the argmin's type.
+template <typename ArgT, bool kRowAct>
+__global__ void __launch_bounds__(kCubeThreads, 2)
+backup6d_sweep_recompute_cube(const float* __restrict__ values,
+                              const int* __restrict__ row_off,
+                              const float* __restrict__ row_frac,
+                              const float* __restrict__ c_row,
+                              const float* __restrict__ c_lane,
+                              const float* __restrict__ c_rowact,
+                              const float* __restrict__ c_rowlane,
+                              float* __restrict__ out_v,
+                              ArgT* __restrict__ out_a, int n_rows,
+                              int n_lanes, const __grid_constant__ Taps6 tp,
+                              const __grid_constant__ LaneRec rec,
+                              const __grid_constant__ Tiles tl) {
+  extern __shared__ __align__(16) float stage[];
+  const int r0 = blockIdx.x * tl.rows;
+  const int c0 = blockIdx.y * tl.lanes;
+  const float* row_w = cube_stage(stage, values, row_off, row_frac, n_rows,
+                                  n_lanes, tl, r0, c0);
+
+  const int chunks = tl.rows / kCubeCells * tl.lanes;
+  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
+    const int q = i / tl.lanes;
+    const int cl = i - q * tl.lanes;
+    const int rr0 = q * kCubeCells;
+    const int c = c0 + cl;
+    if (r0 + rr0 >= n_rows || c >= n_lanes) continue;
+
+    // prologue: the lane's kirk-q and own indices once, then each cell's
+    // recomputed (off, frac) and lane tap weights ew[k][axis][tap]; a cell
+    // past the table's last row takes zeros and writes nothing
+    float qv[4];
+    int own[3];
+    lane_inputs(rec, c, qv, own);
+    float ew[kCubeCells][3][3];
+#pragma unroll
+    for (int k = 0; k < kCubeCells; ++k) {
+      const int r = r0 + rr0 + k;
+      int o[3] = {0, 0, 0};
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      if (r < n_rows) {
+        cell_lanes(rec, rec.w[0][r], rec.w[1][r], rec.w[2][r], qv, own, o,
+                   f);
+      }
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+#pragma unroll
+        for (int t = 0; t < 3; ++t) {
+          ew[k][ax][t] = tap_weight(o[ax], f[ax], t - 1);
+        }
+      }
+    }
+    float A[kCubeCells][kCube];
+    cube_lane_phase(stage, tl, tp, rr0, cl, ew, A);
+    cube_actions<ArgT, kRowAct>(row_w, tp, A, c_row, c_lane, c_rowact,
+                                c_rowlane, out_v, out_a, n_rows, n_lanes, r0,
+                                rr0, c);
   }
 }
 
@@ -1299,14 +1576,15 @@ struct TileArgs {
 // The planner's int32 array (ops/backup6d.py::TilePlan.ints, TILE_INTS =
 // kTileHead + 4 kWideCombos + 4 ints): R, L, reach_lo, reach_hi, width,
 // staged rows, groups, the row weights a tile row keeps, the plan's kernel
-// (at kWideAt: kSweepKind, kWideKind or kCubeKind); g_delta, g_rows, g_slot
-// (kWideCombos each); the stage slot of each row combo (kWideCombos;
-// backup6d_sweep and backup6d_sweep_cube: by cube slot p, -1 where not
-// live; backup6d_wide: by combo); the grid's row and lane tiles, the
-// shared-memory bytes, the threads of a block.
+// (at kWideAt: kSweepKind, kWideKind, kCubeKind or kRecomputeCubeKind);
+// g_delta, g_rows, g_slot (kWideCombos each); the stage slot of each row
+// combo (kWideCombos; backup6d_sweep and the cube bodies: by cube slot p,
+// -1 where not live; backup6d_wide: by combo); the grid's row and lane
+// tiles, the shared-memory bytes, the threads of a block.
 constexpr int kTileHead = 9;
 constexpr int kWideAt = 8;
-constexpr int kSweepKind = 0, kWideKind = 1, kCubeKind = 2;
+constexpr int kSweepKind = 0, kWideKind = 1, kCubeKind = 2,
+              kRecomputeCubeKind = 3;
 
 // The fields of the planner's array that both kernels read into ta, with
 // the checks that do not depend on the tap structure: the grid must cover
@@ -1563,31 +1841,42 @@ bool full_cube(const Taps6& tp) {
   return true;
 }
 
-// B.3's sweep through backup6d_sweep_cube: the full cube's tap structure
-// and the planner's tiles, checked as fill_tiles checks them and besides:
-// whole chunks of kCubeCells rows a tile, kCubeThreads threads, each row
-// group's three t2 rows consecutive in the stage. cudaErrorInvalidValue
-// when the kernel cannot take the plan.
-int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
-               int n_rows, int n_lanes, void* stream) {
-  Taps6 tp;
-  TileArgs<false> ta;
+// A cube body's tap structure and the planner's tiles of kind into tp and
+// ta, checked as fill_tiles checks them and besides: the full cube, whole
+// chunks of kCubeCells rows a tile, kCubeThreads threads, each row group's
+// three t2 rows consecutive in the stage; the action costs as the bodies
+// add them (-0.0 for a skipped 0). False when the body cannot take the
+// plan.
+bool fill_cube(Taps6& tp, TileArgs<false>& ta, const TapIn& in,
+               const int* tiles, const float* values, int n_rows,
+               int n_lanes, int kind) {
   if (!fill_taps(tp, in) || !full_cube(tp) ||
-      !fill_tiles(ta, tiles, tp, io.values, n_rows, n_lanes, kCubeKind) ||
+      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes, kind) ||
       ta.tl.rows % kCubeCells != 0 || ta.threads != kCubeThreads) {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return false;
   }
   for (int g = 0; g < kMaxGroups; ++g) {
     for (int i2 = 1; i2 < kMaxTaps; ++i2) {
       if (ta.tl.row_base[3 * g + i2] !=
           ta.tl.row_base[3 * g] + 4 * i2 * ta.tl.width) {
-        return static_cast<int>(cudaErrorInvalidValue);
+        return false;
       }
     }
   }
-  // the action costs as the kernel adds them: -0.0 for a skipped 0
   for (int a = 0; a < kCube; ++a) {
     if (tp.c_act[a] == 0.0f) tp.c_act[a] = -0.0f;
+  }
+  return true;
+}
+
+// B.3's sweep through backup6d_sweep_cube. cudaErrorInvalidValue when the
+// kernel cannot take the plan.
+int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
+               int n_rows, int n_lanes, void* stream) {
+  Taps6 tp;
+  TileArgs<false> ta;
+  if (!fill_cube(tp, ta, in, tiles, io.values, n_rows, n_lanes, kCubeKind)) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
   auto kernel = io.c_rowact != nullptr ? backup6d_sweep_cube<true>
                                        : backup6d_sweep_cube<false>;
@@ -1600,6 +1889,48 @@ int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
       io.c_row, io.c_lane, io.c_rowact, io.c_rowlane, io.out_v,
       static_cast<int*>(io.out_a), n_rows, n_lanes, tp, ta.tl);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename ArgT>
+int launch_recompute_cube(const SweepIo& io, const Taps6& tp,
+                          const LaneRec& rec, const TileArgs<false>& ta,
+                          int n_rows, int n_lanes, void* stream) {
+  auto kernel = io.c_rowact != nullptr
+                    ? backup6d_sweep_recompute_cube<ArgT, true>
+                    : backup6d_sweep_recompute_cube<ArgT, false>;
+  const cudaError_t err = allow_stage(kernel, ta.smem_bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<ta.grid, ta.threads, ta.smem_bytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      io.values, io.row_off, io.row_frac, io.c_row, io.c_lane, io.c_rowact,
+      io.c_rowlane, io.out_v, static_cast<ArgT*>(io.out_a), n_rows, n_lanes,
+      tp, rec, ta.tl);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B.5's whole, tracking sweep through backup6d_sweep_recompute_cube, its
+// argmin int32 (argmin_bytes 4) or uint8 (1). cudaErrorInvalidValue when
+// the kernel cannot take the plan or the mode.
+int sweep_recompute_cube(const SweepIo& io, const TapIn& in,
+                         const int* tiles, const LaneRec& rec, int n_rows,
+                         int n_lanes, int argmin_bytes, int track,
+                         void* stream) {
+  Taps6 tp;
+  TileArgs<false> ta;
+  if (!track ||
+      !fill_cube(tp, ta, in, tiles, io.values, n_rows, n_lanes,
+                 kRecomputeCubeKind)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (argmin_bytes == 4) {
+    return launch_recompute_cube<int>(io, tp, rec, ta, n_rows, n_lanes,
+                                      stream);
+  }
+  if (argmin_bytes == 1) {
+    return launch_recompute_cube<unsigned char>(io, tp, rec, ta, n_rows,
+                                                n_lanes, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Resident blocks an SM of one instantiation at this block size and stage.
@@ -1762,6 +2093,10 @@ extern "C" int backup6d_recompute_f32(
   const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
                       {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
                       c_rowlane, out_v, out_a};
+  if (tiles[kWideAt] == kRecomputeCubeKind) {
+    return sweep_recompute_cube(io, in, tiles, rec, n_rows, n_lanes,
+                                argmin_bytes, track, stream);
+  }
   return sweep<true>(io, in, tiles, rec, full_block(n_rows, n_actions),
                      n_rows, n_lanes, argmin_bytes, track, stream);
 }
@@ -1837,7 +2172,8 @@ extern "C" int backup6d_smem_limit(void) {
 
 // Resident blocks an SM of the kernel of one mode (argmin_bytes 4 or 1,
 // track, recompute; kind: the plan's kernel, 0 backup6d_sweep, 1
-// backup6d_wide, 2 backup6d_sweep_cube, B.3's mode alone) at threads a
+// backup6d_wide, 2 backup6d_sweep_cube, B.3's mode alone, 3
+// backup6d_sweep_recompute_cube, B.5's tracking modes alone) at threads a
 // block and smem_bytes of stage, on the current device: the occupancy of a
 // launch; -1 on an error.
 extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
@@ -1853,6 +2189,16 @@ extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
       return mode == 2 ? blocks_of_kernel(backup6d_sweep_cube<false>,
                                           threads, smem_bytes)
                        : -1;
+    case kRecomputeCubeKind:
+      if (mode == 3) {
+        return blocks_of_kernel(backup6d_sweep_recompute_cube<int, false>,
+                                threads, smem_bytes);
+      }
+      return mode == 7
+                 ? blocks_of_kernel(
+                       backup6d_sweep_recompute_cube<unsigned char, false>,
+                       threads, smem_bytes)
+                 : -1;
     default: return -1;
   }
 }

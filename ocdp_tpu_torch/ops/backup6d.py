@@ -28,7 +28,11 @@ taps up to 40 live row and 40 live lane combos, the TPU kernel's
 both. Besides, B.3's launch of the attitude solve's own structure, the
 full (-1, 0, 1) tap cube at action digit base 3 (:func:`cube_body`), runs
 ``backup6d_sweep_cube``, a body compiled for that structure
-(:attr:`TilePlan.cube_body`; counted in ``backup6d_cuda.cube_launches``).
+(:attr:`TilePlan.cube_body`; counted in ``backup6d_cuda.cube_launches``),
+and B.5's whole tracking sweep of it (:func:`recompute_cube_body`) runs
+``backup6d_sweep_recompute_cube``, the same body with the Euler lanes
+recomputed in its prologue (:attr:`TilePlan.recompute_cube_body`; counted
+in ``backup6d_recompute_cuda.cube_launches``).
 
 The state axes split into 3 ROW axes, whose next states depend on the action
 (attitude: omega1..3), and 3 LANE axes, whose next states do not but may
@@ -103,7 +107,8 @@ __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain",
            "block_args", "slice_args", "digit_path", "backup6d_block_cuda",
            "backup6d_slice_cuda", "backup6d_block", "TilePlan",
-           "plan_tiles", "tile_occupancy", "cube_body"]
+           "plan_tiles", "tile_occupancy", "cube_body",
+           "recompute_cube_body"]
 
 # the kernels' fixed capacities (csrc/backup6d.cu): backup6d_sweep takes
 # at most MAX_TAPS live taps per row or lane axis (kMaxTaps; so at most 27
@@ -490,13 +495,14 @@ COMBO_WEIGHTS = 3 * MAX_DIGITS
 MAX_TILE_ROWS = 16
 MAX_TILE_LANES = 2048
 SM_THREADS = 512
-# backup6d_sweep_cube (kCubeCells, kCubeThreads): the cells a thread takes,
-# consecutive tile rows at one lane, and its block, two an SM; the kernels'
-# plan kinds at TilePlan.ints()[8] (kSweepKind, kWideKind, kCubeKind)
+# the cube bodies, backup6d_sweep_cube and backup6d_sweep_recompute_cube
+# (kCubeCells, kCubeThreads): the cells a thread takes, consecutive tile
+# rows at one lane, and its block, two an SM; the kernels' plan kinds at
+# TilePlan.ints()[8] (kSweepKind, kWideKind, kCubeKind, kRecomputeCubeKind)
 CUBE_CELLS = 2
 CUBE_THREADS = 256
-SWEEP_KIND, WIDE_KIND, CUBE_KIND = 0, 1, 2
-# the tap structure backup6d_sweep_cube is compiled for
+SWEEP_KIND, WIDE_KIND, CUBE_KIND, RECOMPUTE_CUBE_KIND = 0, 1, 2, 3
+# the tap structure the cube bodies are compiled for
 CUBE_TAPS = (-1, 0, 1)
 FULL_CUBE = tuple(itertools.product(CUBE_TAPS, repeat=3))
 # an H100 SM's shared memory and what the card reserves of it per block
@@ -508,7 +514,7 @@ SMEM_RESERVED = 1_024
 # 30^3 x 16^3 on an H100; PERF.md §6)
 STAGE_COST = 6
 ONE_BLOCK_COST = 1.2
-# backup6d_sweep_cube's plans count whole rounds of the card's resident
+# the cube bodies' plans count whole rounds of the card's resident
 # blocks (two on each of an H100's SM_COUNT SMs), and each staged row as a
 # loop trip of every thread at STAGE_ROW_COST (fitted to tile sweeps of the
 # cube body at 7^3 x 5^3, 11^3 x 10^3 and 13^3 x 12^3 on an H100; PERF.md
@@ -532,10 +538,13 @@ class TilePlan(NamedTuple):
     plan of ``backup6d_wide`` (a tap structure past ``backup6d_sweep``'s 3
     taps an axis), whose stage slots go by row combo; else ``cube`` is
     ``slots`` by cube slot p = (i0 * 3 + i1) * 3 + i2 (-1: not live).
-    ``cube_body``: the plan of ``backup6d_sweep_cube`` (B.3's launch of
-    the full tap cube, :func:`cube_body`), whose thread takes
-    ``CUBE_CELLS`` consecutive rows of a tile at one lane: ``rows`` is a
-    multiple of ``CUBE_CELLS``, ``threads`` is ``CUBE_THREADS``.
+    ``body``: the cube body the plan is for, whose thread takes
+    ``CUBE_CELLS`` consecutive rows of a tile at one lane (``rows`` is a
+    multiple of ``CUBE_CELLS``, ``threads`` is ``CUBE_THREADS``):
+    ``CUBE_KIND``, ``backup6d_sweep_cube`` (B.3's launch of the full tap
+    cube, :func:`cube_body`); ``RECOMPUTE_CUBE_KIND``,
+    ``backup6d_sweep_recompute_cube`` (B.5's, :func:`recompute_cube_body`);
+    else ``SWEEP_KIND``.
     """
 
     rows: int
@@ -551,13 +560,22 @@ class TilePlan(NamedTuple):
     n_table_rows: int
     table_row0: int
     wide: bool
-    cube_body: bool = False
+    body: int = SWEEP_KIND
 
     @property
     def kind(self) -> int:
         """The plan's kernel, as the kernel's array holds it."""
-        return (WIDE_KIND if self.wide else
-                CUBE_KIND if self.cube_body else SWEEP_KIND)
+        return WIDE_KIND if self.wide else self.body
+
+    @property
+    def cube_body(self) -> bool:
+        """The plan of ``backup6d_sweep_cube``."""
+        return self.body == CUBE_KIND
+
+    @property
+    def recompute_cube_body(self) -> bool:
+        """The plan of ``backup6d_sweep_recompute_cube``."""
+        return self.body == RECOMPUTE_CUBE_KIND
 
     @property
     def row_weights(self) -> int:
@@ -643,7 +661,7 @@ def _lane_reach(lane_combos, lane_shape) -> tuple:
 
 
 def plan_tiles(args: Backup6DArgs, n_table_rows: int, smem_limit: int,
-               b3: bool = False) -> TilePlan:
+               body: int = SWEEP_KIND) -> TilePlan:
     """The tiles of one sweep of ``args`` over a table of ``n_table_rows``
     rows, on a card that lets a block ask for ``smem_limit`` bytes of shared
     memory: the R x L tile (R <= MAX_TILE_ROWS, L a multiple of 32 up to
@@ -654,13 +672,17 @@ def plan_tiles(args: Backup6DArgs, n_table_rows: int, smem_limit: int,
     body: over whole rounds of resident blocks, with ``STAGE_ROW_COST``
     a thread and staged row). The plan
     is ``backup6d_wide``'s (:attr:`TilePlan.wide`) when an axis has more
-    than ``MAX_TAPS`` live taps. ``b3``: the launch is B.3's
-    (:func:`backup6d_cuda`); where :func:`cube_body` holds too, the plan is
-    ``backup6d_sweep_cube``'s (:attr:`TilePlan.cube_body`: rows a multiple
-    of ``CUBE_CELLS``, two blocks of ``CUBE_THREADS`` an SM), or, where no
-    such tile fits, ``backup6d_sweep``'s. Raises ``ValueError`` when no
-    tile fits."""
-    return _tiles(_plan_key(args, b3), n_table_rows, smem_limit)[0]
+    than ``MAX_TAPS`` live taps. ``body``: the cube body the launch asks
+    for. ``CUBE_KIND`` is B.3's launch (:func:`backup6d_cuda`); where
+    :func:`cube_body` holds too, the plan is ``backup6d_sweep_cube``'s
+    (:attr:`TilePlan.cube_body`: rows a multiple of ``CUBE_CELLS``, two
+    blocks of ``CUBE_THREADS`` an SM), or, where no such tile fits,
+    ``backup6d_sweep``'s. ``RECOMPUTE_CUBE_KIND`` is B.5's launch
+    (:func:`backup6d_recompute_cuda`); where :func:`recompute_cube_body`
+    holds too, the plan is ``backup6d_sweep_recompute_cube``'s, the same
+    tiles (:attr:`TilePlan.recompute_cube_body`). ``SWEEP_KIND`` asks for
+    no cube body. Raises ``ValueError`` when no tile fits."""
+    return _tiles(_plan_key(args, body), n_table_rows, smem_limit)[0]
 
 
 def cube_body(args: Backup6DArgs) -> bool:
@@ -671,8 +693,26 @@ def cube_body(args: Backup6DArgs) -> bool:
     action. B.3's launch (:func:`backup6d_cuda`) of such inputs runs it;
     every other launch, and every other structure, runs ``backup6d_sweep``
     or ``backup6d_wide``."""
-    return (args.action_digits == 3 and args.lanes is None
-            and tuple(args.halo) == (0, 0) and args.actions is None
+    return args.lanes is None and _whole_cube(args)
+
+
+def recompute_cube_body(args: Backup6DArgs) -> bool:
+    """Whether ``args`` are what ``backup6d_sweep_recompute_cube`` is
+    compiled for: the tap structure of :func:`cube_body`, the Euler lanes
+    recomputed (``args.lanes``), a tracking sweep of the whole table (no
+    halo) over every action. B.5's launch (:func:`backup6d_recompute_cuda`)
+    of such inputs runs it; a min-only sweep, B.7's row blocks and slices,
+    and every other structure run ``backup6d_sweep`` or
+    ``backup6d_wide``."""
+    return args.lanes is not None and args.track_argmin and \
+        _whole_cube(args)
+
+
+def _whole_cube(args: Backup6DArgs) -> bool:
+    """The full tap cube at digit base 3, swept whole over every
+    action."""
+    return (args.action_digits == 3 and tuple(args.halo) == (0, 0)
+            and args.actions is None
             and _full_cube(args.w_taps, args.row_combos, args.lane_combos))
 
 
@@ -688,13 +728,20 @@ def _full_cube(w_taps, row_combos, lane_combos) -> bool:
             and canon(lane_combos) == FULL_CUBE)
 
 
-def _plan_key(args: Backup6DArgs, b3: bool = False) -> tuple:
+def _plan_key(args: Backup6DArgs, body: int = SWEEP_KIND) -> tuple:
     """What the planner reads of ``args``: the tap structure, the shapes,
-    the output rows and the halo, and whether the launch runs
-    ``backup6d_sweep_cube``."""
+    the output rows and the halo, and the cube body the launch runs
+    (:attr:`TilePlan.body`): ``body`` where ``args`` fit it, else
+    ``SWEEP_KIND``."""
+    if body != SWEEP_KIND and not _BODY_FITS[body](args):
+        body = SWEEP_KIND
     return (args.row_combos, args.lane_combos, args.w_taps,
             tuple(args.row_shape), tuple(args.lane_shape), args.n_rows,
-            tuple(args.halo), b3 and cube_body(args))
+            tuple(args.halo), body)
+
+
+# the cube bodies a launch may ask for, and what its args must be for each
+_BODY_FITS = {CUBE_KIND: cube_body, RECOMPUTE_CUBE_KIND: recompute_cube_body}
 
 
 @functools.lru_cache(maxsize=256)
@@ -740,7 +787,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                 if best is None or cost < best[0]:
                     best = (cost, rows, lanes, threads)
     if best is None and body:
-        return _tiles(key[:-1] + (False,), n_table_rows, smem_limit)
+        return _tiles(key[:-1] + (SWEEP_KIND,), n_table_rows, smem_limit)
     if best is None:
         raise ValueError(f"no tile's stage of a {ne}-lane table with lane "
                          f"reach ({reach_lo}, {reach_hi}) fits {smem_limit} "
@@ -767,7 +814,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                     reach_hi=reach_hi, groups=groups, slots=tuple(slots),
                     cube=tuple(cube), threads=threads, n_rows=n_rows,
                     n_lanes=ne, n_table_rows=n_table_rows,
-                    table_row0=halo[0], wide=wide, cube_body=body)
+                    table_row0=halo[0], wide=wide, body=body)
     ints = plan.ints()
     ints.flags.writeable = False
     return plan, ints
@@ -794,23 +841,24 @@ def _smem_limit(lib, device: torch.device) -> int:
 
 
 def _tiles_for(lib, values: torch.Tensor, args: Backup6DArgs,
-               b3: bool = False) -> tuple:
+               body: int = SWEEP_KIND) -> tuple:
     """``(plan, plan.ints())`` for one launch on ``values``'s device."""
-    return _tiles(_plan_key(args, b3), values.shape[0],
+    return _tiles(_plan_key(args, body), values.shape[0],
                   _smem_limit(lib, values.device))
 
 
 def tile_occupancy(values: torch.Tensor, args: Backup6DArgs,
-                   b3: bool = False) -> tuple:
+                   body: int = SWEEP_KIND) -> tuple:
     """``(plan, blocks)``: the :class:`TilePlan` a launch of the kernel on
-    the CUDA tensor ``values`` takes (``b3``: B.3's launch,
-    :func:`backup6d_cuda`), and how many of its blocks an SM of that card
-    holds (the CUDA occupancy query for the launch's kernel, mode, block
-    size and stage)."""
+    the CUDA tensor ``values`` takes (``body`` as :func:`plan_tiles` has
+    it: ``CUBE_KIND`` for B.3's launch, :func:`backup6d_cuda`;
+    ``RECOMPUTE_CUBE_KIND`` for B.5's, :func:`backup6d_recompute_cuda`),
+    and how many of its blocks an SM of that card holds (the CUDA occupancy
+    query for the launch's kernel, mode, block size and stage)."""
     from .. import _build
 
     lib = _build.load()
-    plan = _tiles_for(lib, values, args, b3)[0]
+    plan = _tiles_for(lib, values, args, body)[0]
     adt, track = _mode_ints(args)
     with torch.cuda.device(values.device):
         blocks = lib.backup6d_blocks_per_sm(adt, track,
@@ -903,7 +951,7 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
     lib = _build.load()
     out_v, out_a = _outputs(values, args, None, None)
     w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
-    plan, ints = _tiles_for(lib, values, args, b3=True)
+    plan, ints = _tiles_for(lib, values, args, CUBE_KIND)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.backup6d_f32(
         _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
@@ -973,7 +1021,10 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
                             ) -> BackupResult:
     """Launch the kernel with the Euler lanes recomputed per cell from
     ``args.lanes`` (B.5); the modes and buffers of
-    :func:`backup6d_flat_cuda`."""
+    :func:`backup6d_flat_cuda`. Its tile plan picks the body:
+    ``backup6d_sweep_recompute_cube`` where :func:`recompute_cube_body`
+    holds (counted in ``.cube_launches`` besides ``.launches``), else
+    ``backup6d_sweep`` or ``backup6d_wide``."""
     from .. import _build
 
     rec = args.lanes
@@ -988,6 +1039,7 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
     w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
     consts = np.asarray([*rec.axis_starts, *rec.axis_inv_steps,
                          rec.h * 0.5], np.float32)
+    plan, ints = _tiles_for(lib, values, args, RECOMPUTE_CUBE_KIND)
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.backup6d_recompute_f32(
         _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
@@ -996,17 +1048,18 @@ def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
         _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
         _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
-        lane_combos.ctypes.data, c_act.ctypes.data,
-        _tiles_for(lib, values, args)[1].ctypes.data,
+        lane_combos.ctypes.data, c_act.ctypes.data, ints.ctypes.data,
         *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
         len(lane_combos), args.action_digits or 0, *_mode_ints(args),
         int(rec.edge == "clamp"), stream)
     _raise_on(lib, err, "backup6d_recompute")
     backup6d_recompute_cuda.launches += 1
+    backup6d_recompute_cuda.cube_launches += plan.recompute_cube_body
     return BackupResult(out_v, out_a)
 
 
 backup6d_recompute_cuda.launches = 0
+backup6d_recompute_cuda.cube_launches = 0
 
 
 def block_args(args: Backup6DArgs, r0: int, r1: int, lo: int,

@@ -19,9 +19,14 @@ in a synchronize, the build included):
 * ``nvcc`` on the tree's ``csrc/backup6d.cu`` alone, after the library's
   build (``nvcc_backup6d_s``);
 * B.3 ``backup6d_cuda``, one sweep of a seeded 11^3 x 10^3 table (the full
-  tap cube: ``backup6d_sweep_cube`` where the tree has it);
+  tap cube: ``backup6d_sweep_cube`` where the tree has it); for it and for
+  B.7a and B.7b besides, the device time of a launch (``*_device_ms``:
+  ``torch.profiler``'s kernel time over 50 back-to-back launches), which
+  the wrapper's host work does not hide;
 * B.4 ``backup6d_flat_cuda`` (uint8, tracking, carry buffers) and B.5
-  ``backup6d_recompute_cuda`` at 30^3 x 16^3 (median of 5);
+  ``backup6d_recompute_cuda`` at 30^3 x 16^3 (median of 5), and B.5 at the
+  envelope cell's 48^3 x 10^3 (the full tap cube:
+  ``backup6d_sweep_recompute_cube`` where the tree has it);
 * B.7b ``backup6d_block_cuda``, rank 0 of 2 at 11^3 x 10^3 (666 rows of a
   932-row local table), and B.7a ``backup6d_slice_cuda``, its first digit
   slice (rank (0, 0) of 2 x 3);
@@ -80,6 +85,21 @@ def main() -> None:
     dev = torch.device("cuda")
     out = {"label": opts.label, "card": smi}
 
+    def device_ms(fn, n=50):
+        fn()
+        torch.cuda.synchronize()
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and ("backup6d_sweep" in e.key or "backup6d_wide" in e.key)]
+        return (sum(e.self_device_time_total for e in rows)
+                / max(sum(e.count for e in rows), 1) / 1e3)
+
     def wall(fn):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -110,6 +130,7 @@ def main() -> None:
                                 inner=5)
     if cube0 is not None:
         out["b3_cube_launches"] = b6.backup6d_cuda.cube_launches - cube0
+    out["b3_device_ms"] = device_ms(lambda: b6.backup6d_cuda(v, bk.args))
     lo, hi = bk.row_reach()
     r1 = (bk.NW + 1) // 2
     blk = b6.block_args(bk.args, 0, r1, lo, hi)
@@ -120,6 +141,10 @@ def main() -> None:
                                  inner=5)
     out["b7a_ms"] = cuda_time_ms(lambda: b6.backup6d_slice_cuda(local, sl),
                                  inner=5)
+    out["b7b_device_ms"] = device_ms(
+        lambda: b6.backup6d_block_cuda(local, blk))
+    out["b7a_device_ms"] = device_ms(
+        lambda: b6.backup6d_slice_cuda(local, sl))
     del bk, v, local
 
     # B.4 and B.5 at 30^3 x 16^3
@@ -134,6 +159,22 @@ def main() -> None:
     out["b5_ms"] = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
         v, bk5.args, out_v=ov, out_a=oa), repeats=5)
     del bk5, rplan, rcost
+    torch.cuda.empty_cache()
+    cell = attitude.AttitudeConfig(n_mesh_w=48, n_mesh_q=10)
+    _, cplan, ccost = attitude.build_full(cell, device=dev)
+    bkc = b6.Backup6D(cplan, ccost, argmin_dtype=torch.uint8,
+                      carry_padded=True)
+    del cplan, ccost
+    vc = torch.rand((bkc.NW, bkc.NE), generator=gen, device=dev).mul_(100.0)
+    ovc = torch.empty_like(vc)
+    oac = torch.empty(vc.shape, dtype=torch.uint8, device=dev)
+    cube0 = getattr(b6.backup6d_recompute_cuda, "cube_launches", None)
+    out["b5_48x10_ms"] = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+        vc, bkc.args, out_v=ovc, out_a=oac), repeats=5)
+    if cube0 is not None:
+        out["b5_48x10_cube_launches"] = \
+            b6.backup6d_recompute_cuda.cube_launches - cube0
+    del bkc, vc, ovc, oac
     torch.cuda.empty_cache()
     _, fplan, fcost = attitude.build_full(env, device=dev, lane_mode="plan")
     bk4 = b6.Backup6D(fplan, fcost, argmin_dtype=torch.uint8,

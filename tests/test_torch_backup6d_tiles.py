@@ -19,9 +19,10 @@ planner's own numbers:
 * B.3's launch of the full (-1, 0, 1) tap cube at digit base 3 plans
   ``backup6d_sweep_cube``'s tiles, whose thread takes ``CUBE_CELLS``
   consecutive rows of a tile at one lane and reads each row group's stage
-  rows once for all of them; every other launch and structure keeps its
-  kernel (the host's choice, through the wrappers with a stand-in
-  library).
+  rows once for all of them; B.5's whole tracking sweep of that structure
+  plans the same tiles for ``backup6d_sweep_recompute_cube``; every other
+  launch and structure keeps its kernel (the host's choice, through the
+  wrappers with a stand-in library).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -63,12 +64,12 @@ WIDE = dict(h=0.02, w_min_deg=-50.0, w_max_deg=30.0,
             inertia_diag=(0.0225, 0.028317, 0.0245))
 
 
-def _backup(case="extrapolate", n_w=5, n_q=4):
+def _backup(case="extrapolate", n_w=5, n_q=4, **kw):
     edge = "clamp" if case == "clamp" else "extrapolate"
     _, plan, cost = tatt.build_full(
         tatt.AttitudeConfig(n_mesh_w=n_w, n_mesh_q=n_q,
                             **(WIDE if case == "wide" else {})),
-        edge=edge, device="cpu")
+        edge=edge, device="cpu", **kw)
     cost = list(cost)
     if case == "generic":
         perm = torch.from_numpy(np.random.default_rng(5).permutation(27))
@@ -217,7 +218,7 @@ def test_ints_are_the_kernels_layout():
                                    + wide.rows * 9 * 36)
     # backup6d_sweep_cube's: kind 2, the cube slots and row weights of
     # backup6d_sweep, CUBE_THREADS threads, rows a multiple of CUBE_CELLS
-    cplan = b6.plan_tiles(_backup().args, 125, SMEM_BLOCK_MAX, b3=True)
+    cplan = b6.plan_tiles(_backup().args, 125, SMEM_BLOCK_MAX, b6.CUBE_KIND)
     cints = cplan.ints()
     assert cplan.cube_body and not cplan.wide
     assert tuple(cints[:9]) == (cplan.rows, cplan.lanes, cplan.reach_lo,
@@ -229,6 +230,14 @@ def test_ints_are_the_kernels_layout():
     assert tuple(cints[-4:]) == (*cplan.grid, cplan.smem_bytes,
                                  b6.CUBE_THREADS)
     assert cplan.rows % b6.CUBE_CELLS == 0
+    # backup6d_sweep_recompute_cube's: kind 3, else the cube plan's ints
+    rargs = _backup(lane_mode="recompute").args
+    rplan = b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
+                          b6.RECOMPUTE_CUBE_KIND)
+    rints = rplan.ints()
+    assert rplan.recompute_cube_body and not rplan.cube_body
+    assert rints[8] == b6.RECOMPUTE_CUBE_KIND == 3
+    np.testing.assert_array_equal(np.delete(rints, 8), np.delete(cints, 8))
 
 
 def test_row_groups_merge_where_runs_meet():
@@ -363,7 +372,7 @@ CUBE_SHAPES = {
 
 
 def _cube_plan(args):
-    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX, b3=True)
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX, b6.CUBE_KIND)
     assert plan.cube_body and plan.kind == b6.CUBE_KIND and not plan.wide
     assert plan.rows % b6.CUBE_CELLS == 0
     assert plan.threads == b6.CUBE_THREADS
@@ -452,16 +461,16 @@ def test_cube_plan_edges():
     assert nw % b6.CUBE_CELLS != 0 and nw % plan.rows != 0
 
 
-def _cube_lane_phase(plan_of):
-    """``_lane_phase`` read as ``backup6d_sweep_cube`` reads it: each
-    chunk's cells from the stage of its tile, row combo (g, i2) of cell k at
-    group g's first stage row + rr0 + k + i2, lane combo (e01, t2) at lane
-    pair e01's middle column + t2 - 1; the joint weights and the sums in
-    ``_lane_phase``'s order."""
+def _cube_lane_phase(plan_of, kind=b6.CUBE_KIND):
+    """``_lane_phase`` read as the cube body of plan kind ``kind`` reads
+    it: each chunk's cells from the stage of its tile, row combo (g, i2) of
+    cell k at group g's first stage row + rr0 + k + i2, lane combo (e01, t2)
+    at lane pair e01's middle column + t2 - 1; the joint weights and the
+    sums in ``_lane_phase``'s order."""
 
     def lane_phase(values, args):
         plan = plan_of(args, values.shape[0])
-        assert plan.cube_body
+        assert plan.kind == kind
         C = b6.CUBE_CELLS
         v = values.numpy()
         nw, ne = args.n_rows, v.shape[1]
@@ -516,7 +525,7 @@ def test_cube_sweep_through_the_stages_equals_plain(case, monkeypatch):
     plans = []
 
     def plan_of(a, n):
-        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX, b3=True))
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX, b6.CUBE_KIND))
         return plans[-1]
 
     monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(plan_of))
@@ -526,6 +535,81 @@ def test_cube_sweep_through_the_stages_equals_plain(case, monkeypatch):
     assert torch.equal(got.argmin, want.argmin)
 
 
+@pytest.mark.parametrize("case", ["5x4", "clamp", "7x5"])
+def test_recompute_cube_sweep_through_the_stages_equals_plain(case,
+                                                              monkeypatch):
+    """B.5's sweep of the full tap cube, its lane phase gathered as
+    ``backup6d_sweep_recompute_cube`` reads it through its plan's stages
+    with the plain recompute's (off, frac), equals ``backup6d_plain``
+    bitwise, values and argmin. 5^3 and 7^3 rows are odd: the last chunk's
+    second cell lies past the table."""
+    rng = np.random.default_rng(31)
+    bk = _backup(case if case == "clamp" else "extrapolate",
+                 *((7, 5) if case == "7x5" else (5, 4)),
+                 lane_mode="recompute")
+    assert bk.recompute and b6.recompute_cube_body(bk.args)
+    assert bk.NW % b6.CUBE_CELLS == 1
+    v = torch.from_numpy(rng.uniform(0.0, 50.0, (bk.NW, bk.NE))
+                         .astype(np.float32))
+    want = b6.backup6d_plain(v, bk.args)
+    plans = []
+
+    def plan_of(a, n):
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX,
+                                   b6.RECOMPUTE_CUBE_KIND))
+        return plans[-1]
+
+    monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(
+        plan_of, b6.RECOMPUTE_CUBE_KIND))
+    got = b6.backup6d_plain(v, bk.args)
+    assert plans and plans[0].grid[0] * plans[0].grid[1] >= 2
+    assert torch.equal(got.values, want.values)
+    assert torch.equal(got.argmin, want.argmin)
+
+
+# a stand-in lane recompute: the planner reads only whether it is there
+_LANES = b6.LaneRecompute(0.0, (), (), (), (), (), "extrapolate")
+
+
+@pytest.mark.parametrize("shape", list(CUBE_SHAPES))
+def test_recompute_cube_plan_is_the_cube_plan(shape):
+    """B.5's launch of the full tap cube plans ``backup6d_sweep_cube``'s
+    tiles, its kind the only difference (so each of its reads lies in its
+    stage and its chunks cover each cell once, as above); a min-only sweep
+    plans ``backup6d_sweep``'s."""
+    args = CUBE_SHAPES[shape]()._replace(lanes=_LANES)
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX,
+                          b6.RECOMPUTE_CUBE_KIND)
+    cube = _cube_plan(args._replace(lanes=None))
+    assert plan.recompute_cube_body and plan.kind == b6.RECOMPUTE_CUBE_KIND
+    assert plan == cube._replace(body=b6.RECOMPUTE_CUBE_KIND)
+    assert b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX) == \
+        _plan(args._replace(lanes=None))
+    min_only = b6.plan_tiles(args._replace(track_argmin=False),
+                             _table_rows(args), SMEM_BLOCK_MAX,
+                             b6.RECOMPUTE_CUBE_KIND)
+    assert min_only.kind == b6.SWEEP_KIND
+
+
+def test_a_launch_asks_for_one_cube_body():
+    """The planner takes the cube body a launch asks for only where the
+    args fit it: B.3's cube asked of a recompute launch, and B.5's of a
+    stored plan, plan ``backup6d_sweep``'s tiles; a kind that is no cube
+    body is not a request."""
+    args, rargs = _backup().args, _backup(lane_mode="recompute").args
+    assert b6.plan_tiles(args, 125, SMEM_BLOCK_MAX,
+                         b6.CUBE_KIND).kind == b6.CUBE_KIND
+    assert b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
+                         b6.RECOMPUTE_CUBE_KIND).kind == \
+        b6.RECOMPUTE_CUBE_KIND
+    assert b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
+                         b6.CUBE_KIND).kind == b6.SWEEP_KIND
+    assert b6.plan_tiles(args, 125, SMEM_BLOCK_MAX,
+                         b6.RECOMPUTE_CUBE_KIND).kind == b6.SWEEP_KIND
+    with pytest.raises(KeyError):
+        b6.plan_tiles(args, 125, SMEM_BLOCK_MAX, b6.WIDE_KIND)
+
+
 class _StandInLibrary:
     """The kernel library's entries, each returning 0 (success) unrun."""
 
@@ -533,30 +617,45 @@ class _StandInLibrary:
         return lambda *args: 0
 
 
-def _synthetic_taps(w_taps, row_combos, digits=3, n_act=27):
+def _synthetic_taps(w_taps, row_combos, digits=3, n_act=27, base=None):
     nw = 5**3
-    return _synthetic(5, 4)._replace(
+    return (base or _synthetic(5, 4))._replace(
         row_off=torch.zeros((), dtype=torch.int32).expand(3, nw, n_act),
         row_combos=tuple(row_combos), w_taps=tuple(w_taps),
         action_digits=digits, c_act=(0.0,) * n_act)
 
 
+# the tap structures besides the full cube at digit base 3
+OTHER_TAPS = {
+    "tap2": (((-1, 0), (-1, 0, 1), (-1, 0, 1)),
+             tuple(itertools.product((-1, 0), (-1, 0, 1), (-1, 0, 1))), 3,
+             27),
+    "dead-combo": (((-1, 0, 1),) * 3, CUBE[:-1], 3, 27),
+    "m2": (((-1, 0, 1),) * 3, CUBE, 2, 8),
+}
+
+
 def _wrapper_case(case):
     """``(wrapper, values, args)`` of one launch, the wrapper the engines
     take for it (``Backup6D._kernel``, or B.7's)."""
-    if case in ("tap2", "dead-combo", "m2"):
-        args = {
-            "tap2": lambda: _synthetic_taps(
-                ((-1, 0), (-1, 0, 1), (-1, 0, 1)),
-                itertools.product((-1, 0), (-1, 0, 1), (-1, 0, 1))),
-            "dead-combo": lambda: _synthetic_taps(((-1, 0, 1),) * 3,
-                                                  CUBE[:-1]),
-            "m2": lambda: _synthetic_taps(((-1, 0, 1),) * 3, CUBE, 2, 8),
-        }[case]()
+    if case in OTHER_TAPS:
+        args = _synthetic_taps(*OTHER_TAPS[case])
         return b6.backup6d_cuda, torch.zeros((args.n_rows, 64)), args
-    if case in ("flat", "recompute", "uint8"):
-        kw = {"flat": dict(flat=True), "recompute": dict(
-            lane_mode="recompute"), "uint8": {}}[case]
+    if case.startswith("recompute"):
+        bk = b6.Backup6D(*tatt.build_full(
+            tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device="cpu",
+            lane_mode="recompute")[1:],
+            argmin_dtype=torch.uint8 if case == "recompute-uint8"
+            else torch.int32, track_argmin=case != "recompute-min-only")
+        args, values = bk.args, torch.zeros((bk.NW, bk.NE))
+        if case == "recompute-block-halos":
+            args, n = _block(bk, 40, 90)
+            return b6.backup6d_block_cuda, torch.zeros((n, bk.NE)), args
+        if case in ("recompute-tap2", "recompute-m2"):
+            args = _synthetic_taps(*OTHER_TAPS[case[10:]], base=args)
+        return b6.backup6d_recompute_cuda, values, args
+    if case in ("flat", "uint8"):
+        kw = {"flat": dict(flat=True), "uint8": {}}[case]
         _, plan, cost = tatt.build_full(
             tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device="cpu", **kw)
         bk = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8
@@ -578,17 +677,26 @@ def _wrapper_case(case):
     ("dead-combo", b6.SWEEP_KIND), ("m2", b6.SWEEP_KIND),
     ("generic", b6.SWEEP_KIND), ("wide-36", b6.WIDE_KIND),
     ("flat", b6.SWEEP_KIND), ("uint8", b6.SWEEP_KIND),
-    ("recompute", b6.SWEEP_KIND), ("block-halos", b6.SWEEP_KIND),
-    ("digit-slice", b6.SWEEP_KIND)])
+    ("recompute", b6.RECOMPUTE_CUBE_KIND),
+    ("recompute-uint8", b6.RECOMPUTE_CUBE_KIND),
+    ("recompute-min-only", b6.SWEEP_KIND),
+    ("recompute-tap2", b6.SWEEP_KIND), ("recompute-m2", b6.SWEEP_KIND),
+    ("recompute-block-halos", b6.SWEEP_KIND),
+    ("block-halos", b6.SWEEP_KIND), ("digit-slice", b6.SWEEP_KIND)])
 def test_host_picks_the_cube_body(case, kind, monkeypatch):
     """The host picks ``backup6d_sweep_cube`` for B.3's launch of the full
     (-1, 0, 1) tap cube at digit base 3 (the attitude reference's
-    structure) and counts it in ``backup6d_cuda.cube_launches`` (B.5's
-    launch, and no other, in ``backup6d_recompute_cuda.launches``); a 2-tap
-    axis, a dead row combo, digit base 2, the generic phase, a 36-combo
-    structure, a flat plan, a uint8 or recompute launch, a row block with
-    its halos and a digit slice keep their kernel. Run through the wrappers
-    with a stand-in library: the plan each launch hands the kernel."""
+    structure) and counts it in ``backup6d_cuda.cube_launches``, and
+    ``backup6d_sweep_recompute_cube`` for B.5's tracking launch of that
+    structure (int32 or uint8), counted in
+    ``backup6d_recompute_cuda.cube_launches`` (B.5's launches, and no
+    other, in ``backup6d_recompute_cuda.launches``); a 2-tap axis, a dead
+    row combo, digit base 2, the generic phase, a 36-combo structure, a flat
+    plan, a uint8 launch of a stored plan, a min-only B.5 launch, B.5 on a
+    2-tap axis or at digit base 2, a row block with its halos (stored or
+    recompute plan) and a digit slice keep their kernel. Run through the
+    wrappers with a stand-in library: the plan each launch hands the
+    kernel."""
     from ocdp_tpu_torch import _build
 
     seen = []
@@ -609,11 +717,17 @@ def test_host_picks_the_cube_body(case, kind, monkeypatch):
     fn, values, args = _wrapper_case(case)
     before = b6.backup6d_cuda.cube_launches
     recompute = b6.backup6d_recompute_cuda.launches
+    recompute_cube = b6.backup6d_recompute_cuda.cube_launches
     fn(values, args)
     assert len(seen) == 1 and seen[0].kind == kind
     assert seen[0].cube_body == (kind == b6.CUBE_KIND)
+    assert seen[0].recompute_cube_body == (kind == b6.RECOMPUTE_CUBE_KIND)
     assert b6.cube_body(args) == (case in ("reference", "flat", "uint8"))
+    assert b6.recompute_cube_body(args) == (
+        case in ("recompute", "recompute-uint8"))
     assert b6.backup6d_cuda.cube_launches == before + (
         kind == b6.CUBE_KIND)
     assert b6.backup6d_recompute_cuda.launches == recompute + (
-        case == "recompute")
+        fn is b6.backup6d_recompute_cuda)
+    assert b6.backup6d_recompute_cuda.cube_launches == recompute_cube + (
+        kind == b6.RECOMPUTE_CUBE_KIND)

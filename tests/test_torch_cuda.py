@@ -10,7 +10,9 @@ edges of its shared-memory tiles and a grid past 2**31 cells, each mode
 also through its kernel for more than 3 taps an axis (``backup6d_wide``,
 36 row combos); B.3's body for the full (-1, 0, 1) tap cube
 (``backup6d_sweep_cube``: the reference shape, exact ties, row-action and
-row-lane costs, its tile edges); the
+row-lane costs, its tile edges) and B.5's (``backup6d_sweep_recompute_cube``:
+uint8 and int32 argmin, exact ties, ``edge='clamp'``, its tile edges, and
+against B.4 on a lane plan filled from the plain recompute); the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
 PyTorch versions, on a card; and the surface's step through B.1
@@ -533,7 +535,7 @@ def test_backup6d_one_sweep_bitwise(device, case, kw):
     v = torch.from_numpy(np.random.default_rng(9).uniform(
         0, 50, bk.state_shape).astype(np.float32)).to(device)
     plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args,
-                                     b3=True)
+                                     b6.CUBE_KIND)
     assert plan.wide == ("w_min_deg" in kw) and blocks >= 1
     assert plan.cube_body == (case == "extrapolate" and "w_min_deg" not in kw)
     before = b6.backup6d_cuda.launches
@@ -573,7 +575,8 @@ def test_backup6d_tiles_bitwise(device, case):
     t = t.contiguous()
     fn = b6.backup6d_cuda if case in ("lanes-cut", "ties") \
         else b6.backup6d_block_cuda
-    plan, blocks = b6.tile_occupancy(t, args, b3=fn is b6.backup6d_cuda)
+    plan, blocks = b6.tile_occupancy(
+        t, args, b6.CUBE_KIND if fn is b6.backup6d_cuda else b6.SWEEP_KIND)
     assert plan.smem_bytes > 0 and blocks >= 1
     if case == "edges":
         assert plan.stage_rows(0).min() < 0 and plan.stage_rows(0).max() >= 10
@@ -673,7 +676,7 @@ def test_backup6d_cube_body_bitwise(device, case):
             c_rowlane=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, bk.NE))
                                        .astype(np.float32)).to(device))
     assert b6.cube_body(args)
-    plan, blocks = b6.tile_occupancy(v, args, b3=True)
+    plan, blocks = b6.tile_occupancy(v, args, b6.CUBE_KIND)
     assert plan.cube_body and blocks >= 1
     if case == "tile-edges":
         assert plan.stage_rows(0).min() < 0
@@ -688,6 +691,85 @@ def test_backup6d_cube_body_bitwise(device, case):
         a = got.argmin
         assert not bool(((a // 9 == 2) | (a // 3 % 3 == 2) | (a % 3 == 2))
                         .any())
+
+
+def _recompute_backup(device, n_w=7, n_q=5, edge="extrapolate",
+                      argmin_dtype=torch.uint8):
+    _, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=n_w, n_mesh_q=n_q), edge=edge,
+        lane_mode="recompute", device=device)
+    return b6.Backup6D(plan, cost, argmin_dtype=argmin_dtype)
+
+
+@pytest.mark.parametrize("case", ["uint8", "int32", "twins", "clamp",
+                                  "tile-edges", "rowact-rowlane"])
+def test_backup6d_recompute_cube_body_bitwise(device, case):
+    """``backup6d_sweep_recompute_cube``, B.5's body for the full (-1, 0,
+    1) tap cube at digit base 3, equal to ``backup6d_plain`` with the plain
+    recompute bit for bit: uint8 and int32 argmin at 7^3 x 5^3 (an odd row
+    count: the last chunk's second cell past the table); exact ties (every
+    action with a digit 2 has a twin, digit 0 there, with the same total:
+    the argmin never holds a 2); ``edge='clamp'``; 11^3 x 10^3 (row tiles
+    clipped at both table edges, 1000 lanes the tile does not divide, an
+    odd row count); row-action and row-lane costs present."""
+    bk = _recompute_backup(
+        device, *((11, 10) if case == "tile-edges" else (7, 5)),
+        edge="clamp" if case == "clamp" else "extrapolate",
+        argmin_dtype=torch.int32 if case == "int32" else torch.uint8)
+    rng = np.random.default_rng(37)
+    v = torch.from_numpy(rng.uniform(0, 50, (bk.NW, bk.NE))
+                         .astype(np.float32)).to(device)
+    args = bk.args
+    if case == "twins":
+        args = _twin_actions(args)
+    elif case == "rowact-rowlane":
+        args = args._replace(
+            c_rowact=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, 27))
+                                      .astype(np.float32)).to(device),
+            c_rowlane=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, bk.NE))
+                                       .astype(np.float32)).to(device))
+    assert b6.recompute_cube_body(args) and bk.NW % b6.CUBE_CELLS == 1
+    plan, blocks = b6.tile_occupancy(v, args, b6.RECOMPUTE_CUBE_KIND)
+    assert plan.recompute_cube_body and blocks >= 1
+    if case == "tile-edges":
+        assert plan.stage_rows(0).min() < 0
+        assert plan.stage_rows(plan.grid[0] - 1).max() >= bk.NW
+        assert bk.NE % plan.lanes != 0
+    before = b6.backup6d_recompute_cuda.launches
+    cube_before = b6.backup6d_recompute_cuda.cube_launches
+    got = b6.backup6d_recompute_cuda(v, args)
+    torch.cuda.synchronize()
+    assert b6.backup6d_recompute_cuda.launches == before + 1
+    assert b6.backup6d_recompute_cuda.cube_launches == cube_before + 1
+    assert got.argmin.dtype == args.argmin_dtype
+    _bitwise(got, b6.backup6d_plain(v, args))
+    if case == "twins":
+        a = got.argmin.int()
+        assert not bool(((a // 9 == 2) | (a // 3 % 3 == 2) | (a % 3 == 2))
+                        .any())
+
+
+def test_backup6d_recompute_cube_equals_b4_on_filled_plan(device):
+    """B.5 through ``backup6d_sweep_recompute_cube`` equals one B.4 sweep
+    (``backup6d_sweep``) of the same table on a lane plan filled from the
+    plain recompute, at 11^3 x 10^3: bitwise, values and argmin."""
+    bk = _recompute_backup(device, 11, 10)
+    a5 = bk.args
+    offs, fracs = a5.lanes.lane_block(0, bk.NW)
+    a4 = a5._replace(lane_off=tuple(o.contiguous() for o in offs),
+                     lane_frac=tuple(f.contiguous() for f in fracs),
+                     lanes=None)
+    v = torch.from_numpy(np.random.default_rng(41).uniform(
+        0, 50, (bk.NW, bk.NE)).astype(np.float32)).to(device)
+    assert b6.tile_occupancy(v, a4)[0].kind == b6.SWEEP_KIND
+    assert b6.tile_occupancy(
+        v, a5, b6.RECOMPUTE_CUBE_KIND)[0].recompute_cube_body
+    cube_before = b6.backup6d_recompute_cuda.cube_launches
+    got4 = b6.backup6d_flat_cuda(v, a4)
+    got5 = b6.backup6d_recompute_cuda(v, a5)
+    torch.cuda.synchronize()
+    assert b6.backup6d_recompute_cuda.cube_launches == cube_before + 1
+    _bitwise(got5, got4)
 
 
 ENVELOPE_MODES = [
@@ -706,7 +788,9 @@ def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge,
                                     size):
     """B.4 (flat stored plan) and B.5 (lane recompute) vs their plain
     versions, one sweep: values and argmin bitwise, through
-    ``backup6d_sweep`` and, at 36 row combos, ``backup6d_wide``."""
+    ``backup6d_sweep`` (B.5's tracking sweeps at 7^3 x 5^3, the full tap
+    cube: ``backup6d_sweep_recompute_cube``) and, at 36 row combos,
+    ``backup6d_wide``."""
     kw = dict(flat=True) if lane_mode == "plan" else dict(lane_mode=lane_mode)
     _, plan, cost = attitude.build_full(
         attitude.AttitudeConfig(**size, n_mesh_q=5), edge=edge, **kw)
