@@ -467,11 +467,7 @@ LAUNCHERS = {"fused_backup2d": fb.fused_backup2d_cuda,
              "fused_backup2d_affine": fb.fused_backup2d_affine_cuda,
              "rowlane_backup": rl.rowlane_backup_cuda,
              "backup6d": b6.backup6d_cuda,
-             "backup6d_flat": b6.backup6d_flat_cuda,
-             "backup6d_recompute": b6.backup6d_recompute_cuda,
-             "band_backup2d": bb.band_backup2d_cuda,
-             "backup6d_block": b6.backup6d_block_cuda,
-             "backup6d_slice": b6.backup6d_slice_cuda}
+             "band_backup2d": bb.band_backup2d_cuda}
 
 
 def reset_launch_counts() -> None:
@@ -483,12 +479,9 @@ def reset_launch_counts() -> None:
 
 
 def launch_counts() -> dict:
-    """Each wrapper's launches, B.3's of ``backup6d_sweep_cube`` and B.5's
-    of ``backup6d_sweep_recompute_cube``."""
+    """Each launcher's launches, and the 6-D launches of the cube body."""
     return {**{name: fn.launches for name, fn in LAUNCHERS.items()},
-            "backup6d_cube": b6.backup6d_cuda.cube_launches,
-            "backup6d_recompute_cube":
-                b6.backup6d_recompute_cuda.cube_launches}
+            "backup6d_cube": b6.backup6d_cuda.cube_launches}
 
 
 STAGE_NAMES = {fb.STAGE_ALL: "every record staged",
@@ -1342,15 +1335,16 @@ def rowlane_bound(bks) -> dict:
 ATT_FULL = dict(n_mesh_w=11, n_mesh_q=10)
 # phase 13's and 14's one-device solves, which phases 28-29 are held to
 REF_6D = {}
-# the mangled names of the 6-D kernels: B.3's backup6d_sweep_cube (no
-# c_rowact), B.5's backup6d_sweep_recompute_cube (uint8 argmin, no
-# c_rowact), then backup6d_sweep's instantiations <ArgT, kTrack,
-# kRecompute>: int32 tracking (B.3 on any other tap structure), B.4 with a
-# uint8 argmin, B.5 with a uint8 argmin (on any other structure)
-B3_KERNEL = "backup6d_sweep_cubeILb0E"
+# the mangled names of the 6-D kernels: the cube body's entries, no
+# c_rowact (B.3's backup6d_sweep_cube with an int32 argmin, B.4's with a
+# uint8 one, B.5's backup6d_sweep_recompute_cube with a uint8 one), then
+# backup6d_sweep's instantiations <ArgT, kTrack, kRecompute>: int32
+# tracking (B.3 on any other tap structure, and B.7), B.5 with a uint8
+# argmin (on any other structure)
+B3_KERNEL = "backup6d_sweep_cubeIiLb0E"
+B4_KERNEL = "backup6d_sweep_cubeIhLb0E"
 B5_CUBE_KERNEL = "backup6d_sweep_recompute_cubeIhLb0E"
 SWEEP_KERNEL = "backup6d_sweepIiLb1ELb0E"
-B4_KERNEL = "backup6d_sweepIhLb1ELb0E"
 B5_KERNEL = "backup6d_sweepIhLb1ELb1E"
 ATT_SERVE = dict(n_mesh_w=11, n_mesh_q=7)
 DEG = np.pi / 180.0
@@ -1478,12 +1472,11 @@ def kernel_registers(name: str) -> str:
     raise RuntimeError(f"chip_smoke: {name} not in the build log")
 
 
-def tile_line(values, args, body: int = b6.SWEEP_KIND) -> str:
+def tile_line(values, args) -> str:
     """The dynamic shared memory a 6-D launch on ``values`` asks for (the
-    tile planner's stage; ``body``: the cube body the launch asks for,
-    ``b6.CUBE_KIND`` for B.3's, ``b6.RECOMPUTE_CUBE_KIND`` for B.5's), its
-    tile and its occupancy (the card's query)."""
-    plan, blocks = b6.tile_occupancy(values, args, body)
+    tile planner's stage), its tile and its occupancy (the card's
+    query)."""
+    plan, blocks = b6.tile_occupancy(values, args)
     return (f"{plan.smem_bytes} B dynamic shared memory a launch (tile "
             f"{plan.rows} rows x {plan.lanes} lanes, stage {plan.n_staged} "
             f"rows x {plan.width} lanes, {plan.threads} threads a block, "
@@ -1498,7 +1491,7 @@ def tile_edge_cases(bk, v) -> float:
     10-row block with no halo rows puts every row tile past both edges
     (0.0 there, as the plain version reads). Returns max |dV|."""
     v2 = v.reshape(bk.NW, bk.NE).contiguous()
-    plan, _ = b6.tile_occupancy(v2, bk.args, b6.CUBE_KIND)
+    plan, _ = b6.tile_occupancy(v2, bk.args)
     top = int(plan.stage_rows(0).min())
     bottom = int(plan.stage_rows(plan.grid[0] - 1).max())
     print(f"{bk.NW}x{bk.NE} tiles {plan.rows} x {plan.lanes}: first row tile "
@@ -1513,9 +1506,12 @@ def tile_edge_cases(bk, v) -> float:
               and plan10.stage_rows(i).max() >= 10
               for i in range(plan10.grid[0])),
           "the 10-row block's tiles are not clipped at both edges")
-    return b7_vs_plain(b6.backup6d_block_cuda, local, args,
-                       f"a 10-row block with no halo rows: {plan10.grid[0]} "
-                       "row tiles, each clipped at both table edges")
+    check(plan10.cube_body, "the 10-row block with no halo rows did not "
+          "plan the cube body")
+    return b7_vs_plain(local, args,
+                       f"a 10-row block with no halo rows (the cube body): "
+                       f"{plan10.grid[0]} row tiles, each clipped at both "
+                       "table edges")
 
 
 def attitude_phases(device) -> dict:
@@ -1673,9 +1669,10 @@ def attitude_phases(device) -> dict:
     v2 = v.reshape(bk.NW, bk.NE).contiguous()
     evals = bk.NW * bk.NE * bk.args.n_actions
     k_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, bk.args), inner=5)
-    # backup6d_sweep on the same inputs (the int32 tracking sweep through
-    # B.4's wrapper): the body every other structure and mode runs
-    s_ms = cuda_time_ms(lambda: b6.backup6d_flat_cuda(v2, bk.args), inner=5)
+    # backup6d_sweep on the same inputs (the same sweep as a range of every
+    # action): the body every other structure and mode runs
+    every = b6.slice_args(bk.args, 0, bk.args.n_actions)
+    s_ms = cuda_time_ms(lambda: b6.backup6d_cuda(v2, every), inner=5)
     p_ms = cuda_time_ms(lambda: b6.backup6d_plain(v2, bk.args))
     b3_bound = backup6d_bound(bk)
     print(f"11^3x10^3 sweep, back to back: kernel {k_ms:.4f} ms "
@@ -1688,10 +1685,10 @@ def attitude_phases(device) -> dict:
           f"stop rule {seg_s:.3f} s; converged engine {conv_s:.3f} s; "
           f"rollout {roll_s / n_roll * 1e3:.3f} ms per stage; peak device "
           f"memory of the main path {peak_mib:.1f} MiB")
-    print(f"backup6d_sweep_cube (B.3): {kernel_registers(B3_KERNEL)}; "
-          f"{tile_line(v2, bk.args, b6.CUBE_KIND)}")
+    print(f"backup6d_sweep_cube<int32> (B.3): "
+          f"{kernel_registers(B3_KERNEL)}; {tile_line(v2, bk.args)}")
     print(f"backup6d_sweep<int32, tracking>: "
-          f"{kernel_registers(SWEEP_KERNEL)}; {tile_line(v2, bk.args)}")
+          f"{kernel_registers(SWEEP_KERNEL)}; {tile_line(v2, every)}")
     return {
         "name": "backup6d",
         "route": "cuda",
@@ -1723,7 +1720,7 @@ def envelope_vs_plain(bk, v, label: str) -> float:
     """One sweep of a flat or recompute backup through its kernel and
     through the plain version; bitwise. Returns max |dV|."""
     want = b6.backup6d_plain(v, bk.args)
-    got = bk._kernel()(v, bk.args)
+    got = b6.backup6d_cuda(v, bk.args)
     torch.cuda.synchronize()
     err = float((got.values - want.values).abs().max())
     same_v = torch.equal(got.values, want.values)
@@ -1766,11 +1763,11 @@ def recompute_vs_filled_plan(bk5, v) -> None:
     """B.5's in-kernel lane (lo, frac) against the plain recompute's on
     every cell of the grid: a stored ``(NW, NE)`` lane plan is filled from
     :meth:`LaneRecompute.lane_block` in row blocks, B.4 sweeps ``v`` once on
-    it with B.5's tap structure (``backup6d_sweep``), and B.5 sweeps the
-    same table once (``backup6d_sweep_recompute_cube`` where the structure
-    is the full tap cube: across the two bodies); values and argmin must be
-    bitwise equal. The filled plan's live lane taps (the stored-plan
-    liveness pass) must lie in B.5's admitted combos."""
+    it with B.5's tap structure, and B.5 sweeps the same table once (at
+    the full tap cube through the cube body's two entries,
+    ``backup6d_sweep_cube`` and ``backup6d_sweep_recompute_cube``); values
+    and argmin must be bitwise equal. The filled plan's live lane taps
+    (the stored-plan liveness pass) must lie in B.5's admitted combos."""
     a5 = bk5.args
     nw, ne = bk5.NW, bk5.NE
     offs = [torch.empty((nw, ne), dtype=torch.int32, device=v.device)
@@ -1790,28 +1787,30 @@ def recompute_vs_filled_plan(bk5, v) -> None:
     _, live = b6._lane_live_device(offs, fracs)
     outside = sorted(set(live) - set(bk5.lane_combos))
     a4 = a5._replace(lane_off=tuple(offs), lane_frac=tuple(fracs), lanes=None)
-    got4 = b6.backup6d_flat_cuda(v, a4)
-    cube0 = b6.backup6d_recompute_cuda.cube_launches
-    got5 = b6.backup6d_recompute_cuda(v, a5)
+    cube0 = b6.backup6d_cuda.cube_launches
+    got4 = b6.backup6d_cuda(v, a4)
+    cube4 = b6.backup6d_cuda.cube_launches - cube0
+    got5 = b6.backup6d_cuda(v, a5)
     torch.cuda.synchronize()
     body5 = ("backup6d_sweep_recompute_cube"
-             if b6.backup6d_recompute_cuda.cube_launches > cube0
+             if b6.backup6d_cuda.cube_launches - cube0 > cube4
              else "backup6d_sweep")
-    cube = b6.recompute_cube_body(a5)
+    cube = b6.cube_body(a5)
     same_v = torch.equal(got4.values, got5.values)
     same_a = torch.equal(got4.argmin, got5.argmin)
     print(f"{nw}x{ne} lane plan filled from the plain recompute in "
           f"{fill_s:.3f} s: its {len(live)} live lane combos outside B.5's "
           f"{len(bk5.lane_combos)} admitted: {len(outside)}; one B.4 sweep "
-          f"on it vs one B.5 sweep ({body5}): values bitwise {same_v}, "
+          f"on it ({'backup6d_sweep_cube' if cube4 else 'backup6d_sweep'}) "
+          f"vs one B.5 sweep ({body5}): values bitwise {same_v}, "
           f"argmin identical {same_a}")
     check(not outside, f"plain recompute taps outside the admitted combos: "
           f"{outside[:5]}")
     check(same_v and same_a, "B.5's recomputed lanes != the plain "
           "recompute's")
-    check((body5 == "backup6d_sweep_recompute_cube") == cube,
-          f"B.5 ran {body5} on a structure the cube body "
-          f"{'fits' if cube else 'does not fit'}")
+    check((body5 == "backup6d_sweep_recompute_cube") == cube == bool(cube4),
+          f"B.5 ran {body5}, B.4 {cube4} cube launches, on a structure the "
+          f"cube body {'fits' if cube else 'does not fit'}")
 
 
 def recompute_rows_vs_plain(bk5, v, got, blocks) -> None:
@@ -1905,8 +1904,9 @@ def envelope_phases(device, b3) -> list:
     print(f"11^3x10^3, 50 sweeps: flat carry-mode solve (B.4) vs non-flat "
           f"solve (B.3): values and argmin identical {same}; launches "
           f"{counts}")
-    check(same and counts["backup6d"] == 50
-          and counts["backup6d_flat"] == 50, "forced flat solve != B.3 solve")
+    check(same and counts["backup6d"] == 100
+          and counts["backup6d_cube"] == 100,
+          "forced flat solve != B.3 solve, or not 100 cube-body launches")
 
     phase("18. main path: attitude.solve_full(AttitudeConfig(n_mesh_w=30, "
           "n_mesh_q=16), num_sweeps=100, segment_size=50, tol=1e-6, "
@@ -1936,15 +1936,14 @@ def envelope_phases(device, b3) -> list:
           f"{peak_main:.3f} GiB; converged {res.converged}")
     check(sol.is_flat and res.argmin.dtype == torch.uint8
           and res.num_sweeps == ENV_SWEEPS
-          and counts["backup6d_recompute"] == ENV_SWEEPS
-          and counts["backup6d_flat"] == 0 and counts["backup6d"] == 0,
-          "main path: not the recompute, flat, uint8, carry-mode envelope")
-    check(counts["backup6d_recompute_cube"] == ENV_SWEEPS,
-          f"main path: {counts['backup6d_recompute_cube']} of "
-          f"{ENV_SWEEPS} B.5 launches through backup6d_sweep_recompute_cube")
+          and counts["backup6d"] == ENV_SWEEPS,
+          "main path: not the flat, uint8, carry-mode envelope")
+    check(counts["backup6d_cube"] == ENV_SWEEPS,
+          f"main path: {counts['backup6d_cube']} of {ENV_SWEEPS} launches "
+          "through the cube body")
     check(bool(torch.isfinite(res.values).all()), "main path: non-finite")
     print(f"V range [{float(res.values.min())}, {float(res.values.max())}]")
-    main_launches = counts["backup6d_recompute"]
+    main_launches = counts["backup6d"]
 
     class Killed(Exception):
         pass
@@ -1962,6 +1961,8 @@ def envelope_phases(device, b3) -> list:
     torch.cuda.synchronize()
     print(f"recompute plan build {t1 - t0:.3f} s, Backup6D (row plan, lane "
           f"liveness, cost split) {time.perf_counter() - t1:.3f} s")
+    check(rbk.recompute, "main path: the auto plan is not the recompute "
+          "plan (B.5)")
     recompute_vs_filled_plan(rbk, res.values)
     free_cuda()
     ckpt2 = str(Path(tmp.name) / "killed.npz")
@@ -2001,15 +2002,16 @@ def envelope_phases(device, b3) -> list:
     torch.cuda.synchronize()
     plan_s = time.perf_counter() - t0
     counts = launch_counts()
-    plan_launches = counts["backup6d_flat"]
+    plan_launches = counts["backup6d"]
     scale = float(res.values.abs().max())
     dv = float((psol.result.values - res.values).abs().max())
     agree = float((psol.result.argmin == res.argmin).float().mean())
     print(f"lane_mode='plan' (chunked build, B.4): {plan_s:.3f} s; launches "
           f"{counts}; vs recompute max |dV| {dv} ({dv / scale:.3e} of "
           f"max|V| {scale}), argmin agreement {agree}")
-    check(plan_launches == ENV_SWEEPS and counts["backup6d_recompute"] == 0,
-          "lane_mode='plan' did not run B.4")
+    check(plan_launches == ENV_SWEEPS
+          and counts["backup6d_cube"] == ENV_SWEEPS,
+          "lane_mode='plan' did not run B.4 through the cube body")
     check(dv <= 1e-4 * scale and agree >= 0.999,
           "stored plan and recompute disagree")
     del psol
@@ -2113,17 +2115,17 @@ def envelope_phases(device, b3) -> list:
     del plan, cost
     out_v = torch.empty_like(v_main)
     out_a = torch.empty(v_main.shape, dtype=torch.uint8, device=device)
-    ms4 = cuda_time_ms(lambda: b6.backup6d_flat_cuda(
+    ms4 = cuda_time_ms(lambda: b6.backup6d_cuda(
         v_main, bk4.args, out_v=out_v, out_a=out_a))
     bound4 = backup6d_bound(bk4)
-    line4 = (f"B.4 (uint8, tracking): {kernel_registers(B4_KERNEL)}; "
-             f"{tile_line(v_main, bk4.args)}")
+    line4 = (f"B.4 (uint8, tracking), backup6d_sweep_cube: "
+             f"{kernel_registers(B4_KERNEL)}; {tile_line(v_main, bk4.args)}")
     del bk4
     free_cuda()
     _, rplan, rcost = attitude.build_full(main_cfg)
     bk5 = b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8,
                       carry_padded=True)
-    ms5 = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+    ms5 = cuda_time_ms(lambda: b6.backup6d_cuda(
         v_main, bk5.args, out_v=out_v, out_a=out_a))
     bound5 = backup6d_bound(bk5)
     b3_ns = b3["ms"] * 1e6 / 1331000
@@ -2136,7 +2138,7 @@ def envelope_phases(device, b3) -> list:
     print(line4)
     print(f"B.5 (uint8, tracking), backup6d_sweep_recompute_cube: "
           f"{kernel_registers(B5_CUBE_KERNEL)}; "
-          f"{tile_line(v_main, bk5.args, b6.RECOMPUTE_CUBE_KIND)}")
+          f"{tile_line(v_main, bk5.args)}")
     print(f"backup6d_sweep<uint8, tracking, recompute> (B.5 on any other "
           f"structure, and min-only): {kernel_registers(B5_KERNEL)}")
     del bk5, rplan, rcost
@@ -2152,18 +2154,18 @@ def envelope_phases(device, b3) -> list:
     v_cell.mul_(100.0)
     out_vc = torch.empty_like(v_cell)
     out_ac = torch.empty(v_cell.shape, dtype=torch.uint8, device=device)
-    cube0 = b6.backup6d_recompute_cuda.cube_launches
-    ms5c = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+    cube0 = b6.backup6d_cuda.cube_launches
+    ms5c = cuda_time_ms(lambda: b6.backup6d_cuda(
         v_cell, bk5c.args, out_v=out_vc, out_a=out_ac), repeats=5)
     bound5c = backup6d_bound(bk5c)
     print(f"48^3x10^3 sweep (the envelope cell's): B.5 {ms5c:.4f} ms "
           f"({ms5c * 1e6 / (bk5c.NW * bk5c.NE):.3f} ns per cell) vs bound "
           f"{bound5c['bound_ms']:.4f} ms by {bound5c['bound_by']} "
           f"({bound5c['bound_ms'] / ms5c:.1%} of it); "
-          f"{b6.backup6d_recompute_cuda.cube_launches - cube0} of its "
+          f"{b6.backup6d_cuda.cube_launches - cube0} of its "
           f"launches through backup6d_sweep_recompute_cube; "
-          f"{tile_line(v_cell, bk5c.args, b6.RECOMPUTE_CUBE_KIND)}")
-    check(b6.backup6d_recompute_cuda.cube_launches - cube0 == 6,
+          f"{tile_line(v_cell, bk5c.args)}")
+    check(b6.backup6d_cuda.cube_launches - cube0 == 6,
           "the 48^3x10^3 sweeps did not run backup6d_sweep_recompute_cube")
     # the timed body at the cell's shape, bitwise: its first, a middle and
     # its last rows (ragged against the 2-row chunks) against the plain
@@ -2661,20 +2663,20 @@ def wide_tap_phases(device) -> list:
     check(len(bk6.row_combos) == 36 and plan.wide,
           f"{len(bk6.row_combos)} row combos, wide plan {plan.wide}")
     b3_err = backup6d_vs_plain(bk6, v6.reshape(bk6.state_shape),
-                               "backup6d_wide through B.3's wrapper")
+                               "backup6d_wide in B.3's mode")
     _, fplan, fcost = attitude.build_full(cfg6, flat=True, device=device)
     b3_err = max(b3_err, envelope_vs_plain(
         b6.Backup6D(fplan, fcost, argmin_dtype=torch.uint8), v6,
-        "backup6d_wide through B.4's (flat) wrapper"))
+        "backup6d_wide in B.4's (flat) mode"))
     del fplan, fcost
     _, rplan, rcost = attitude.build_full(cfg6, lane_mode="recompute",
                                           device=device)
     b3_err = max(b3_err, envelope_vs_plain(
         b6.Backup6D(rplan, rcost, argmin_dtype=torch.uint8), v6,
-        "backup6d_wide through B.5's (recompute) wrapper"))
+        "backup6d_wide in B.5's (recompute) mode"))
     del rplan, rcost
     b3_err = max(b3_err, *b7_blocks_vs_plain(
-        bk6, v6, 2, "backup6d_wide through B.7's wrappers", slices=True))
+        bk6, v6, 2, "backup6d_wide in B.7's modes", slices=True))
     free_cuda()
 
     phase("39. main paths: attitude.solve_simplified(AttitudeConfig("
@@ -2795,8 +2797,7 @@ def wide_tap_phases(device) -> list:
                         ("<uint8, tracking> (B.4)", B4W_KERNEL),
                         ("<uint8, tracking, recompute> (B.5)", B5W_KERNEL)):
         print(f"backup6d_wide{label}: {kernel_registers(name)}")
-    print(f"backup6d_wide's launch: "
-          f"{tile_line(v2, bk6.args, b6.CUBE_KIND)}")
+    print(f"backup6d_wide's launch: {tile_line(v2, bk6.args)}")
     k_ms, p_ms, rb = rl_ms[1]
     return [
         {"name": "rowlane_backup_wide_lanes", "route": "cuda",
@@ -2812,10 +2813,10 @@ def wide_tap_phases(device) -> list:
     ]
 
 
-def b7_vs_plain(fn, v, args, label: str) -> float:
+def b7_vs_plain(v, args, label: str) -> float:
     """One B.7 launch and its plain version on the same inputs; bitwise.
     Returns max |dV|."""
-    got = fn(v, args)
+    got = b6.backup6d_cuda(v, args)
     want = b6.backup6d_plain(v, args)
     torch.cuda.synchronize()
     err = float((got.values - want.values).abs().max())
@@ -2845,8 +2846,7 @@ def b7_blocks_vs_plain(bk, v, n: int, label: str,
         args = b6.block_args(bk.args, r0, r1, lo, hi)
         local = vp[r0:r1 + lo + hi].contiguous()
         where = f"{label}, block {s}/{n} rows [{r0}, {r1}) + halo ({lo}, {hi})"
-        err_b = max(err_b, b7_vs_plain(b6.backup6d_block_cuda, local, args,
-                                       where))
+        err_b = max(err_b, b7_vs_plain(local, args, where))
         if not slices:
             continue
         vals, argm = [], []
@@ -2854,13 +2854,13 @@ def b7_blocks_vs_plain(bk, v, n: int, label: str,
             sa = b6.slice_args(args, 9 * g, 9 * g + 9)
             check(sa.action_digits == 3, f"{where}: slice {g} left the "
                   "digit path")
-            err_s = max(err_s, b7_vs_plain(b6.backup6d_slice_cuda, local, sa,
+            err_s = max(err_s, b7_vs_plain(local, sa,
                                            f"{where}, digit slice {g}"))
-            res = b6.backup6d_slice_cuda(local, sa)
+            res = b6.backup6d_cuda(local, sa)
             vals.append(res.values)
             argm.append(res.argmin)
         vmin, arg = first_min(vals, argm, 27)
-        whole = b6.backup6d_block_cuda(local, args)
+        whole = b6.backup6d_cuda(local, args)
         torch.cuda.synchronize()
         same = (torch.equal(vmin, whole.values)
                 and torch.equal(arg, whole.argmin.to(arg.dtype)))
@@ -2881,9 +2881,8 @@ def b7_slices_vs_one_sweep(bk, v, label: str) -> float:
         sa = b6.slice_args(bk.args, 9 * g, 9 * g + 9)
         check(sa.action_digits == 3, f"{label}: slice {g} left the digit "
               "path")
-        err = max(err, b7_vs_plain(b6.backup6d_slice_cuda, v2, sa,
-                                   f"{label}, digit slice {g}"))
-        res = b6.backup6d_slice_cuda(v2, sa)
+        err = max(err, b7_vs_plain(v2, sa, f"{label}, digit slice {g}"))
+        res = b6.backup6d_cuda(v2, sa)
         vals.append(res.values)
         args.append(res.argmin)
     vmin, arg = first_min(vals, args, 27)
@@ -2942,8 +2941,8 @@ def multirank_phases(device) -> list:
     check(r0 - lo >= 0 and r1 + hi <= bk.NW, "the block's halos leave the "
           "table")
     err_b = max(err_b, b7_vs_plain(
-        b6.backup6d_block_cuda, v50.reshape(bk.NW, bk.NE)[r0 - lo:r1 + hi]
-        .contiguous(), b6.block_args(bk.args, r0, r1, lo, hi),
+        v50.reshape(bk.NW, bk.NE)[r0 - lo:r1 + hi].contiguous(),
+        b6.block_args(bk.args, r0, r1, lo, hi),
         f"11^3x10^3 after 50 sweeps, block rows [{r0}, {r1}) with both "
         f"halos ({lo}, {hi}) from the table"))
     _, _, tbk = attitude_backup(device, "tie", n_mesh_w=5, n_mesh_q=4,
@@ -2954,8 +2953,8 @@ def multirank_phases(device) -> list:
     err_b, err_s = max(err_b, eb), max(err_s, es)
     err_s = max(err_s, b7_slices_vs_one_sweep(tbk, v_tie, "exact ties"))
     for g in range(3):
-        res = b6.backup6d_slice_cuda(v_tie, b6.slice_args(tbk.args, 9 * g,
-                                                          9 * g + 9))
+        res = b6.backup6d_cuda(v_tie, b6.slice_args(tbk.args, 9 * g,
+                                                    9 * g + 9))
         check(bool((res.argmin == 9 * g).all()),
               "exact ties: a later action of the slice won")
     env_cfg = attitude.AttitudeConfig(**ENV_CHECK)
@@ -2979,14 +2978,15 @@ def multirank_phases(device) -> list:
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
     counts = launch_counts()
-    block_launches = counts["backup6d_block"]
+    block_launches = counts["backup6d"]
     print(f"2 ranks, {sweeps} sweeps incl. the build: {main_s:.3f} s; "
           f"launches {counts}; halo bytes moved {mesh2.halo_bytes}")
     check(block_launches == 2 * sweeps,
-          f"backup6d_block launched {block_launches} times, want "
+          f"backup6d (B.7 blocks) launched {block_launches} times, want "
           f"{2 * sweeps}")
-    check(all(n == 0 for k, n in counts.items() if k != "backup6d_block"),
-          "another backup kernel ran on the halo6 main path")
+    check(all(n == 0 for k, n in counts.items() if k != "backup6d"),
+          "another backup kernel, or the cube body, ran on the halo6 main "
+          "path")
     same_result(res2, REF_6D["finite"], "halo6 on 2 ranks vs phase 13's "
                 "one-device solve")
     comms = measure_halo6_comms(full_cfg, 2)
@@ -3009,11 +3009,12 @@ def multirank_phases(device) -> list:
     counts = launch_counts()
     check(res23.digit_path is True, "2 x 3 mesh: the digit slices did not "
           "take the factorized phase")
-    slice_launches = counts["backup6d_slice"]
+    slice_launches = counts["backup6d"]
     print(f"2 x 3 mesh, {sweeps} sweeps: {mesh_s:.3f} s; launches {counts}")
-    check(slice_launches == 6 * sweeps,
-          f"backup6d_slice launched {slice_launches} times, want "
-          f"{6 * sweeps}")
+    check(slice_launches == 6 * sweeps and counts["backup6d_cube"] == 0,
+          f"backup6d (B.7 slices) launched {slice_launches} times, "
+          f"{counts['backup6d_cube']} of them the cube body, want "
+          f"{6 * sweeps} and 0")
     same_result(res23, REF_6D["finite"], "halo6 on 2 x 3 vs phase 13")
     conv = REF_6D["converged"]
     for label, m, act in (("2 ranks", mesh2, None),
@@ -3131,14 +3132,14 @@ def multirank_phases(device) -> list:
     out_v = torch.empty((blk_args.n_rows, bk.NE), device=device)
     out_a = torch.empty((blk_args.n_rows, bk.NE), dtype=torch.int32,
                         device=device)
-    blk_ms = cuda_time_ms(lambda: b6.backup6d_block_cuda(
+    blk_ms = cuda_time_ms(lambda: b6.backup6d_cuda(
         t_blk, blk_args, out_v=out_v, out_a=out_a), inner=5)
     blk_plain_ms = cuda_time_ms(lambda: b6.backup6d_plain(t_blk, blk_args))
     hb23 = Halo6Backup(plan, cost, mesh23, action_axis_name="a")
     st23 = _Ranks(hb23, v50)
     sl_args = hb23.args[0]
     t_sl = st23.cur[0]
-    sl_ms = cuda_time_ms(lambda: b6.backup6d_slice_cuda(
+    sl_ms = cuda_time_ms(lambda: b6.backup6d_cuda(
         t_sl, sl_args, out_v=out_v, out_a=out_a), inner=5)
     sl_plain_ms = cuda_time_ms(lambda: b6.backup6d_plain(t_sl, sl_args))
     sweep2_ms = cuda_time_ms(st2.sweep, inner=5)

@@ -130,40 +130,36 @@
 //   full sweep is generic. The engines combine the ranges by the first
 //   minimum in ascending order, so the combined argmin is the full sweep's.
 //
-// B.3's own body. At the attitude solve's tap structure (3 live taps (-1,
-// 0, 1) on every row and lane axis, all 27 row and 27 lane combos, digit
-// base 3) B.3's launch (backup6d_f32: a stored lane plan, the whole table,
-// every action, an int32 argmin) runs backup6d_sweep_cube, compiled for
-// that structure: no liveness, digit or tap test, no pick and no loop
-// bound is left to run time. A thread takes two cells, tile rows k and
-// k + 1 at one lane. Row combo (i0, i1, i2) of tile row k reads the stage
-// row k + i2 of its (i0, i1) row group, so for each lane combo the two
-// cells' six rows come from four stage rows, and each (t0, t1) lane pair's
-// three t2 lanes are three adjacent columns: 12 stage reads serve 18
-// terms. The stage rows' addresses sit in registers and each group's and
-// lane pair's offset is warp-uniform, so a read is one LDS. The lane phase
-// loops over t0 (its weights shifted a step a pass) and is straight-line
-// over (t1, t2) and the 9 row groups; the action phase (B, C and the 27
-// totals on registers, then the strict-'<' first minimum) is straight-line
-// per cell. Sums, their order and their -0.0 starts are backup6d_sweep's.
-// What bounds it (measured on an H100, PERF.md §6): its instruction
-// stream, about 3,000 instructions a cell, three quarters of them the
-// separately rounded products and sums (without its action phase it is
-// 19% faster, with half its stage reads 3%), at 123 registers and two
-// blocks of 256 an SM; 0.188 ms a reference sweep against backup6d_sweep's
-// 0.321. Its tiles are whole two-row chunks, planned over whole rounds of
-// the card's resident blocks (ops/backup6d.py::plan_tiles).
-//
-// B.5's own body. B.5's whole tracking sweep of the same structure
-// (backup6d_recompute_f32: the Euler lanes recomputed, the whole table,
-// every action, an int32 or uint8 argmin) runs
-// backup6d_sweep_recompute_cube: the cube body's tiles, stage, lane phase
-// and action phase, with the stored lane plan's loads replaced by the lane
-// recompute in its prologue. The lane's four kirk-q loads and its index on
-// each Euler axis serve the thread's two cells; each row's omegas and
-// everything after them are the cell's own, recompute_lanes' operations in
-// its order. 15.7 ms a sweep at 48^3 x 10^3 on an H100 against
-// backup6d_sweep's 25.7, at 123-128 registers and no spills (PERF.md §6).
+// The cube body. At the attitude solve's tap structure (3 live taps (-1, 0,
+// 1) on every row and lane axis, all 27 row and 27 lane combos, digit base 3)
+// a tracking sweep of the whole table over every action, in any of the modes
+// above (stored or recomputed lanes, int32 or uint8 argmin; the host's
+// planner picks it from the inputs, ops/backup6d.py::cube_body), runs one
+// body compiled for that structure: no liveness, digit or tap test, no pick
+// and no loop bound is left to run time. Its two entries differ only in the
+// prologue that forms the lane tap weights: backup6d_sweep_cube loads the
+// stored lane plan, and backup6d_sweep_recompute_cube recomputes the Euler
+// lanes (the lane's four kirk-q loads and its index on each Euler axis once
+// for the thread's cells, then each row's omegas and recompute_lanes'
+// operations in its order). A thread takes two cells, tile rows k and k + 1
+// at one lane. Row combo (i0, i1, i2) of tile row k reads the stage row k +
+// i2 of its (i0, i1) row group, so for each lane combo the two cells' six
+// rows come from four stage rows, and each (t0, t1) lane pair's three t2
+// lanes are three adjacent columns: 12 stage reads serve 18 terms. The stage
+// rows' addresses sit in registers and each group's and lane pair's offset is
+// warp-uniform, so a read is one LDS. The lane phase loops over t0 (its
+// weights shifted a step a pass) and is straight-line over (t1, t2) and the 9
+// row groups; the action phase (B, C and the 27 totals on registers, then the
+// strict-'<' first minimum) is straight-line per cell. Sums, their order and
+// their -0.0 starts are backup6d_sweep's. What bounds it (measured on an
+// H100, PERF.md §6): its instruction stream, about 3,000 instructions a cell,
+// three quarters of them the separately rounded products and sums (without
+// its action phase it is 19% faster, with half its stage reads 3%), at 123
+// registers and two blocks of 256 an SM; 0.188 ms a reference sweep against
+// backup6d_sweep's 0.321, and with the lanes recomputed 15.7 ms a sweep at
+// 48^3 x 10^3 against backup6d_sweep's 25.7. Its tiles are whole two-row
+// chunks, planned over whole rounds of the card's resident blocks
+// (ops/backup6d.py::plan_tiles).
 //
 // Two kernels take the tap structures. backup6d_sweep, every mode above,
 // takes at most 3 live taps an axis (kMaxTaps): its row combos are the slots
@@ -734,40 +730,32 @@ backup6d_sweep(const float* __restrict__ values,
   }
 }
 
-// The kernels for the attitude solve's own tap structure (see the head of
-// this file): B.3's launch of the full (-1, 0, 1) cube at digit base 3
-// (backup6d_sweep_cube, a stored lane plan) and B.5's
-// (backup6d_sweep_recompute_cube, the Euler lanes recomputed in its
-// prologue). Thread (q, cl) of a tile takes the kCubeCells cells of tile
+// The cube body for the attitude solve's own tap structure (see the head of
+// this file). Thread (q, cl) of a tile takes the kCubeCells cells of tile
 // rows q kCubeCells + k at lane cl. Its lane phase runs over the lane taps
 // t0 in a loop and is one straight line over the (t1, t2) lane taps and
 // the 9 (i0, i1) row groups; its action phase is one straight line per
-// cell. kRowAct: c_rowact is given. tp.c_act holds -0.0 where the action
-// cost is 0, so that the add is unconditional and exact (x + -0.0 == x for
-// every x, as the plain version's skipped add).
+// cell. ArgT: the argmin's type; kRowAct: c_rowact is given; kRecompute:
+// the prologue recomputes the Euler lanes from rec (the lane plan's
+// pointers are null), else it loads the stored lane plan (rec is unused).
+// tp.c_act holds -0.0 where the action cost is 0, so that the add is
+// unconditional and exact (x + -0.0 == x for every x, as the plain
+// version's skipped add).
 constexpr int kCubeCells = 2;                // CUBE_CELLS in ops/backup6d.py
 constexpr int kCubeThreads = 256;            // CUBE_THREADS
 constexpr int kCubeRows = kCubeCells + 2;    // stage rows a group reads
 
-template <bool kRowAct>
-__global__ void __launch_bounds__(kCubeThreads, 2)
-backup6d_sweep_cube(const float* __restrict__ values,
-                    const int* __restrict__ row_off,
-                    const float* __restrict__ row_frac,
-                    const int* __restrict__ lane_off0,
-                    const float* __restrict__ lane_frac0,
-                    const int* __restrict__ lane_off1,
-                    const float* __restrict__ lane_frac1,
-                    const int* __restrict__ lane_off2,
-                    const float* __restrict__ lane_frac2,
-                    const float* __restrict__ c_row,
-                    const float* __restrict__ c_lane,
-                    const float* __restrict__ c_rowact,
-                    const float* __restrict__ c_rowlane,
-                    float* __restrict__ out_v, int* __restrict__ out_a,
-                    int n_rows, int n_lanes,
-                    const __grid_constant__ Taps6 tp,
-                    const __grid_constant__ Tiles tl) {
+template <typename ArgT, bool kRowAct, bool kRecompute>
+__device__ __forceinline__ void cube_sweep(
+    const float* __restrict__ values, const int* __restrict__ row_off,
+    const float* __restrict__ row_frac, const int* __restrict__ lane_off0,
+    const float* __restrict__ lane_frac0, const int* __restrict__ lane_off1,
+    const float* __restrict__ lane_frac1, const int* __restrict__ lane_off2,
+    const float* __restrict__ lane_frac2, const float* __restrict__ c_row,
+    const float* __restrict__ c_lane, const float* __restrict__ c_rowact,
+    const float* __restrict__ c_rowlane, float* __restrict__ out_v,
+    ArgT* __restrict__ out_a, int n_rows, int n_lanes, const Taps6& tp,
+    const LaneRec& rec, const Tiles& tl) {
   extern __shared__ __align__(16) float stage[];
   const int r0 = blockIdx.x * tl.rows;
   const int c0 = blockIdx.y * tl.lanes;
@@ -798,8 +786,13 @@ backup6d_sweep_cube(const float* __restrict__ values,
     const int c = c0 + cl;
     if (r0 + rr0 >= n_rows || c >= n_lanes) continue;
 
-    // each cell's lane tap weights ew[k][axis][tap]; a cell past the
-    // table's last row takes zeros and writes nothing
+    // prologue: each cell's lane (off, frac), stored or recomputed (the
+    // lane's kirk-q and own indices read and formed once for the chunk),
+    // and its lane tap weights ew[k][axis][tap]; a cell past the table's
+    // last row takes zeros and writes nothing
+    [[maybe_unused]] float qv[4];
+    [[maybe_unused]] int own[3];
+    if constexpr (kRecompute) lane_inputs(rec, c, qv, own);
     float ew[kCubeCells][3][3];
 #pragma unroll
     for (int k = 0; k < kCubeCells; ++k) {
@@ -807,10 +800,16 @@ backup6d_sweep_cube(const float* __restrict__ values,
       int o[3] = {0, 0, 0};
       float f[3] = {0.0f, 0.0f, 0.0f};
       if (r < n_rows) {
-        const long long cell = static_cast<long long>(r) * n_lanes + c;
-        o[0] = lane_off0[cell], o[1] = lane_off1[cell], o[2] = lane_off2[cell];
-        f[0] = lane_frac0[cell], f[1] = lane_frac1[cell];
-        f[2] = lane_frac2[cell];
+        if constexpr (kRecompute) {
+          cell_lanes(rec, rec.w[0][r], rec.w[1][r], rec.w[2][r], qv, own, o,
+                     f);
+        } else {
+          const long long cell = static_cast<long long>(r) * n_lanes + c;
+          o[0] = lane_off0[cell], o[1] = lane_off1[cell];
+          o[2] = lane_off2[cell];
+          f[0] = lane_frac0[cell], f[1] = lane_frac1[cell];
+          f[2] = lane_frac2[cell];
+        }
       }
 #pragma unroll
       for (int ax = 0; ax < 3; ++ax) {
@@ -949,249 +948,48 @@ backup6d_sweep_cube(const float* __restrict__ values,
       float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
       out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
       out_v[cell] = out;
-      out_a[cell] = best_a;
+      out_a[cell] = static_cast<ArgT>(best_a);
     }
   }
 }
 
-// B.5's cube body in three pieces, each as backup6d_sweep_cube runs it
-// (which keeps its own copy: built from these pieces it took 125
-// registers, not 123).
-//
-// The stage: the tile's table rows and each tile row's row tap weights
-// w_k[i][d] at (k * 3 + i) * 3 + d; returns the weights.
-__device__ __forceinline__ const float* cube_stage(
-    float* stage, const float* __restrict__ values,
-    const int* __restrict__ row_off, const float* __restrict__ row_frac,
-    int n_rows, int n_lanes, const Tiles& tl, int r0, int c0) {
-  stage_tile(stage, values, tl, Block{n_rows, 0, 0, kCube}, r0,
-             c0 - tl.reach_lo, n_lanes);
-  float* row_w = stage + tl.weights_at;
-  const long long plane = static_cast<long long>(n_rows) * kCube;
-  for (int j = threadIdx.x; j < tl.rows * kRowWeights; j += blockDim.x) {
-    const int rr = j / kRowWeights, k = (j / 9) % 3, i = (j / 3) % 3;
-    const int d = j % 3, r = r0 + rr;
-    float w = 0.0f;
-    if (r < n_rows) {
-      const int a = k == 0 ? d * 9 : (k == 1 ? d * 3 : d);
-      const long long at = k * plane + static_cast<long long>(r) * kCube + a;
-      w = tap_weight(row_off[at], row_frac[at], i - 1);
-    }
-    row_w[j] = w;
-  }
-  asm volatile("cp.async.wait_all;\n" ::);
-  __syncthreads();
-  return row_w;
-}
-
-// The lane phase: A[k][p] of cell k and row combo p = (i0 *
-// 3 + i1) * 3 + i2, summed over the lane combos e = (t0 * 3 + t1) * 3 +
-// t2 in order, each sum started at -0.0, from the cells' lane tap weights
-// ew[k][axis][tap]. Row group g = (i0, i1) stages its rows at row_base[3
-// g] + 4 i2 width, so cell k's row i2 is the group's stage row k + i2 from
-// the chunk's first: one read serves each (k, i2) of the same stage row.
-// The stage rows' addresses stay in registers, the group's and the lane
-// pair's offsets are uniform.
-__device__ __forceinline__ void cube_lane_phase(
-    const float* stage, const Tiles& tl, const Taps6& tp, int rr0, int cl,
-    const float (&ew)[kCubeCells][3][3], float (&A)[kCubeCells][kCube]) {
-  const char* rowp[kCubeRows];
-#pragma unroll
-  for (int s = 0; s < kCubeRows; ++s) {
-    rowp[s] = reinterpret_cast<const char*>(
-        stage + (rr0 + s) * tl.width + cl + tl.reach_lo);
-  }
-#pragma unroll
-  for (int k = 0; k < kCubeCells; ++k) {
-#pragma unroll
-    for (int p = 0; p < kCube; ++p) A[k][p] = -0.0f;
-  }
-  float w0[kCubeCells][3];   // lane tap t0's weights, shifted a step a pass
-#pragma unroll
-  for (int k = 0; k < kCubeCells; ++k) {
-#pragma unroll
-    for (int t = 0; t < 3; ++t) w0[k][t] = ew[k][0][t];
-  }
-#pragma unroll 1
-  for (int e0 = 0; e0 < 3; ++e0) {
-#pragma unroll
-    for (int e1 = 0; e1 < 3; ++e1) {
-      const int e01 = e0 * 3 + e1;
-      float W[kCubeCells][3];
-#pragma unroll
-      for (int k = 0; k < kCubeCells; ++k) {
-        const float w01 = __fmul_rn(w0[k][0], ew[k][1][e1]);
-#pragma unroll
-        for (int t2 = 0; t2 < 3; ++t2) {
-          W[k][t2] = __fmul_rn(w01, ew[k][2][t2]);
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < 9; ++g) {
-        const int off = tl.row_base[g * 3] + 4 * tp.lane_delta[e01 * 3 + 1];
-        float v[kCubeRows][3];
-#pragma unroll
-        for (int s = 0; s < kCubeRows; ++s) {
-#pragma unroll
-          for (int t2 = 0; t2 < 3; ++t2) {
-            v[s][t2] = *reinterpret_cast<const float*>(rowp[s] + off +
-                                                       4 * (t2 - 1));
-          }
-        }
-#pragma unroll
-        for (int t2 = 0; t2 < 3; ++t2) {
-#pragma unroll
-          for (int k = 0; k < kCubeCells; ++k) {
-#pragma unroll
-            for (int i2 = 0; i2 < 3; ++i2) {
-              float& a = A[k][g * 3 + i2];
-              a = __fadd_rn(a, __fmul_rn(W[k][t2], v[k + i2][t2]));
-            }
-          }
-        }
-      }
-    }
-#pragma unroll
-    for (int k = 0; k < kCubeCells; ++k) {
-      w0[k][0] = w0[k][1];
-      w0[k][1] = w0[k][2];
-    }
-  }
-}
-
-// The action phase of each cell of the chunk at tile row rr0
-// and lane c: B over i2, C over i1, the totals over i0, then the strict-'<'
-// first minimum over a = (d0 * 3 + d1) * 3 + d2; the cell's value and
-// argmin written (a cell past the table's last row writes nothing).
+// The cube body's two entries, one for each prologue. They keep two names
+// because the benchmark's kernel metrics tell B.3 and B.5 apart by name.
 template <typename ArgT, bool kRowAct>
-__device__ __forceinline__ void cube_actions(
-    const float* row_w, const Taps6& tp, const float (&A)[kCubeCells][kCube],
-    const float* __restrict__ c_row, const float* __restrict__ c_lane,
-    const float* __restrict__ c_rowact, const float* __restrict__ c_rowlane,
-    float* __restrict__ out_v, ArgT* __restrict__ out_a, int n_rows,
-    int n_lanes, int r0, int rr0, int c) {
-#pragma unroll
-  for (int k = 0; k < kCubeCells; ++k) {
-    const int r = r0 + rr0 + k;
-    if (r >= n_rows) break;
-    const float* w_r = row_w + (rr0 + k) * kRowWeights;
-    float tot[kCube];
-#pragma unroll
-    for (int i0 = 0; i0 < 3; ++i0) {
-      float B[3][3], C[3][3];
-#pragma unroll
-      for (int i1 = 0; i1 < 3; ++i1) {
-#pragma unroll
-        for (int d2 = 0; d2 < 3; ++d2) {
-          const int p = (i0 * 3 + i1) * 3;
-          float acc = __fmul_rn(w_r[18 + d2], A[k][p]);
-          acc = __fadd_rn(acc, __fmul_rn(w_r[21 + d2], A[k][p + 1]));
-          B[i1][d2] = __fadd_rn(acc, __fmul_rn(w_r[24 + d2], A[k][p + 2]));
-        }
-      }
-#pragma unroll
-      for (int d1 = 0; d1 < 3; ++d1) {
-#pragma unroll
-        for (int d2 = 0; d2 < 3; ++d2) {
-          float cc = __fmul_rn(w_r[9 + d1], B[0][d2]);
-          cc = __fadd_rn(cc, __fmul_rn(w_r[12 + d1], B[1][d2]));
-          C[d1][d2] = __fadd_rn(cc, __fmul_rn(w_r[15 + d1], B[2][d2]));
-        }
-      }
-#pragma unroll
-      for (int d0 = 0; d0 < 3; ++d0) {
-#pragma unroll
-        for (int q9 = 0; q9 < 9; ++q9) {
-          const float term = __fmul_rn(w_r[i0 * 3 + d0], C[q9 / 3][q9 % 3]);
-          float& t = tot[d0 * 9 + q9];
-          t = i0 == 0 ? term : __fadd_rn(t, term);
-        }
-      }
-    }
-    float best = 0.0f;
-    int best_a = 0;
-#pragma unroll
-    for (int a = 0; a < kCube; ++a) {
-      float t = __fadd_rn(tot[a], tp.c_act[a]);
-      if constexpr (kRowAct) {
-        t = __fadd_rn(t, c_rowact[static_cast<long long>(r) * kCube + a]);
-      }
-      if (a == 0 || t < best) {   // strict: the first minimum wins
-        best = t;
-        best_a = a;
-      }
-    }
-    const long long cell = static_cast<long long>(r) * n_lanes + c;
-    float out = __fadd_rn(__fadd_rn(best, c_row[r]), c_lane[c]);
-    out = __fadd_rn(out, c_rowlane != nullptr ? c_rowlane[cell] : 0.0f);
-    out_v[cell] = out;
-    out_a[cell] = static_cast<ArgT>(best_a);
-  }
+__global__ void __launch_bounds__(kCubeThreads, 2) backup6d_sweep_cube(
+    const float* __restrict__ values, const int* __restrict__ row_off,
+    const float* __restrict__ row_frac, const int* __restrict__ lane_off0,
+    const float* __restrict__ lane_frac0, const int* __restrict__ lane_off1,
+    const float* __restrict__ lane_frac1, const int* __restrict__ lane_off2,
+    const float* __restrict__ lane_frac2, const float* __restrict__ c_row,
+    const float* __restrict__ c_lane, const float* __restrict__ c_rowact,
+    const float* __restrict__ c_rowlane, float* __restrict__ out_v,
+    ArgT* __restrict__ out_a, int n_rows, int n_lanes,
+    const __grid_constant__ Taps6 tp, const __grid_constant__ LaneRec rec,
+    const __grid_constant__ Tiles tl) {
+  cube_sweep<ArgT, kRowAct, false>(
+      values, row_off, row_frac, lane_off0, lane_frac0, lane_off1, lane_frac1,
+      lane_off2, lane_frac2, c_row, c_lane, c_rowact, c_rowlane, out_v, out_a,
+      n_rows, n_lanes, tp, rec, tl);
 }
 
-// B.5's body for the same structure: backup6d_sweep_cube's pieces, with
-// the stored lane plan's loads replaced by the lane recompute of each cell
-// (its quaternion Euler step, renormalization, Euler readback and locates,
-// as recompute_lanes), the lane's kirk-q and its index on each Euler axis
-// read and formed once for the chunk's cells. ArgT: the argmin's type.
 template <typename ArgT, bool kRowAct>
 __global__ void __launch_bounds__(kCubeThreads, 2)
-backup6d_sweep_recompute_cube(const float* __restrict__ values,
-                              const int* __restrict__ row_off,
-                              const float* __restrict__ row_frac,
-                              const float* __restrict__ c_row,
-                              const float* __restrict__ c_lane,
-                              const float* __restrict__ c_rowact,
-                              const float* __restrict__ c_rowlane,
-                              float* __restrict__ out_v,
-                              ArgT* __restrict__ out_a, int n_rows,
-                              int n_lanes, const __grid_constant__ Taps6 tp,
-                              const __grid_constant__ LaneRec rec,
-                              const __grid_constant__ Tiles tl) {
-  extern __shared__ __align__(16) float stage[];
-  const int r0 = blockIdx.x * tl.rows;
-  const int c0 = blockIdx.y * tl.lanes;
-  const float* row_w = cube_stage(stage, values, row_off, row_frac, n_rows,
-                                  n_lanes, tl, r0, c0);
-
-  const int chunks = tl.rows / kCubeCells * tl.lanes;
-  for (int i = threadIdx.x; i < chunks; i += blockDim.x) {
-    const int q = i / tl.lanes;
-    const int cl = i - q * tl.lanes;
-    const int rr0 = q * kCubeCells;
-    const int c = c0 + cl;
-    if (r0 + rr0 >= n_rows || c >= n_lanes) continue;
-
-    // prologue: the lane's kirk-q and own indices once, then each cell's
-    // recomputed (off, frac) and lane tap weights ew[k][axis][tap]; a cell
-    // past the table's last row takes zeros and writes nothing
-    float qv[4];
-    int own[3];
-    lane_inputs(rec, c, qv, own);
-    float ew[kCubeCells][3][3];
-#pragma unroll
-    for (int k = 0; k < kCubeCells; ++k) {
-      const int r = r0 + rr0 + k;
-      int o[3] = {0, 0, 0};
-      float f[3] = {0.0f, 0.0f, 0.0f};
-      if (r < n_rows) {
-        cell_lanes(rec, rec.w[0][r], rec.w[1][r], rec.w[2][r], qv, own, o,
-                   f);
-      }
-#pragma unroll
-      for (int ax = 0; ax < 3; ++ax) {
-#pragma unroll
-        for (int t = 0; t < 3; ++t) {
-          ew[k][ax][t] = tap_weight(o[ax], f[ax], t - 1);
-        }
-      }
-    }
-    float A[kCubeCells][kCube];
-    cube_lane_phase(stage, tl, tp, rr0, cl, ew, A);
-    cube_actions<ArgT, kRowAct>(row_w, tp, A, c_row, c_lane, c_rowact,
-                                c_rowlane, out_v, out_a, n_rows, n_lanes, r0,
-                                rr0, c);
-  }
+backup6d_sweep_recompute_cube(
+    const float* __restrict__ values, const int* __restrict__ row_off,
+    const float* __restrict__ row_frac, const int* __restrict__ lane_off0,
+    const float* __restrict__ lane_frac0, const int* __restrict__ lane_off1,
+    const float* __restrict__ lane_frac1, const int* __restrict__ lane_off2,
+    const float* __restrict__ lane_frac2, const float* __restrict__ c_row,
+    const float* __restrict__ c_lane, const float* __restrict__ c_rowact,
+    const float* __restrict__ c_rowlane, float* __restrict__ out_v,
+    ArgT* __restrict__ out_a, int n_rows, int n_lanes,
+    const __grid_constant__ Taps6 tp, const __grid_constant__ LaneRec rec,
+    const __grid_constant__ Tiles tl) {
+  cube_sweep<ArgT, kRowAct, true>(
+      values, row_off, row_frac, lane_off0, lane_frac0, lane_off1, lane_frac1,
+      lane_off2, lane_frac2, c_row, c_lane, c_rowact, c_rowlane, out_v, out_a,
+      n_rows, n_lanes, tp, rec, tl);
 }
 
 // The kernel for any taps an axis (see the head of this file): the modes,
@@ -1555,11 +1353,6 @@ struct SweepIo {
   void* out_a;
 };
 
-// The whole table, every action: the one-device sweep.
-Block full_block(int n_rows, int n_actions) {
-  return Block{n_rows, 0, 0, n_actions};
-}
-
 template <bool kWide>
 using TapsOf = std::conditional_t<kWide, TapsW, Taps6>;
 template <bool kWide>
@@ -1576,15 +1369,14 @@ struct TileArgs {
 // The planner's int32 array (ops/backup6d.py::TilePlan.ints, TILE_INTS =
 // kTileHead + 4 kWideCombos + 4 ints): R, L, reach_lo, reach_hi, width,
 // staged rows, groups, the row weights a tile row keeps, the plan's kernel
-// (at kWideAt: kSweepKind, kWideKind, kCubeKind or kRecomputeCubeKind);
+// (at kKindAt: kSweepKind, kWideKind or kCubeKind);
 // g_delta, g_rows, g_slot (kWideCombos each); the stage slot of each row
-// combo (kWideCombos; backup6d_sweep and the cube bodies: by cube slot p,
+// combo (kWideCombos; backup6d_sweep and the cube body: by cube slot p,
 // -1 where not live; backup6d_wide: by combo); the grid's row and lane
 // tiles, the shared-memory bytes, the threads of a block.
 constexpr int kTileHead = 9;
-constexpr int kWideAt = 8;
-constexpr int kSweepKind = 0, kWideKind = 1, kCubeKind = 2,
-              kRecomputeCubeKind = 3;
+constexpr int kKindAt = 8;
+constexpr int kSweepKind = 0, kWideKind = 1, kCubeKind = 2;
 
 // The fields of the planner's array that both kernels read into ta, with
 // the checks that do not depend on the tap structure: the grid must cover
@@ -1605,7 +1397,7 @@ const int* read_tiles(TileArgs<kWide>& ta, const int* in, const float* values,
   const long long grid_rows = tail[0], grid_lanes = tail[1];
   const long long smem = tail[2];
   const int threads = tail[3];
-  if (in[7] != row_weights || in[kWideAt] != kind ||
+  if (in[7] != row_weights || in[kKindAt] != kind ||
       threads < 32 || threads > kMaxThreads || threads % 32 != 0 || R < 1 ||
       L < 32 || L % 32 != 0 || reach_lo < 0 || reach_hi < 0 ||
       width != L + reach_lo + reach_hi || n_groups < 1 ||
@@ -1787,38 +1579,9 @@ int launch_mode(const SweepIo& io, const TapsOf<kWide>& tp,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// One sweep in one mode through the kernel the planner chose (the tiles'
-// wide flag): its tap structure and tiles filled and checked, then the
-// launch. cudaErrorInvalidValue when the kernel cannot take the plan.
-template <bool kRecompute>
-int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
-          const LaneRec& rec, const Block& blk, int n_rows, int n_lanes,
-          int argmin_bytes, int track, void* stream) {
-  if (tiles[kWideAt] == kSweepKind) {
-    Taps6 tp;
-    TileArgs<false> ta;
-    if (!fill_taps(tp, in) ||
-        !fill_tiles(ta, tiles, tp, io.values, n_rows, n_lanes)) {
-      return static_cast<int>(cudaErrorInvalidValue);
-    }
-    return launch_mode<kRecompute, false>(io, tp, rec, blk, ta, n_rows,
-                                          n_lanes, in.n_actions,
-                                          argmin_bytes, track, stream);
-  }
-  TapsW tp;
-  TileArgs<true> ta;
-  if (tiles[kWideAt] != kWideKind || !fill_taps_wide(tp, in) ||
-      !fill_tiles_wide(ta, tiles, tp, in, io.values, n_rows, n_lanes)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_mode<kRecompute, true>(io, tp, rec, blk, ta, n_rows, n_lanes,
-                                       in.n_actions, argmin_bytes, track,
-                                       stream);
-}
-
-// Whether tp is backup6d_sweep_cube's structure: 3 live taps (-1, 0, 1) on
-// every row and lane axis, every row combo and the 27 lane combos live in
-// sorted order, digit base 3.
+// Whether tp is the cube body's structure: 3 live taps (-1, 0, 1) on every
+// row and lane axis, every row combo and the 27 lane combos live in sorted
+// order, digit base 3.
 bool full_cube(const Taps6& tp) {
   if (tp.digits != 3 || tp.row_live != (1 << kCube) - 1 ||
       tp.n_lane_combos != kCube) {
@@ -1841,17 +1604,19 @@ bool full_cube(const Taps6& tp) {
   return true;
 }
 
-// A cube body's tap structure and the planner's tiles of kind into tp and
-// ta, checked as fill_tiles checks them and besides: the full cube, whole
-// chunks of kCubeCells rows a tile, kCubeThreads threads, each row group's
-// three t2 rows consecutive in the stage; the action costs as the bodies
-// add them (-0.0 for a skipped 0). False when the body cannot take the
-// plan.
+// The cube body's tap structure and the planner's tiles into tp and ta,
+// checked as fill_tiles checks them and besides: the full cube, a tracking
+// sweep of the whole table over every action, whole chunks of kCubeCells
+// rows a tile, kCubeThreads threads, each row group's three t2 rows
+// consecutive in the stage; the action costs as the body adds them (-0.0
+// for a skipped 0). False when the body cannot take the plan.
 bool fill_cube(Taps6& tp, TileArgs<false>& ta, const TapIn& in,
-               const int* tiles, const float* values, int n_rows,
-               int n_lanes, int kind) {
-  if (!fill_taps(tp, in) || !full_cube(tp) ||
-      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes, kind) ||
+               const int* tiles, const float* values, const Block& blk,
+               int track, int n_rows, int n_lanes) {
+  if (!track || blk.table_row0 != 0 || blk.n_table_rows != n_rows ||
+      blk.a_lo != 0 || blk.a_hi != in.n_actions || !fill_taps(tp, in) ||
+      !full_cube(tp) ||
+      !fill_tiles(ta, tiles, tp, values, n_rows, n_lanes, kCubeKind) ||
       ta.tl.rows % kCubeCells != 0 || ta.threads != kCubeThreads) {
     return false;
   }
@@ -1869,17 +1634,23 @@ bool fill_cube(Taps6& tp, TileArgs<false>& ta, const TapIn& in,
   return true;
 }
 
-// B.3's sweep through backup6d_sweep_cube. cudaErrorInvalidValue when the
-// kernel cannot take the plan.
-int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
-               int n_rows, int n_lanes, void* stream) {
-  Taps6 tp;
-  TileArgs<false> ta;
-  if (!fill_cube(tp, ta, in, tiles, io.values, n_rows, n_lanes, kCubeKind)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The cube body's instantiation of one mode: the stored lane plan's or the
+// recompute's prologue, with or without c_rowact.
+template <typename ArgT>
+auto cube_kernel(bool recompute, bool row_act) {
+  if (recompute) {
+    return row_act ? backup6d_sweep_recompute_cube<ArgT, true>
+                   : backup6d_sweep_recompute_cube<ArgT, false>;
   }
-  auto kernel = io.c_rowact != nullptr ? backup6d_sweep_cube<true>
-                                       : backup6d_sweep_cube<false>;
+  return row_act ? backup6d_sweep_cube<ArgT, true>
+                 : backup6d_sweep_cube<ArgT, false>;
+}
+
+template <typename ArgT>
+int launch_cube(const SweepIo& io, const Taps6& tp, const LaneRec& rec,
+                bool recompute, const TileArgs<false>& ta, int n_rows,
+                int n_lanes, void* stream) {
+  auto kernel = cube_kernel<ArgT>(recompute, io.c_rowact != nullptr);
   const cudaError_t err = allow_stage(kernel, ta.smem_bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<ta.grid, ta.threads, ta.smem_bytes,
@@ -1887,50 +1658,53 @@ int sweep_cube(const SweepIo& io, const TapIn& in, const int* tiles,
       io.values, io.row_off, io.row_frac, io.lane_off[0], io.lane_frac[0],
       io.lane_off[1], io.lane_frac[1], io.lane_off[2], io.lane_frac[2],
       io.c_row, io.c_lane, io.c_rowact, io.c_rowlane, io.out_v,
-      static_cast<int*>(io.out_a), n_rows, n_lanes, tp, ta.tl);
+      static_cast<ArgT*>(io.out_a), n_rows, n_lanes, tp, rec, ta.tl);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename ArgT>
-int launch_recompute_cube(const SweepIo& io, const Taps6& tp,
-                          const LaneRec& rec, const TileArgs<false>& ta,
-                          int n_rows, int n_lanes, void* stream) {
-  auto kernel = io.c_rowact != nullptr
-                    ? backup6d_sweep_recompute_cube<ArgT, true>
-                    : backup6d_sweep_recompute_cube<ArgT, false>;
-  const cudaError_t err = allow_stage(kernel, ta.smem_bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<ta.grid, ta.threads, ta.smem_bytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      io.values, io.row_off, io.row_frac, io.c_row, io.c_lane, io.c_rowact,
-      io.c_rowlane, io.out_v, static_cast<ArgT*>(io.out_a), n_rows, n_lanes,
-      tp, rec, ta.tl);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// B.5's whole, tracking sweep through backup6d_sweep_recompute_cube, its
-// argmin int32 (argmin_bytes 4) or uint8 (1). cudaErrorInvalidValue when
-// the kernel cannot take the plan or the mode.
-int sweep_recompute_cube(const SweepIo& io, const TapIn& in,
-                         const int* tiles, const LaneRec& rec, int n_rows,
-                         int n_lanes, int argmin_bytes, int track,
-                         void* stream) {
+// One sweep in one mode through the kernel the planner chose (the tiles'
+// kind): its tap structure and tiles filled and checked, then the launch.
+// cudaErrorInvalidValue when the kernel cannot take the plan or the mode.
+template <bool kRecompute>
+int sweep(const SweepIo& io, const TapIn& in, const int* tiles,
+          const LaneRec& rec, const Block& blk, int n_rows, int n_lanes,
+          int argmin_bytes, int track, void* stream) {
+  const int invalid = static_cast<int>(cudaErrorInvalidValue);
+  if (tiles[kKindAt] == kWideKind) {
+    TapsW tp;
+    TileArgs<true> ta;
+    if (!fill_taps_wide(tp, in) ||
+        !fill_tiles_wide(ta, tiles, tp, in, io.values, n_rows, n_lanes)) {
+      return invalid;
+    }
+    return launch_mode<kRecompute, true>(io, tp, rec, blk, ta, n_rows,
+                                         n_lanes, in.n_actions, argmin_bytes,
+                                         track, stream);
+  }
   Taps6 tp;
   TileArgs<false> ta;
-  if (!track ||
-      !fill_cube(tp, ta, in, tiles, io.values, n_rows, n_lanes,
-                 kRecomputeCubeKind)) {
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (tiles[kKindAt] == kCubeKind) {
+    if (!fill_cube(tp, ta, in, tiles, io.values, blk, track, n_rows,
+                   n_lanes)) {
+      return invalid;
+    }
+    if (argmin_bytes == 4) {
+      return launch_cube<int>(io, tp, rec, kRecompute, ta, n_rows, n_lanes,
+                              stream);
+    }
+    if (argmin_bytes == 1) {
+      return launch_cube<unsigned char>(io, tp, rec, kRecompute, ta, n_rows,
+                                        n_lanes, stream);
+    }
+    return invalid;
   }
-  if (argmin_bytes == 4) {
-    return launch_recompute_cube<int>(io, tp, rec, ta, n_rows, n_lanes,
-                                      stream);
+  if (!fill_taps(tp, in) ||
+      !fill_tiles(ta, tiles, tp, io.values, n_rows, n_lanes)) {
+    return invalid;
   }
-  if (argmin_bytes == 1) {
-    return launch_recompute_cube<unsigned char>(io, tp, rec, ta, n_rows,
-                                                n_lanes, stream);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_mode<kRecompute, false>(io, tp, rec, blk, ta, n_rows, n_lanes,
+                                        in.n_actions, argmin_bytes, track,
+                                        stream);
 }
 
 // Resident blocks an SM of one instantiation at this block size and stage.
@@ -2002,116 +1776,29 @@ bool fill_rec(LaneRec& rec, const float* w1, const float* w2, const float* w3,
 
 }  // namespace
 
-// One sweep (B.3). Device pointers: values (NW, NE); row_off/row_frac (3,
-// NW, A); lane_off{k}/lane_frac{k} (NW, NE); c_row (NW,); c_lane (NE,);
-// c_rowact (NW, A) and c_rowlane (NW, NE) may be null; out_v/out_a (NW,
-// NE). Host pointers: w_taps (3, 40) live row taps per axis, ascending,
-// n_taps (3,) their counts; row_combos (n_row_combos, 3) and lane_combos
-// (n_lane_combos, 3) the live combos, sorted; c_act (A,); tiles the tile
-// planner's TILE_INTS ints, whose wide flag picks backup6d_sweep or
-// backup6d_wide. digits: the action digit base m (A == m^3), or 0 for the
-// generic action phase. Returns a cudaError_t (0 on success):
+// One sweep, in every mode. Device pointers: values (n_table_rows, NE), of
+// which output row 0 is table row table_row0; row_off/row_frac (3,
+// n_out_rows, A); on a stored lane plan lane_off{k}/lane_frac{k}
+// (n_out_rows, NE), else (recompute 1, B.5) w1..w3 (n_out_rows,) the rows'
+// omegas and q1..q4 (NE,) the lanes' kirk-q components, the other four
+// null; c_row (n_out_rows,); c_lane (NE,); c_rowact (n_out_rows, A) and
+// c_rowlane (n_out_rows, NE) may be null; out_v/out_a (n_out_rows, NE),
+// out_a int32 (argmin_bytes 4) or uint8 (argmin_bytes 1), buffers the
+// caller may reuse. Host pointers: rec_consts start[3], inv_step[3] and
+// half_h, float32 (null on a stored lane plan); w_taps (3, 40) live row
+// taps per axis, ascending, n_taps (3,) their counts; row_combos
+// (n_row_combos, 3) and lane_combos (n_lane_combos, 3) the live combos,
+// sorted; c_act (A,); tiles the tile planner's TILE_INTS ints, whose kind
+// picks backup6d_sweep, backup6d_wide or the cube body. digits: the action
+// digit base m (A == m^3), or 0 for the generic action phase; track 0: a
+// min-only sweep (all-zero argmin); clamp: edge='clamp'. The first minimum
+// runs over the actions [a_lo, a_hi) and out_a holds global action
+// indices; with digits > 0, a_lo and a_hi must be multiples of digits^2
+// (whole fixed-d0 slices). Returns a cudaError_t (0 on success):
 // cudaErrorInvalidValue when the tap structure exceeds the kernel's
-// capacities or the tiles do not cover the reads, else the error of the
-// launch.
+// capacities, the tiles do not cover the reads or the kernel does not take
+// the mode, else the error of the launch.
 extern "C" int backup6d_f32(
-    const float* values, const int* row_off, const float* row_frac,
-    const int* lane_off0, const float* lane_frac0, const int* lane_off1,
-    const float* lane_frac1, const int* lane_off2, const float* lane_frac2,
-    const float* c_row, const float* c_lane, const float* c_rowact,
-    const float* c_rowlane, float* out_v, int* out_a, const int* w_taps,
-    const int* n_taps, const int* row_combos, const int* lane_combos,
-    const float* c_act, const int* tiles, int n_r0, int n_r1, int n_r2,
-    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
-    int n_lane_combos, int digits, void* stream) {
-  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
-                    n_lane_combos, digits};
-  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  const SweepIo io = {values, row_off, row_frac,
-                      {lane_off0, lane_off1, lane_off2},
-                      {lane_frac0, lane_frac1, lane_frac2},
-                      c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  if (tiles[kWideAt] == kCubeKind) {
-    return sweep_cube(io, in, tiles, n_rows, n_lanes, stream);
-  }
-  return sweep<false>(io, in, tiles, LaneRec{}, full_block(n_rows, n_actions),
-                      n_rows, n_lanes, 4, 1, stream);
-}
-
-// One sweep on a flat plan (B.4): the arguments of backup6d_f32, with out_a
-// int32 (argmin_bytes 4) or uint8 (argmin_bytes 1) and track 0 for a
-// min-only sweep. out_v and out_a may be buffers the caller reuses.
-extern "C" int backup6d_flat_f32(
-    const float* values, const int* row_off, const float* row_frac,
-    const int* lane_off0, const float* lane_frac0, const int* lane_off1,
-    const float* lane_frac1, const int* lane_off2, const float* lane_frac2,
-    const float* c_row, const float* c_lane, const float* c_rowact,
-    const float* c_rowlane, float* out_v, void* out_a, const int* w_taps,
-    const int* n_taps, const int* row_combos, const int* lane_combos,
-    const float* c_act, const int* tiles, int n_r0, int n_r1, int n_r2,
-    int n_l0, int n_l1, int n_l2, int n_actions, int n_row_combos,
-    int n_lane_combos, int digits, int argmin_bytes, int track,
-    void* stream) {
-  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
-                    n_lane_combos, digits};
-  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  const SweepIo io = {values, row_off, row_frac,
-                      {lane_off0, lane_off1, lane_off2},
-                      {lane_frac0, lane_frac1, lane_frac2},
-                      c_row, c_lane, c_rowact, c_rowlane, out_v, out_a};
-  return sweep<false>(io, in, tiles, LaneRec{}, full_block(n_rows, n_actions),
-                      n_rows, n_lanes, argmin_bytes, track, stream);
-}
-
-// One sweep with the Euler lanes recomputed per cell (B.5). Device
-// pointers: w1..w3 (NW,) the rows' omegas, q1..q4 (NE,) the lanes' kirk-q
-// components; the rest as backup6d_flat_f32, without lane plan arrays.
-// Host pointer rec_consts: start[3], inv_step[3] and half_h, float32.
-// clamp: edge='clamp'.
-extern "C" int backup6d_recompute_f32(
-    const float* values, const int* row_off, const float* row_frac,
-    const float* w1, const float* w2, const float* w3, const float* q1,
-    const float* q2, const float* q3, const float* q4,
-    const float* rec_consts, const float* c_row, const float* c_lane,
-    const float* c_rowact, const float* c_rowlane, float* out_v, void* out_a,
-    const int* w_taps, const int* n_taps, const int* row_combos,
-    const int* lane_combos, const float* c_act, const int* tiles, int n_r0,
-    int n_r1, int n_r2, int n_l0, int n_l1, int n_l2, int n_actions,
-    int n_row_combos, int n_lane_combos, int digits, int argmin_bytes,
-    int track, int clamp, void* stream) {
-  const TapIn in = {w_taps, n_taps, row_combos, lane_combos, c_act, n_r1,
-                    n_r2, n_l1, n_l2, n_actions, n_row_combos,
-                    n_lane_combos, digits};
-  LaneRec rec;
-  const int n_rows = n_r0 * n_r1 * n_r2, n_lanes = n_l0 * n_l1 * n_l2;
-  if (!fill_rec(rec, w1, w2, w3, q1, q2, q3, q4, rec_consts, n_l0, n_l1,
-                n_l2, clamp)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const SweepIo io = {values, row_off, row_frac, {nullptr, nullptr, nullptr},
-                      {nullptr, nullptr, nullptr}, c_row, c_lane, c_rowact,
-                      c_rowlane, out_v, out_a};
-  if (tiles[kWideAt] == kRecomputeCubeKind) {
-    return sweep_recompute_cube(io, in, tiles, rec, n_rows, n_lanes,
-                                argmin_bytes, track, stream);
-  }
-  return sweep<true>(io, in, tiles, rec, full_block(n_rows, n_actions),
-                     n_rows, n_lanes, argmin_bytes, track, stream);
-}
-
-// One sweep of one rank's row block and action range (B.7). The arguments
-// of backup6d_flat_f32, then B.5's w1..w3, q1..q4 and rec_consts (all null
-// on a stored lane plan, whose lane_off/lane_frac are then given; the
-// reverse for recompute 1), then the block: values (n_table_rows, NE), of
-// which output row 0 is table row table_row0; the per-row device arrays
-// (row_off/row_frac (3, n_out_rows, A), the lane plan or w1..w3, c_row,
-// c_rowact, c_rowlane) and out_v/out_a hold the n_out_rows output rows; the
-// first minimum runs over the actions [a_lo, a_hi) and out_a holds global
-// action indices. With digits > 0, a_lo and a_hi must be multiples of
-// digits^2 (whole fixed-d0 slices).
-extern "C" int backup6d_block_f32(
     const float* values, const int* row_off, const float* row_frac,
     const int* lane_off0, const float* lane_frac0, const int* lane_off1,
     const float* lane_frac1, const int* lane_off2, const float* lane_frac2,
@@ -2172,8 +1859,7 @@ extern "C" int backup6d_smem_limit(void) {
 
 // Resident blocks an SM of the kernel of one mode (argmin_bytes 4 or 1,
 // track, recompute; kind: the plan's kernel, 0 backup6d_sweep, 1
-// backup6d_wide, 2 backup6d_sweep_cube, B.3's mode alone, 3
-// backup6d_sweep_recompute_cube, B.5's tracking modes alone) at threads a
+// backup6d_wide, 2 the cube body, its tracking modes alone) at threads a
 // block and smem_bytes of stage, on the current device: the occupancy of a
 // launch; -1 on an error.
 extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
@@ -2186,19 +1872,13 @@ extern "C" int backup6d_blocks_per_sm(int argmin_bytes, int track,
     case kSweepKind: return blocks_of_mode<false>(mode, threads, smem_bytes);
     case kWideKind: return blocks_of_mode<true>(mode, threads, smem_bytes);
     case kCubeKind:
-      return mode == 2 ? blocks_of_kernel(backup6d_sweep_cube<false>,
-                                          threads, smem_bytes)
-                       : -1;
-    case kRecomputeCubeKind:
-      if (mode == 3) {
-        return blocks_of_kernel(backup6d_sweep_recompute_cube<int, false>,
-                                threads, smem_bytes);
-      }
-      return mode == 7
-                 ? blocks_of_kernel(
-                       backup6d_sweep_recompute_cube<unsigned char, false>,
-                       threads, smem_bytes)
-                 : -1;
+      if (!track) return -1;
+      return argmin_bytes == 4
+                 ? blocks_of_kernel(cube_kernel<int>(recompute, false),
+                                    threads, smem_bytes)
+                 : blocks_of_kernel(
+                       cube_kernel<unsigned char>(recompute, false), threads,
+                       smem_bytes);
     default: return -1;
   }
 }

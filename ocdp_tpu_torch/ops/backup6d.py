@@ -1,38 +1,37 @@
 """6-D coupled-lane Bellman backup: the CUDA kernel, its plain version, its
-wrapper, in three modes.
+wrapper.
 
 Replaces the TPU kernel ``ocdp_tpu/ops/pallas_backup6.py::PallasBackup6D``
 in its coupled-lane mode (``_kernel``'s joint lane-combo branch, then
 ``_action_phase_factorized`` or ``_action_phase_generic``) on the full 6-D
-attitude path:
+attitude path. One launcher, :func:`backup6d_cuda`, runs every mode, read
+from its :class:`Backup6DArgs`:
 
-* B.3, non-flat plans (the broadcast layout): :func:`backup6d_cuda`;
+* B.3, non-flat plans (the broadcast layout);
 * B.4, flat plans and the envelope modes (``(NW, 1, A)`` row and
   ``(NW, NE, 1)`` lane plan arrays, uint8 or int32 argmin, min-only sweeps,
-  sweeps into buffers the engine allocated once): :func:`backup6d_flat_cuda`;
-* B.5, lane recompute (:class:`RecomputePlan`: no lane plan exists; the
-  kernel regenerates each cell's Euler (lo, frac) from per-row omegas and
-  per-lane kirk-q components): :func:`backup6d_recompute_cuda`;
+  sweeps into buffers the engine allocated once);
+* B.5, lane recompute (:class:`RecomputePlan`, ``args.lanes``: no lane plan
+  exists; the kernel regenerates each cell's Euler (lo, frac) from per-row
+  omegas and per-lane kirk-q components);
 * B.7, the row-sharded engines' modes (``parallel/halo6.py``), on any of
   the three plan kinds: one rank's row block swept from a local table that
-  holds its halo rows (:func:`block_args`, :func:`backup6d_block_cuda`), and
-  that block over one contiguous action range, a fixed-d0 digit slice when
-  the actions factor (:func:`slice_args`, :func:`backup6d_slice_cuda`).
+  holds its halo rows (:func:`block_args`, ``args.halo``), and that block
+  over one contiguous action range, a fixed-d0 digit slice when the actions
+  factor (:func:`slice_args`, ``args.actions``).
 
 The kernel source, with the note on its arithmetic, tie order and what
 bounds it, is ``csrc/backup6d.cu``. It holds two kernels for every mode:
 ``backup6d_sweep`` takes at most 3 live taps an axis, ``backup6d_wide`` any
 taps up to 40 live row and 40 live lane combos, the TPU kernel's
-``max_flat_taps`` (a 4 x 3 x 3 row structure: 36 combos); the tile plan
-(:attr:`TilePlan.wide`) says which a launch runs, and every wrapper reaches
-both. Besides, B.3's launch of the attitude solve's own structure, the
-full (-1, 0, 1) tap cube at action digit base 3 (:func:`cube_body`), runs
-``backup6d_sweep_cube``, a body compiled for that structure
-(:attr:`TilePlan.cube_body`; counted in ``backup6d_cuda.cube_launches``),
-and B.5's whole tracking sweep of it (:func:`recompute_cube_body`) runs
-``backup6d_sweep_recompute_cube``, the same body with the Euler lanes
-recomputed in its prologue (:attr:`TilePlan.recompute_cube_body`; counted
-in ``backup6d_recompute_cuda.cube_launches``).
+``max_flat_taps`` (a 4 x 3 x 3 row structure: 36 combos). Besides, a
+tracking sweep of the whole table over every action at the attitude solve's
+own structure, the full (-1, 0, 1) tap cube at action digit base 3
+(:func:`cube_body`), runs the cube body, compiled for that structure:
+``backup6d_sweep_cube`` on a stored lane plan,
+``backup6d_sweep_recompute_cube`` with the Euler lanes recomputed in its
+prologue. The tile planner picks the kernel from the args alone
+(:attr:`TilePlan.kind`).
 
 The state axes split into 3 ROW axes, whose next states depend on the action
 (attitude: omega1..3), and 3 LANE axes, whose next states do not but may
@@ -68,8 +67,8 @@ action index; the factorized phase runs for whole fixed-d0 slices, the
 generic phase otherwise. Either way each action's total is the one-device
 sweep's, bit for bit.
 
-* ``backup6d_cuda``, ``backup6d_flat_cuda`` and ``backup6d_recompute_cuda``
-  launch the kernel; each counts its launches in ``.launches``. Every
+* :func:`backup6d_cuda` launches the kernel; it counts its launches in
+  ``.launches`` and those of the cube body in ``.cube_launches``. Every
   launch takes its tiles from :func:`plan_tiles`: the rows x lanes a block
   owns and the table rows and lanes it stages in shared memory, the index
   map the CPU tests check (``tests/test_torch_backup6d_tiles.py``).
@@ -103,12 +102,9 @@ from .rowlane import (_as_numpy, _corner_live_sets, _decode_live, _row_plan,
                       _shift_lanes, _split_cost, _tap_weight, _upload)
 
 __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
-           "affine_locate", "plan_is_flat", "backup6d_cuda",
-           "backup6d_flat_cuda", "backup6d_recompute_cuda", "backup6d_plain",
-           "block_args", "slice_args", "digit_path", "backup6d_block_cuda",
-           "backup6d_slice_cuda", "backup6d_block", "TilePlan",
-           "plan_tiles", "tile_occupancy", "cube_body",
-           "recompute_cube_body"]
+           "affine_locate", "plan_is_flat", "backup6d_cuda", "backup6d_plain",
+           "block_args", "slice_args", "digit_path", "backup6d_block",
+           "TilePlan", "plan_tiles", "tile_occupancy", "cube_body"]
 
 # the kernels' fixed capacities (csrc/backup6d.cu): backup6d_sweep takes
 # at most MAX_TAPS live taps per row or lane axis (kMaxTaps; so at most 27
@@ -495,14 +491,13 @@ COMBO_WEIGHTS = 3 * MAX_DIGITS
 MAX_TILE_ROWS = 16
 MAX_TILE_LANES = 2048
 SM_THREADS = 512
-# the cube bodies, backup6d_sweep_cube and backup6d_sweep_recompute_cube
-# (kCubeCells, kCubeThreads): the cells a thread takes, consecutive tile
-# rows at one lane, and its block, two an SM; the kernels' plan kinds at
-# TilePlan.ints()[8] (kSweepKind, kWideKind, kCubeKind, kRecomputeCubeKind)
+# the cube body (kCubeCells, kCubeThreads): the cells a thread takes,
+# consecutive tile rows at one lane, and its block, two an SM; the kernels'
+# plan kinds at TilePlan.ints()[8] (kSweepKind, kWideKind, kCubeKind)
 CUBE_CELLS = 2
 CUBE_THREADS = 256
-SWEEP_KIND, WIDE_KIND, CUBE_KIND, RECOMPUTE_CUBE_KIND = 0, 1, 2, 3
-# the tap structure the cube bodies are compiled for
+SWEEP_KIND, WIDE_KIND, CUBE_KIND = 0, 1, 2
+# the tap structure the cube body is compiled for
 CUBE_TAPS = (-1, 0, 1)
 FULL_CUBE = tuple(itertools.product(CUBE_TAPS, repeat=3))
 # an H100 SM's shared memory and what the card reserves of it per block
@@ -514,7 +509,7 @@ SMEM_RESERVED = 1_024
 # 30^3 x 16^3 on an H100; PERF.md §6)
 STAGE_COST = 6
 ONE_BLOCK_COST = 1.2
-# the cube bodies' plans count whole rounds of the card's resident
+# the cube body's plans count whole rounds of the card's resident
 # blocks (two on each of an H100's SM_COUNT SMs), and each staged row as a
 # loop trip of every thread at STAGE_ROW_COST (fitted to tile sweeps of the
 # cube body at 7^3 x 5^3, 11^3 x 10^3 and 13^3 x 12^3 on an H100; PERF.md
@@ -538,13 +533,10 @@ class TilePlan(NamedTuple):
     plan of ``backup6d_wide`` (a tap structure past ``backup6d_sweep``'s 3
     taps an axis), whose stage slots go by row combo; else ``cube`` is
     ``slots`` by cube slot p = (i0 * 3 + i1) * 3 + i2 (-1: not live).
-    ``body``: the cube body the plan is for, whose thread takes
-    ``CUBE_CELLS`` consecutive rows of a tile at one lane (``rows`` is a
-    multiple of ``CUBE_CELLS``, ``threads`` is ``CUBE_THREADS``):
-    ``CUBE_KIND``, ``backup6d_sweep_cube`` (B.3's launch of the full tap
-    cube, :func:`cube_body`); ``RECOMPUTE_CUBE_KIND``,
-    ``backup6d_sweep_recompute_cube`` (B.5's, :func:`recompute_cube_body`);
-    else ``SWEEP_KIND``.
+    ``cube_body``: the plan of the cube body (:func:`cube_body`), whose
+    thread takes ``CUBE_CELLS`` consecutive rows of a tile at one lane
+    (``rows`` is a multiple of ``CUBE_CELLS``, ``threads`` is
+    ``CUBE_THREADS``).
     """
 
     rows: int
@@ -560,22 +552,13 @@ class TilePlan(NamedTuple):
     n_table_rows: int
     table_row0: int
     wide: bool
-    body: int = SWEEP_KIND
+    cube_body: bool = False
 
     @property
     def kind(self) -> int:
         """The plan's kernel, as the kernel's array holds it."""
-        return WIDE_KIND if self.wide else self.body
-
-    @property
-    def cube_body(self) -> bool:
-        """The plan of ``backup6d_sweep_cube``."""
-        return self.body == CUBE_KIND
-
-    @property
-    def recompute_cube_body(self) -> bool:
-        """The plan of ``backup6d_sweep_recompute_cube``."""
-        return self.body == RECOMPUTE_CUBE_KIND
+        return WIDE_KIND if self.wide else (CUBE_KIND if self.cube_body
+                                            else SWEEP_KIND)
 
     @property
     def row_weights(self) -> int:
@@ -660,8 +643,8 @@ def _lane_reach(lane_combos, lane_shape) -> tuple:
     return (-(-max(-min(dl), 0) // 4) * 4, -(-max(max(dl), 0) // 4) * 4)
 
 
-def plan_tiles(args: Backup6DArgs, n_table_rows: int, smem_limit: int,
-               body: int = SWEEP_KIND) -> TilePlan:
+def plan_tiles(args: Backup6DArgs, n_table_rows: int,
+               smem_limit: int) -> TilePlan:
     """The tiles of one sweep of ``args`` over a table of ``n_table_rows``
     rows, on a card that lets a block ask for ``smem_limit`` bytes of shared
     memory: the R x L tile (R <= MAX_TILE_ROWS, L a multiple of 32 up to
@@ -672,47 +655,23 @@ def plan_tiles(args: Backup6DArgs, n_table_rows: int, smem_limit: int,
     body: over whole rounds of resident blocks, with ``STAGE_ROW_COST``
     a thread and staged row). The plan
     is ``backup6d_wide``'s (:attr:`TilePlan.wide`) when an axis has more
-    than ``MAX_TAPS`` live taps. ``body``: the cube body the launch asks
-    for. ``CUBE_KIND`` is B.3's launch (:func:`backup6d_cuda`); where
-    :func:`cube_body` holds too, the plan is ``backup6d_sweep_cube``'s
-    (:attr:`TilePlan.cube_body`: rows a multiple of ``CUBE_CELLS``, two
-    blocks of ``CUBE_THREADS`` an SM), or, where no such tile fits,
-    ``backup6d_sweep``'s. ``RECOMPUTE_CUBE_KIND`` is B.5's launch
-    (:func:`backup6d_recompute_cuda`); where :func:`recompute_cube_body`
-    holds too, the plan is ``backup6d_sweep_recompute_cube``'s, the same
-    tiles (:attr:`TilePlan.recompute_cube_body`). ``SWEEP_KIND`` asks for
-    no cube body. Raises ``ValueError`` when no tile fits."""
-    return _tiles(_plan_key(args, body), n_table_rows, smem_limit)[0]
+    than ``MAX_TAPS`` live taps; where :func:`cube_body` holds, the cube
+    body's (:attr:`TilePlan.cube_body`: rows a multiple of ``CUBE_CELLS``,
+    two blocks of ``CUBE_THREADS`` an SM), or, where no such tile fits,
+    ``backup6d_sweep``'s. Raises ``ValueError`` when no tile fits."""
+    return _tiles(_plan_key(args), n_table_rows, smem_limit)[0]
 
 
 def cube_body(args: Backup6DArgs) -> bool:
-    """Whether the tap structure and the launch mode of ``args`` are the
-    ones ``backup6d_sweep_cube`` is compiled for: 3 live taps (-1, 0, 1) on
-    every row and lane axis, all 27 row and 27 lane combos live, action
-    digit base 3; a stored lane plan swept whole (no halo) over every
-    action. B.3's launch (:func:`backup6d_cuda`) of such inputs runs it;
-    every other launch, and every other structure, runs ``backup6d_sweep``
-    or ``backup6d_wide``."""
-    return args.lanes is None and _whole_cube(args)
-
-
-def recompute_cube_body(args: Backup6DArgs) -> bool:
-    """Whether ``args`` are what ``backup6d_sweep_recompute_cube`` is
-    compiled for: the tap structure of :func:`cube_body`, the Euler lanes
-    recomputed (``args.lanes``), a tracking sweep of the whole table (no
-    halo) over every action. B.5's launch (:func:`backup6d_recompute_cuda`)
-    of such inputs runs it; a min-only sweep, B.7's row blocks and slices,
-    and every other structure run ``backup6d_sweep`` or
-    ``backup6d_wide``."""
-    return args.lanes is not None and args.track_argmin and \
-        _whole_cube(args)
-
-
-def _whole_cube(args: Backup6DArgs) -> bool:
-    """The full tap cube at digit base 3, swept whole over every
-    action."""
-    return (args.action_digits == 3 and tuple(args.halo) == (0, 0)
-            and args.actions is None
+    """Whether ``args`` are what the cube body is compiled for: 3 live taps
+    (-1, 0, 1) on every row and lane axis, all 27 row and 27 lane combos
+    live, action digit base 3; a tracking sweep of the whole table (no
+    halo) over every action. The lanes may be stored or recomputed
+    (``backup6d_sweep_cube`` or ``backup6d_sweep_recompute_cube``), the
+    argmin int32 or uint8. Every other launch, and every other structure,
+    runs ``backup6d_sweep`` or ``backup6d_wide``."""
+    return (args.track_argmin and args.action_digits == 3
+            and tuple(args.halo) == (0, 0) and args.actions is None
             and _full_cube(args.w_taps, args.row_combos, args.lane_combos))
 
 
@@ -728,20 +687,13 @@ def _full_cube(w_taps, row_combos, lane_combos) -> bool:
             and canon(lane_combos) == FULL_CUBE)
 
 
-def _plan_key(args: Backup6DArgs, body: int = SWEEP_KIND) -> tuple:
+def _plan_key(args: Backup6DArgs) -> tuple:
     """What the planner reads of ``args``: the tap structure, the shapes,
-    the output rows and the halo, and the cube body the launch runs
-    (:attr:`TilePlan.body`): ``body`` where ``args`` fit it, else
-    ``SWEEP_KIND``."""
-    if body != SWEEP_KIND and not _BODY_FITS[body](args):
-        body = SWEEP_KIND
+    the output rows and the halo, and whether the cube body runs
+    (:func:`cube_body`)."""
     return (args.row_combos, args.lane_combos, args.w_taps,
             tuple(args.row_shape), tuple(args.lane_shape), args.n_rows,
-            tuple(args.halo), body)
-
-
-# the cube bodies a launch may ask for, and what its args must be for each
-_BODY_FITS = {CUBE_KIND: cube_body, RECOMPUTE_CUBE_KIND: recompute_cube_body}
+            tuple(args.halo), cube_body(args))
 
 
 @functools.lru_cache(maxsize=256)
@@ -787,7 +739,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                 if best is None or cost < best[0]:
                     best = (cost, rows, lanes, threads)
     if best is None and body:
-        return _tiles(key[:-1] + (SWEEP_KIND,), n_table_rows, smem_limit)
+        return _tiles(key[:-1] + (False,), n_table_rows, smem_limit)
     if best is None:
         raise ValueError(f"no tile's stage of a {ne}-lane table with lane "
                          f"reach ({reach_lo}, {reach_hi}) fits {smem_limit} "
@@ -814,7 +766,7 @@ def _tiles(key, n_table_rows: int, smem_limit: int) -> tuple:
                     reach_hi=reach_hi, groups=groups, slots=tuple(slots),
                     cube=tuple(cube), threads=threads, n_rows=n_rows,
                     n_lanes=ne, n_table_rows=n_table_rows,
-                    table_row0=halo[0], wide=wide, body=body)
+                    table_row0=halo[0], wide=wide, cube_body=body)
     ints = plan.ints()
     ints.flags.writeable = False
     return plan, ints
@@ -840,25 +792,21 @@ def _smem_limit(lib, device: torch.device) -> int:
     return _SMEM_LIMIT[dev]
 
 
-def _tiles_for(lib, values: torch.Tensor, args: Backup6DArgs,
-               body: int = SWEEP_KIND) -> tuple:
+def _tiles_for(lib, values: torch.Tensor, args: Backup6DArgs) -> tuple:
     """``(plan, plan.ints())`` for one launch on ``values``'s device."""
-    return _tiles(_plan_key(args, body), values.shape[0],
+    return _tiles(_plan_key(args), values.shape[0],
                   _smem_limit(lib, values.device))
 
 
-def tile_occupancy(values: torch.Tensor, args: Backup6DArgs,
-                   body: int = SWEEP_KIND) -> tuple:
+def tile_occupancy(values: torch.Tensor, args: Backup6DArgs) -> tuple:
     """``(plan, blocks)``: the :class:`TilePlan` a launch of the kernel on
-    the CUDA tensor ``values`` takes (``body`` as :func:`plan_tiles` has
-    it: ``CUBE_KIND`` for B.3's launch, :func:`backup6d_cuda`;
-    ``RECOMPUTE_CUBE_KIND`` for B.5's, :func:`backup6d_recompute_cuda`),
-    and how many of its blocks an SM of that card holds (the CUDA occupancy
-    query for the launch's kernel, mode, block size and stage)."""
+    the CUDA tensor ``values`` takes, and how many of its blocks an SM of
+    that card holds (the CUDA occupancy query for the launch's kernel,
+    mode, block size and stage)."""
     from .. import _build
 
     lib = _build.load()
-    plan = _tiles_for(lib, values, args, body)[0]
+    plan = _tiles_for(lib, values, args)[0]
     adt, track = _mode_ints(args)
     with torch.cuda.device(values.device):
         blocks = lib.backup6d_blocks_per_sm(adt, track,
@@ -930,39 +878,74 @@ def _raise_on(lib, err: int, what: str) -> None:
         raise RuntimeError(f"{what} launch failed: CUDA error {err} ({msg})")
 
 
-def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
-    """Launch the CUDA kernel (B.3) for one sweep of the ``(NW, NE)`` table
-    on PyTorch's current stream, with a new int32 argmin. Raises on inputs
-    it does not take and on a launch the device refuses. The tap structure
-    must fit the kernels' capacities, which :class:`Backup6D` checks when it
-    is built; its tile plan picks the kernel: ``backup6d_sweep_cube`` where
-    :func:`cube_body` holds (counted in ``.cube_launches`` besides
-    ``.launches``), else ``backup6d_sweep`` or ``backup6d_wide``
-    (:attr:`TilePlan.wide`). The envelope modes are
-    :func:`backup6d_flat_cuda` and :func:`backup6d_recompute_cuda`."""
+def _mode_ints(args: Backup6DArgs) -> tuple:
+    return (1 if args.argmin_dtype == torch.uint8 else 4,
+            int(bool(args.track_argmin)))
+
+
+@functools.lru_cache(maxsize=64)
+def _rec_consts(starts, inv_steps, h):
+    """B.5's host constants (``rec_consts``: each Euler axis's float32 first
+    point and inverse step, then ``h / 2``), made once per lane
+    recompute."""
+    out = np.asarray([*starts, *inv_steps, h * 0.5], np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs,
+                  out_v: Optional[torch.Tensor] = None,
+                  out_a: Optional[torch.Tensor] = None) -> BackupResult:
+    """Launch the CUDA kernel for one sweep on PyTorch's current stream, in
+    the mode ``args`` say: a stored lane plan or ``args.lanes`` (B.5), an
+    int32 or uint8 argmin, tracking or min-only (all-zero argmin), the
+    whole table or a row block with ``args.halo`` (B.7b: ``values`` is the
+    local ``(lo + rows + hi, NE)`` table), every action or
+    ``args.actions`` (B.7a; global action indices out). ``out_v``/
+    ``out_a``: the ``(rows, NE)`` buffers to write (the engines' carry
+    mode; views into a larger buffer are fine; ``out_v`` must not overlap
+    ``values``), else new ones. Raises on inputs it does not take and on a
+    launch the device refuses. The tap structure must fit the kernels'
+    capacities, which :class:`Backup6D` checks when it is built; the tile
+    plan picks the kernel from ``args``: the cube body where
+    :func:`cube_body` holds, else ``backup6d_sweep`` or ``backup6d_wide``
+    (:attr:`TilePlan.wide`). Counts every launch in ``.launches`` and
+    those of the cube body in ``.cube_launches``."""
     from .. import _build
 
-    if args.lanes is not None or args.argmin_dtype != torch.int32 or \
-            not args.track_argmin:
-        raise ValueError("backup6d_cuda runs the int32 tracking sweep of a "
-                         "stored plan; use backup6d_flat_cuda or "
-                         "backup6d_recompute_cuda")
+    rec = args.lanes
+    if rec is not None and tuple(rec.axis_sizes) != tuple(args.lane_shape):
+        raise ValueError(f"lane axes {rec.axis_sizes} != lane shape "
+                         f"{args.lane_shape}")
     _check_cuda_inputs(values, args)
     lib = _build.load()
-    out_v, out_a = _outputs(values, args, None, None)
+    out_v, out_a = _outputs(values, args, out_v, out_a)
     w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
-    plan, ints = _tiles_for(lib, values, args, CUBE_KIND)
+    plan, ints = _tiles_for(lib, values, args)
+    if rec is None:
+        lane_ptrs = [_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
+                     for t in pair]
+        rec_ptrs = [None] * 8
+    else:
+        lane_ptrs = [None] * 6
+        consts = _rec_consts(tuple(rec.axis_starts),
+                             tuple(rec.axis_inv_steps), rec.h)
+        rec_ptrs = [*(_ptr(t) for t in rec.row_feats),
+                    *(_ptr(t) for t in rec.lane_feats), consts.ctypes.data]
+    lo, hi = args.halo
+    a_lo, a_hi = args.action_range
     stream = torch.cuda.current_stream(values.device).cuda_stream
     err = lib.backup6d_f32(
-        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
-        *(_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
-          for t in pair),
+        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac), *lane_ptrs,
         _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
-        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
+        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a), *rec_ptrs,
         w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
         lane_combos.ctypes.data, c_act.ctypes.data, ints.ctypes.data,
-        *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
-        len(lane_combos), args.action_digits or 0, stream)
+        *args.row_shape[1:], *args.lane_shape, args.n_actions,
+        len(row_combos), len(lane_combos), args.action_digits or 0,
+        *_mode_ints(args), int(rec is not None),
+        int(rec is not None and rec.edge == "clamp"), args.n_rows, lo,
+        lo + args.n_rows + hi, a_lo, a_hi, stream)
     _raise_on(lib, err, "backup6d")
     backup6d_cuda.launches += 1
     backup6d_cuda.cube_launches += plan.cube_body
@@ -971,95 +954,6 @@ def backup6d_cuda(values: torch.Tensor, args: Backup6DArgs) -> BackupResult:
 
 backup6d_cuda.launches = 0
 backup6d_cuda.cube_launches = 0
-
-
-def _mode_ints(args: Backup6DArgs) -> tuple:
-    return (1 if args.argmin_dtype == torch.uint8 else 4,
-            int(bool(args.track_argmin)))
-
-
-def backup6d_flat_cuda(values: torch.Tensor, args: Backup6DArgs,
-                       out_v: Optional[torch.Tensor] = None,
-                       out_a: Optional[torch.Tensor] = None) -> BackupResult:
-    """Launch the kernel in its envelope modes on a stored lane plan (B.4):
-    ``args.argmin_dtype`` int32 or uint8, ``args.track_argmin`` False for a
-    min-only sweep (all-zero argmin). ``out_v``/``out_a``: buffers to write
-    (the engines' carry mode), else new ones. Raises as
-    :func:`backup6d_cuda`."""
-    from .. import _build
-
-    if args.lanes is not None:
-        raise ValueError("a recompute plan runs backup6d_recompute_cuda")
-    _check_cuda_inputs(values, args)
-    lib = _build.load()
-    out_v, out_a = _outputs(values, args, out_v, out_a)
-    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.backup6d_flat_f32(
-        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
-        *(_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
-          for t in pair),
-        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
-        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
-        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
-        lane_combos.ctypes.data, c_act.ctypes.data,
-        _tiles_for(lib, values, args)[1].ctypes.data,
-        *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
-        len(lane_combos), args.action_digits or 0, *_mode_ints(args),
-        stream)
-    _raise_on(lib, err, "backup6d_flat")
-    backup6d_flat_cuda.launches += 1
-    return BackupResult(out_v, out_a)
-
-
-backup6d_flat_cuda.launches = 0
-
-
-def backup6d_recompute_cuda(values: torch.Tensor, args: Backup6DArgs,
-                            out_v: Optional[torch.Tensor] = None,
-                            out_a: Optional[torch.Tensor] = None
-                            ) -> BackupResult:
-    """Launch the kernel with the Euler lanes recomputed per cell from
-    ``args.lanes`` (B.5); the modes and buffers of
-    :func:`backup6d_flat_cuda`. Its tile plan picks the body:
-    ``backup6d_sweep_recompute_cube`` where :func:`recompute_cube_body`
-    holds (counted in ``.cube_launches`` besides ``.launches``), else
-    ``backup6d_sweep`` or ``backup6d_wide``."""
-    from .. import _build
-
-    rec = args.lanes
-    if rec is None:
-        raise ValueError("backup6d_recompute_cuda needs args.lanes")
-    if tuple(rec.axis_sizes) != tuple(args.lane_shape):
-        raise ValueError(f"lane axes {rec.axis_sizes} != lane shape "
-                         f"{args.lane_shape}")
-    _check_cuda_inputs(values, args)
-    lib = _build.load()
-    out_v, out_a = _outputs(values, args, out_v, out_a)
-    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
-    consts = np.asarray([*rec.axis_starts, *rec.axis_inv_steps,
-                         rec.h * 0.5], np.float32)
-    plan, ints = _tiles_for(lib, values, args, RECOMPUTE_CUBE_KIND)
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.backup6d_recompute_f32(
-        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac),
-        *(_ptr(t) for t in rec.row_feats), *(_ptr(t) for t in rec.lane_feats),
-        consts.ctypes.data,
-        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
-        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a),
-        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
-        lane_combos.ctypes.data, c_act.ctypes.data, ints.ctypes.data,
-        *args.row_shape, *args.lane_shape, args.n_actions, len(row_combos),
-        len(lane_combos), args.action_digits or 0, *_mode_ints(args),
-        int(rec.edge == "clamp"), stream)
-    _raise_on(lib, err, "backup6d_recompute")
-    backup6d_recompute_cuda.launches += 1
-    backup6d_recompute_cuda.cube_launches += plan.recompute_cube_body
-    return BackupResult(out_v, out_a)
-
-
-backup6d_recompute_cuda.launches = 0
-backup6d_recompute_cuda.cube_launches = 0
 
 
 def block_args(args: Backup6DArgs, r0: int, r1: int, lo: int,
@@ -1115,94 +1009,12 @@ def slice_args(args: Backup6DArgs, a_lo: int, a_hi: int) -> Backup6DArgs:
         else None)
 
 
-def _launch_block(values, args: Backup6DArgs, out_v, out_a) -> BackupResult:
-    from .. import _build
-
-    _check_cuda_inputs(values, args)
-    lib = _build.load()
-    out_v, out_a = _outputs(values, args, out_v, out_a)
-    w_taps, n_taps, row_combos, lane_combos, c_act = _tap_arrays(args)
-    rec = args.lanes
-    if rec is None:
-        lane_ptrs = [_ptr(t) for pair in zip(args.lane_off, args.lane_frac)
-                     for t in pair]
-        rec_ptrs = [None] * 8
-        consts = None
-    else:
-        if tuple(rec.axis_sizes) != tuple(args.lane_shape):
-            raise ValueError(f"lane axes {rec.axis_sizes} != lane shape "
-                             f"{args.lane_shape}")
-        lane_ptrs = [None] * 6
-        consts = np.asarray([*rec.axis_starts, *rec.axis_inv_steps,
-                             rec.h * 0.5], np.float32)
-        rec_ptrs = [*(_ptr(t) for t in rec.row_feats),
-                    *(_ptr(t) for t in rec.lane_feats), consts.ctypes.data]
-    lo, hi = args.halo
-    a_lo, a_hi = args.action_range
-    stream = torch.cuda.current_stream(values.device).cuda_stream
-    err = lib.backup6d_block_f32(
-        _ptr(values), _ptr(args.row_off), _ptr(args.row_frac), *lane_ptrs,
-        _ptr(args.c_row), _ptr(args.c_lane), _ptr(args.c_rowact),
-        _ptr(args.c_rowlane), _ptr(out_v), _ptr(out_a), *rec_ptrs,
-        w_taps.ctypes.data, n_taps.ctypes.data, row_combos.ctypes.data,
-        lane_combos.ctypes.data, c_act.ctypes.data,
-        _tiles_for(lib, values, args)[1].ctypes.data,
-        *args.row_shape[1:], *args.lane_shape, args.n_actions,
-        len(row_combos), len(lane_combos), args.action_digits or 0,
-        *_mode_ints(args), int(rec is not None),
-        int(rec is not None and rec.edge == "clamp"), args.n_rows, lo,
-        lo + args.n_rows + hi, a_lo, a_hi, stream)
-    _raise_on(lib, err, "backup6d_block")
-    return BackupResult(out_v, out_a)
-
-
-def backup6d_block_cuda(values: torch.Tensor, args: Backup6DArgs,
-                        out_v: Optional[torch.Tensor] = None,
-                        out_a: Optional[torch.Tensor] = None
-                        ) -> BackupResult:
-    """Launch the kernel in B.7's row-block mode over every action: the
-    block of :func:`block_args` on any plan kind (broadcast, flat,
-    recompute), int32 or uint8 argmin, min-only or tracking. ``values`` is
-    the local ``(lo + rows + hi, NE)`` table; ``out_v``/``out_a`` the
-    ``(rows, NE)`` outputs (views into a larger buffer are fine; ``out_v``
-    must not overlap ``values``), else new ones."""
-    if args.actions is not None:
-        raise ValueError("an action range runs backup6d_slice_cuda")
-    res = _launch_block(values, args, out_v, out_a)
-    backup6d_block_cuda.launches += 1
-    return res
-
-
-backup6d_block_cuda.launches = 0
-
-
-def backup6d_slice_cuda(values: torch.Tensor, args: Backup6DArgs,
-                        out_v: Optional[torch.Tensor] = None,
-                        out_a: Optional[torch.Tensor] = None
-                        ) -> BackupResult:
-    """Launch the kernel in B.7's action-slice mode: the row block (or the
-    whole table) of :func:`backup6d_block_cuda` over the action range of
-    :func:`slice_args`, global action indices out."""
-    if args.actions is None:
-        raise ValueError("backup6d_slice_cuda needs args.actions "
-                         "(slice_args)")
-    res = _launch_block(values, args, out_v, out_a)
-    backup6d_slice_cuda.launches += 1
-    return res
-
-
-backup6d_slice_cuda.launches = 0
-
-
 def backup6d_block(values: torch.Tensor, args: Backup6DArgs,
                    out_v: torch.Tensor, out_a: torch.Tensor) -> None:
     """One B.7 sweep into ``out_v``/``out_a``: the kernel on a CUDA tensor
-    (:func:`backup6d_slice_cuda` with an action range, else
-    :func:`backup6d_block_cuda`), the plain version on a CPU tensor."""
+    (:func:`backup6d_cuda`), the plain version on a CPU tensor."""
     if values.is_cuda:
-        fn = (backup6d_slice_cuda if args.actions is not None
-              else backup6d_block_cuda)
-        fn(values, args, out_v=out_v, out_a=out_a)
+        backup6d_cuda(values, args, out_v=out_v, out_a=out_a)
     elif values.device.type == "cpu":
         res = backup6d_plain(values, args)
         out_v.copy_(res.values)
@@ -1364,10 +1176,10 @@ class Backup6D:
     a cost term coupling lanes and actions, and a tap structure beyond the
     kernels' capacities: more than ``MAX_COMBOS`` = 40 live row or lane
     combos (the TPU kernel's ``max_flat_taps``, which refuses the same
-    plans), 64 actions or digit base 3. A plan of at most 3 live taps an
-    axis runs ``backup6d_sweep``, any other ``backup6d_wide``. The kernel
-    runs on a CUDA tensor, the plain version on a CPU tensor; there is no
-    other device and no fallback from one to the other.
+    plans), 64 actions or digit base 3. The kernel (:func:`backup6d_cuda`,
+    whose tile plan picks the body from the args) runs on a CUDA tensor,
+    the plain version on a CPU tensor; there is no other device and no
+    fallback from one to the other.
     """
 
     ROW_AXES = 3
@@ -1574,16 +1386,6 @@ class Backup6D:
         d = self.args.row_deltas()
         return max(-min(d), 0), max(max(d), 0)
 
-    def _kernel(self):
-        """The CUDA wrapper of this backup's mode: B.5 for a recompute plan,
-        B.3 for a non-flat plan in the default mode, else B.4."""
-        if self.recompute:
-            return backup6d_recompute_cuda
-        if self.flat or self.argmin_dtype != torch.int32 or \
-                not self.track_argmin:
-            return backup6d_flat_cuda
-        return backup6d_cuda
-
     def _run(self, fn, values: torch.Tensor) -> BackupResult:
         res = fn(values.reshape(self.NW, self.NE).contiguous(), self.args)
         return BackupResult(res.values.reshape(self.state_shape),
@@ -1591,7 +1393,7 @@ class Backup6D:
 
     def __call__(self, values: torch.Tensor) -> BackupResult:
         if values.is_cuda:
-            return self._run(self._kernel(), values)
+            return self._run(backup6d_cuda, values)
         if values.device.type == "cpu":
             return self._run(backup6d_plain, values)
         raise ValueError(f"no 6-D backup for device {values.device}")
@@ -1611,9 +1413,7 @@ class Backup6D:
         if not self.carry_padded:
             raise ValueError("backup was not built with carry_padded=True")
         if v_in.is_cuda:
-            fn = (backup6d_recompute_cuda if self.recompute
-                  else backup6d_flat_cuda)
-            fn(v_in, self.args, out_v=v_out, out_a=a_out)
+            backup6d_cuda(v_in, self.args, out_v=v_out, out_a=a_out)
         elif v_in.device.type == "cpu":
             res = backup6d_plain(v_in, self.args)
             v_out.copy_(res.values)

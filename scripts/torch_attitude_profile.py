@@ -100,7 +100,7 @@ def main() -> None:
                                  init_values=v, narrow_argmin_result=True)
     v = res.values
     out_v, out_a = torch.empty_like(v), torch.empty_like(res.argmin)
-    ms = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+    ms = cuda_time_ms(lambda: b6.backup6d_cuda(
         v, bk.args, out_v=out_v, out_a=out_a))
     print(f"B.5 sweep {ms:.4f} ms ({ms * 1e6 / cells:.3f} ns per cell)")
     with tempfile.TemporaryDirectory() as tmp:

@@ -18,18 +18,21 @@ in a synchronize, the build included):
 
 * ``nvcc`` on the tree's ``csrc/backup6d.cu`` alone, after the library's
   build (``nvcc_backup6d_s``);
-* B.3 ``backup6d_cuda``, one sweep of a seeded 11^3 x 10^3 table (the full
-  tap cube: ``backup6d_sweep_cube`` where the tree has it); for it and for
-  B.7a and B.7b besides, the device time of a launch (``*_device_ms``:
+* B.3, one sweep of a seeded 11^3 x 10^3 table (the full tap cube:
+  ``backup6d_sweep_cube`` where the tree has it); for it and for B.7a and
+  B.7b besides, the device time of a launch (``*_device_ms``:
   ``torch.profiler``'s kernel time over 50 back-to-back launches), which
   the wrapper's host work does not hide;
-* B.4 ``backup6d_flat_cuda`` (uint8, tracking, carry buffers) and B.5
-  ``backup6d_recompute_cuda`` at 30^3 x 16^3 (median of 5), and B.5 at the
-  envelope cell's 48^3 x 10^3 (the full tap cube:
+* B.4 (uint8, tracking, carry buffers) and B.5 at 30^3 x 16^3 (median of
+  5), and B.5 at the envelope cell's 48^3 x 10^3 (the full tap cube:
   ``backup6d_sweep_recompute_cube`` where the tree has it);
-* B.7b ``backup6d_block_cuda``, rank 0 of 2 at 11^3 x 10^3 (666 rows of a
-  932-row local table), and B.7a ``backup6d_slice_cuda``, its first digit
-  slice (rank (0, 0) of 2 x 3);
+* B.7b, rank 0 of 2 at 11^3 x 10^3 (666 rows of a 932-row local table),
+  and B.7a, its first digit slice (rank (0, 0) of 2 x 3).
+
+Each mode runs through the tree's launcher of it: ``backup6d_cuda``, or
+the mode's own wrapper in a tree that has one (``backup6d_flat_cuda``,
+``backup6d_recompute_cuda``, ``backup6d_block_cuda``,
+``backup6d_slice_cuda``, each with its own counters);
 * ``attitude.solve_full(AttitudeConfig(n_mesh_w=11, n_mesh_q=10))`` (5999
   sweeps);
 * the README's envelope run, ``solve_full(AttitudeConfig(n_mesh_w=30,
@@ -85,6 +88,15 @@ def main() -> None:
     dev = torch.device("cuda")
     out = {"label": opts.label, "card": smi}
 
+    def launcher(name):
+        """The tree's launcher of one mode (see the head of this file)."""
+        return getattr(b6, name, b6.backup6d_cuda)
+
+    b4 = launcher("backup6d_flat_cuda")
+    b5 = launcher("backup6d_recompute_cuda")
+    b7b = launcher("backup6d_block_cuda")
+    b7a = launcher("backup6d_slice_cuda")
+
     def device_ms(fn, n=50):
         fn()
         torch.cuda.synchronize()
@@ -137,14 +149,10 @@ def main() -> None:
     local = torch.nn.functional.pad(v, (0, 0, lo, 0))[:r1 + lo + hi] \
         .contiguous()
     sl = b6.slice_args(blk, 0, 9)
-    out["b7b_ms"] = cuda_time_ms(lambda: b6.backup6d_block_cuda(local, blk),
-                                 inner=5)
-    out["b7a_ms"] = cuda_time_ms(lambda: b6.backup6d_slice_cuda(local, sl),
-                                 inner=5)
-    out["b7b_device_ms"] = device_ms(
-        lambda: b6.backup6d_block_cuda(local, blk))
-    out["b7a_device_ms"] = device_ms(
-        lambda: b6.backup6d_slice_cuda(local, sl))
+    out["b7b_ms"] = cuda_time_ms(lambda: b7b(local, blk), inner=5)
+    out["b7a_ms"] = cuda_time_ms(lambda: b7a(local, sl), inner=5)
+    out["b7b_device_ms"] = device_ms(lambda: b7b(local, blk))
+    out["b7a_device_ms"] = device_ms(lambda: b7a(local, sl))
     del bk, v, local
 
     # B.4 and B.5 at 30^3 x 16^3
@@ -156,7 +164,7 @@ def main() -> None:
     v = torch.rand((bk5.NW, bk5.NE), generator=gen, device=dev).mul_(100.0)
     ov = torch.empty_like(v)
     oa = torch.empty(v.shape, dtype=torch.uint8, device=dev)
-    out["b5_ms"] = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+    out["b5_ms"] = cuda_time_ms(lambda: b5(
         v, bk5.args, out_v=ov, out_a=oa), repeats=5)
     del bk5, rplan, rcost
     torch.cuda.empty_cache()
@@ -168,20 +176,21 @@ def main() -> None:
     vc = torch.rand((bkc.NW, bkc.NE), generator=gen, device=dev).mul_(100.0)
     ovc = torch.empty_like(vc)
     oac = torch.empty(vc.shape, dtype=torch.uint8, device=dev)
-    cube0 = getattr(b6.backup6d_recompute_cuda, "cube_launches", None)
-    out["b5_48x10_ms"] = cuda_time_ms(lambda: b6.backup6d_recompute_cuda(
+    cube0 = getattr(b5, "cube_launches", None)
+    out["b5_48x10_ms"] = cuda_time_ms(lambda: b5(
         vc, bkc.args, out_v=ovc, out_a=oac), repeats=5)
     if cube0 is not None:
-        out["b5_48x10_cube_launches"] = \
-            b6.backup6d_recompute_cuda.cube_launches - cube0
+        out["b5_48x10_cube_launches"] = b5.cube_launches - cube0
     del bkc, vc, ovc, oac
     torch.cuda.empty_cache()
     _, fplan, fcost = attitude.build_full(env, device=dev, lane_mode="plan")
     bk4 = b6.Backup6D(fplan, fcost, argmin_dtype=torch.uint8,
                       carry_padded=True, consume_plan=True)
     del fplan, fcost
-    out["b4_ms"] = cuda_time_ms(lambda: b6.backup6d_flat_cuda(
+    cube0 = getattr(b4, "cube_launches", 0)
+    out["b4_ms"] = cuda_time_ms(lambda: b4(
         v, bk4.args, out_v=ov, out_a=oa), repeats=5)
+    out["b4_cube_launches"] = getattr(b4, "cube_launches", 0) - cube0
     del bk4, v, ov, oa
     torch.cuda.empty_cache()
     print(f"{opts.label}: kernels {json.dumps(out)}", flush=True)

@@ -16,13 +16,14 @@ planner's own numbers:
 * a tap structure past 3 taps an axis (row taps (-1, 0, 1, 2) x (-1, 0, 1)
   x (-1, 0, 1), 36 combos) plans ``backup6d_wide``'s tiles: up to 40 row
   groups, its stage slots by combo, 9 row weights a combo;
-* B.3's launch of the full (-1, 0, 1) tap cube at digit base 3 plans
-  ``backup6d_sweep_cube``'s tiles, whose thread takes ``CUBE_CELLS``
-  consecutive rows of a tile at one lane and reads each row group's stage
-  rows once for all of them; B.5's whole tracking sweep of that structure
-  plans the same tiles for ``backup6d_sweep_recompute_cube``; every other
-  launch and structure keeps its kernel (the host's choice, through the
-  wrappers with a stand-in library).
+* a tracking sweep of the whole table over every action at the full
+  (-1, 0, 1) tap cube at digit base 3 plans the cube body's tiles, whose
+  thread takes ``CUBE_CELLS`` consecutive rows of a tile at one lane and
+  reads each row group's stage rows once for all of them, whether its lanes
+  are stored (``backup6d_sweep_cube``) or recomputed
+  (``backup6d_sweep_recompute_cube``); every other launch and structure
+  keeps its kernel (the planner's choice from the args, through the one
+  launcher with a stand-in library).
 
 The kernel itself runs only on a card (tests/test_torch_cuda.py).
 """
@@ -216,9 +217,9 @@ def test_ints_are_the_kernels_layout():
     assert tuple(wints[at:at + 36]) == wide.slots
     assert wide.smem_bytes == 4 * (wide.n_staged * wide.width
                                    + wide.rows * 9 * 36)
-    # backup6d_sweep_cube's: kind 2, the cube slots and row weights of
+    # the cube body's: kind 2, the cube slots and row weights of
     # backup6d_sweep, CUBE_THREADS threads, rows a multiple of CUBE_CELLS
-    cplan = b6.plan_tiles(_backup().args, 125, SMEM_BLOCK_MAX, b6.CUBE_KIND)
+    cplan = b6.plan_tiles(_backup().args, 125, SMEM_BLOCK_MAX)
     cints = cplan.ints()
     assert cplan.cube_body and not cplan.wide
     assert tuple(cints[:9]) == (cplan.rows, cplan.lanes, cplan.reach_lo,
@@ -230,14 +231,11 @@ def test_ints_are_the_kernels_layout():
     assert tuple(cints[-4:]) == (*cplan.grid, cplan.smem_bytes,
                                  b6.CUBE_THREADS)
     assert cplan.rows % b6.CUBE_CELLS == 0
-    # backup6d_sweep_recompute_cube's: kind 3, else the cube plan's ints
+    # with the lanes recomputed: the same kind and ints
     rargs = _backup(lane_mode="recompute").args
-    rplan = b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
-                          b6.RECOMPUTE_CUBE_KIND)
-    rints = rplan.ints()
-    assert rplan.recompute_cube_body and not rplan.cube_body
-    assert rints[8] == b6.RECOMPUTE_CUBE_KIND == 3
-    np.testing.assert_array_equal(np.delete(rints, 8), np.delete(cints, 8))
+    rplan = b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX)
+    assert rplan.cube_body and rplan.kind == b6.CUBE_KIND == 2
+    np.testing.assert_array_equal(rplan.ints(), cints)
 
 
 def test_row_groups_merge_where_runs_meet():
@@ -372,7 +370,7 @@ CUBE_SHAPES = {
 
 
 def _cube_plan(args):
-    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX, b6.CUBE_KIND)
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX)
     assert plan.cube_body and plan.kind == b6.CUBE_KIND and not plan.wide
     assert plan.rows % b6.CUBE_CELLS == 0
     assert plan.threads == b6.CUBE_THREADS
@@ -461,16 +459,16 @@ def test_cube_plan_edges():
     assert nw % b6.CUBE_CELLS != 0 and nw % plan.rows != 0
 
 
-def _cube_lane_phase(plan_of, kind=b6.CUBE_KIND):
-    """``_lane_phase`` read as the cube body of plan kind ``kind`` reads
-    it: each chunk's cells from the stage of its tile, row combo (g, i2) of
+def _cube_lane_phase(plan_of):
+    """``_lane_phase`` read as the cube body reads it: each chunk's cells
+    from the stage of its tile, row combo (g, i2) of
     cell k at group g's first stage row + rr0 + k + i2, lane combo (e01, t2)
     at lane pair e01's middle column + t2 - 1; the joint weights and the
     sums in ``_lane_phase``'s order."""
 
     def lane_phase(values, args):
         plan = plan_of(args, values.shape[0])
-        assert plan.kind == kind
+        assert plan.kind == b6.CUBE_KIND
         C = b6.CUBE_CELLS
         v = values.numpy()
         nw, ne = args.n_rows, v.shape[1]
@@ -525,7 +523,7 @@ def test_cube_sweep_through_the_stages_equals_plain(case, monkeypatch):
     plans = []
 
     def plan_of(a, n):
-        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX, b6.CUBE_KIND))
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX))
         return plans[-1]
 
     monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(plan_of))
@@ -547,7 +545,7 @@ def test_recompute_cube_sweep_through_the_stages_equals_plain(case,
     bk = _backup(case if case == "clamp" else "extrapolate",
                  *((7, 5) if case == "7x5" else (5, 4)),
                  lane_mode="recompute")
-    assert bk.recompute and b6.recompute_cube_body(bk.args)
+    assert bk.recompute and b6.cube_body(bk.args)
     assert bk.NW % b6.CUBE_CELLS == 1
     v = torch.from_numpy(rng.uniform(0.0, 50.0, (bk.NW, bk.NE))
                          .astype(np.float32))
@@ -555,12 +553,10 @@ def test_recompute_cube_sweep_through_the_stages_equals_plain(case,
     plans = []
 
     def plan_of(a, n):
-        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX,
-                                   b6.RECOMPUTE_CUBE_KIND))
+        plans.append(b6.plan_tiles(a, n, SMEM_BLOCK_MAX))
         return plans[-1]
 
-    monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(
-        plan_of, b6.RECOMPUTE_CUBE_KIND))
+    monkeypatch.setattr(b6, "_lane_phase", _cube_lane_phase(plan_of))
     got = b6.backup6d_plain(v, bk.args)
     assert plans and plans[0].grid[0] * plans[0].grid[1] >= 2
     assert torch.equal(got.values, want.values)
@@ -573,41 +569,48 @@ _LANES = b6.LaneRecompute(0.0, (), (), (), (), (), "extrapolate")
 
 @pytest.mark.parametrize("shape", list(CUBE_SHAPES))
 def test_recompute_cube_plan_is_the_cube_plan(shape):
-    """B.5's launch of the full tap cube plans ``backup6d_sweep_cube``'s
-    tiles, its kind the only difference (so each of its reads lies in its
-    stage and its chunks cover each cell once, as above); a min-only sweep
-    plans ``backup6d_sweep``'s."""
+    """A tracking sweep of the full tap cube with the lanes recomputed
+    plans the stored plan's cube tiles (so each of its reads lies in its
+    stage and its chunks cover each cell once, as above), and so does a
+    uint8 argmin; a min-only sweep plans ``backup6d_sweep``'s."""
     args = CUBE_SHAPES[shape]()._replace(lanes=_LANES)
-    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX,
-                          b6.RECOMPUTE_CUBE_KIND)
-    cube = _cube_plan(args._replace(lanes=None))
-    assert plan.recompute_cube_body and plan.kind == b6.RECOMPUTE_CUBE_KIND
-    assert plan == cube._replace(body=b6.RECOMPUTE_CUBE_KIND)
-    assert b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX) == \
-        _plan(args._replace(lanes=None))
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX)
+    assert plan == _cube_plan(args._replace(lanes=None))
+    assert b6.plan_tiles(args._replace(argmin_dtype=torch.uint8),
+                         _table_rows(args), SMEM_BLOCK_MAX) == plan
     min_only = b6.plan_tiles(args._replace(track_argmin=False),
-                             _table_rows(args), SMEM_BLOCK_MAX,
-                             b6.RECOMPUTE_CUBE_KIND)
+                             _table_rows(args), SMEM_BLOCK_MAX)
     assert min_only.kind == b6.SWEEP_KIND
 
 
-def test_a_launch_asks_for_one_cube_body():
-    """The planner takes the cube body a launch asks for only where the
-    args fit it: B.3's cube asked of a recompute launch, and B.5's of a
-    stored plan, plan ``backup6d_sweep``'s tiles; a kind that is no cube
-    body is not a request."""
-    args, rargs = _backup().args, _backup(lane_mode="recompute").args
-    assert b6.plan_tiles(args, 125, SMEM_BLOCK_MAX,
-                         b6.CUBE_KIND).kind == b6.CUBE_KIND
-    assert b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
-                         b6.RECOMPUTE_CUBE_KIND).kind == \
-        b6.RECOMPUTE_CUBE_KIND
-    assert b6.plan_tiles(rargs, 125, SMEM_BLOCK_MAX,
-                         b6.CUBE_KIND).kind == b6.SWEEP_KIND
-    assert b6.plan_tiles(args, 125, SMEM_BLOCK_MAX,
-                         b6.RECOMPUTE_CUBE_KIND).kind == b6.SWEEP_KIND
-    with pytest.raises(KeyError):
-        b6.plan_tiles(args, 125, SMEM_BLOCK_MAX, b6.WIDE_KIND)
+# the launches of the reference structure at 5^3 x 4^3: (args, the kernel
+# the planner picks for them)
+PICKS = {
+    "stored": (lambda: _backup().args, b6.CUBE_KIND),
+    "recompute": (lambda: _backup(lane_mode="recompute").args, b6.CUBE_KIND),
+    "min-only": (lambda: _backup().args._replace(track_argmin=False),
+                 b6.SWEEP_KIND),
+    "block-halos": (lambda: _block(_backup(), 40, 90)[0], b6.SWEEP_KIND),
+    # a block with no halo rows sweeps a table of its own
+    "block-no-halos": (lambda: b6.block_args(_backup().args, 40, 90, 0, 0),
+                       b6.CUBE_KIND),
+    "digit-slice": (lambda: b6.slice_args(_backup().args, 9, 18),
+                    b6.SWEEP_KIND),
+}
+
+
+@pytest.mark.parametrize("case", list(PICKS))
+def test_the_planner_picks_the_body_from_the_args(case):
+    """The planner runs the cube body for a tracking sweep of the whole
+    table (no halo rows) over every action at the full tap cube, stored or
+    recomputed lanes alike; a min-only sweep, a row block with its halos
+    and a digit slice of the same structure plan ``backup6d_sweep``'s
+    tiles."""
+    make, kind = PICKS[case]
+    args = make()
+    plan = b6.plan_tiles(args, _table_rows(args), SMEM_BLOCK_MAX)
+    assert plan.kind == kind and plan.ints()[8] == kind
+    assert b6.cube_body(args) == plan.cube_body == (kind == b6.CUBE_KIND)
 
 
 class _StandInLibrary:
@@ -635,12 +638,12 @@ OTHER_TAPS = {
 }
 
 
-def _wrapper_case(case):
-    """``(wrapper, values, args)`` of one launch, the wrapper the engines
-    take for it (``Backup6D._kernel``, or B.7's)."""
+def _launch_case(case):
+    """``(values, args)`` of one launch, as the engines (through
+    :class:`Backup6D`) or B.7 hand them to the launcher."""
     if case in OTHER_TAPS:
         args = _synthetic_taps(*OTHER_TAPS[case])
-        return b6.backup6d_cuda, torch.zeros((args.n_rows, 64)), args
+        return torch.zeros((args.n_rows, 64)), args
     if case.startswith("recompute"):
         bk = b6.Backup6D(*tatt.build_full(
             tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device="cpu",
@@ -650,53 +653,48 @@ def _wrapper_case(case):
         args, values = bk.args, torch.zeros((bk.NW, bk.NE))
         if case == "recompute-block-halos":
             args, n = _block(bk, 40, 90)
-            return b6.backup6d_block_cuda, torch.zeros((n, bk.NE)), args
+            return torch.zeros((n, bk.NE)), args
         if case in ("recompute-tap2", "recompute-m2"):
             args = _synthetic_taps(*OTHER_TAPS[case[10:]], base=args)
-        return b6.backup6d_recompute_cuda, values, args
+        return values, args
     if case in ("flat", "uint8"):
         kw = {"flat": dict(flat=True), "uint8": {}}[case]
         _, plan, cost = tatt.build_full(
             tatt.AttitudeConfig(n_mesh_w=5, n_mesh_q=4), device="cpu", **kw)
         bk = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8
                          if case == "uint8" else torch.int32)
-        return bk._kernel(), torch.zeros((bk.NW, bk.NE)), bk.args
+        return torch.zeros((bk.NW, bk.NE)), bk.args
     if case in ("block-halos", "digit-slice"):
         args, n = _block(_backup(), 40, 90)
         if case == "digit-slice":
-            return b6.backup6d_slice_cuda, torch.zeros((n, 64)), \
-                b6.slice_args(args, 9, 18)
-        return b6.backup6d_block_cuda, torch.zeros((n, 64)), args
+            return torch.zeros((n, 64)), b6.slice_args(args, 9, 18)
+        return torch.zeros((n, 64)), args
     bk = {"reference": lambda: _backup(), "generic": lambda: _backup(
         "generic"), "wide-36": lambda: _backup("wide", 15, 3)}[case]()
-    return bk._kernel(), torch.zeros((bk.NW, bk.NE)), bk.args
+    return torch.zeros((bk.NW, bk.NE)), bk.args
 
 
 @pytest.mark.parametrize("case,kind", [
     ("reference", b6.CUBE_KIND), ("tap2", b6.SWEEP_KIND),
     ("dead-combo", b6.SWEEP_KIND), ("m2", b6.SWEEP_KIND),
     ("generic", b6.SWEEP_KIND), ("wide-36", b6.WIDE_KIND),
-    ("flat", b6.SWEEP_KIND), ("uint8", b6.SWEEP_KIND),
-    ("recompute", b6.RECOMPUTE_CUBE_KIND),
-    ("recompute-uint8", b6.RECOMPUTE_CUBE_KIND),
+    ("flat", b6.CUBE_KIND), ("uint8", b6.CUBE_KIND),
+    ("recompute", b6.CUBE_KIND), ("recompute-uint8", b6.CUBE_KIND),
     ("recompute-min-only", b6.SWEEP_KIND),
     ("recompute-tap2", b6.SWEEP_KIND), ("recompute-m2", b6.SWEEP_KIND),
     ("recompute-block-halos", b6.SWEEP_KIND),
     ("block-halos", b6.SWEEP_KIND), ("digit-slice", b6.SWEEP_KIND)])
 def test_host_picks_the_cube_body(case, kind, monkeypatch):
-    """The host picks ``backup6d_sweep_cube`` for B.3's launch of the full
-    (-1, 0, 1) tap cube at digit base 3 (the attitude reference's
-    structure) and counts it in ``backup6d_cuda.cube_launches``, and
-    ``backup6d_sweep_recompute_cube`` for B.5's tracking launch of that
-    structure (int32 or uint8), counted in
-    ``backup6d_recompute_cuda.cube_launches`` (B.5's launches, and no
-    other, in ``backup6d_recompute_cuda.launches``); a 2-tap axis, a dead
-    row combo, digit base 2, the generic phase, a 36-combo structure, a flat
-    plan, a uint8 launch of a stored plan, a min-only B.5 launch, B.5 on a
-    2-tap axis or at digit base 2, a row block with its halos (stored or
-    recompute plan) and a digit slice keep their kernel. Run through the
-    wrappers with a stand-in library: the plan each launch hands the
-    kernel."""
+    """The host picks the cube body for every tracking sweep of the whole
+    table over every action at the full (-1, 0, 1) tap cube at digit base
+    3 (the attitude reference's structure): a broadcast or flat stored
+    plan, an int32 or uint8 argmin, stored or recomputed lanes; a 2-tap
+    axis, a dead row combo, digit base 2, the generic phase, a 36-combo
+    structure, a min-only sweep, a row block with its halos (stored or
+    recompute plan) and a digit slice keep their kernel. Every launch
+    counts in ``backup6d_cuda.launches``, the cube body's in
+    ``backup6d_cuda.cube_launches``. Run through the one launcher with a
+    stand-in library: the plan each launch hands the kernel."""
     from ocdp_tpu_torch import _build
 
     seen = []
@@ -714,20 +712,11 @@ def test_host_picks_the_cube_body(case, kind, monkeypatch):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(
                             cuda_stream=0))
-    fn, values, args = _wrapper_case(case)
-    before = b6.backup6d_cuda.cube_launches
-    recompute = b6.backup6d_recompute_cuda.launches
-    recompute_cube = b6.backup6d_recompute_cuda.cube_launches
-    fn(values, args)
+    values, args = _launch_case(case)
+    launches = b6.backup6d_cuda.launches
+    cube = b6.backup6d_cuda.cube_launches
+    b6.backup6d_cuda(values, args)
     assert len(seen) == 1 and seen[0].kind == kind
-    assert seen[0].cube_body == (kind == b6.CUBE_KIND)
-    assert seen[0].recompute_cube_body == (kind == b6.RECOMPUTE_CUBE_KIND)
-    assert b6.cube_body(args) == (case in ("reference", "flat", "uint8"))
-    assert b6.recompute_cube_body(args) == (
-        case in ("recompute", "recompute-uint8"))
-    assert b6.backup6d_cuda.cube_launches == before + (
-        kind == b6.CUBE_KIND)
-    assert b6.backup6d_recompute_cuda.launches == recompute + (
-        fn is b6.backup6d_recompute_cuda)
-    assert b6.backup6d_recompute_cuda.cube_launches == recompute_cube + (
-        kind == b6.RECOMPUTE_CUBE_KIND)
+    assert seen[0].cube_body == (kind == b6.CUBE_KIND) == b6.cube_body(args)
+    assert b6.backup6d_cuda.launches == launches + 1
+    assert b6.backup6d_cuda.cube_launches == cube + (kind == b6.CUBE_KIND)

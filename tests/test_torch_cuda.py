@@ -8,11 +8,12 @@ backup with its envelope modes: flat plans, uint8 argmin, min-only sweeps,
 carry mode, lane recompute; its row-block and digit-slice modes (B.7), the
 edges of its shared-memory tiles and a grid past 2**31 cells, each mode
 also through its kernel for more than 3 taps an axis (``backup6d_wide``,
-36 row combos); B.3's body for the full (-1, 0, 1) tap cube
-(``backup6d_sweep_cube``: the reference shape, exact ties, row-action and
-row-lane costs, its tile edges) and B.5's (``backup6d_sweep_recompute_cube``:
-uint8 and int32 argmin, exact ties, ``edge='clamp'``, its tile edges, and
-against B.4 on a lane plan filled from the plain recompute); the
+36 row combos); the cube body for the full (-1, 0, 1) tap cube on a
+stored lane plan (``backup6d_sweep_cube``: the reference shape, exact ties,
+row-action and row-lane costs, a uint8 argmin, its tile edges) and with the
+lanes recomputed (``backup6d_sweep_recompute_cube``: uint8 and int32 argmin,
+exact ties, ``edge='clamp'``, its tile edges, and against B.4 on a lane
+plan filled from the plain recompute); the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
 PyTorch versions, on a card; and the surface's step through B.1
@@ -524,7 +525,7 @@ WIDE_6D_31 = dict(n_mesh_w=11, h=0.025, w_min_deg=-35.0, w_max_deg=50.0,
 ], ids=["5x4", "11x10", "tie", "generic", "wide-36-15x10", "wide-31-11x4",
         "wide-36-generic", "wide-36-ties"])
 def test_backup6d_one_sweep_bitwise(device, case, kw):
-    """One sweep through B.3's wrapper equal to the plain version bitwise:
+    """One sweep of B.3 equal to the plain version bitwise:
     ``backup6d_sweep_cube`` on the full (-1, 0, 1) tap cube at digit base
     3, ``backup6d_sweep`` on other structures of at most 3 taps an axis,
     ``backup6d_wide`` past them (the tile plan says which), in the
@@ -534,8 +535,7 @@ def test_backup6d_one_sweep_bitwise(device, case, kw):
     assert (bk.action_digits is None) == (case in ("permuted", "twice"))
     v = torch.from_numpy(np.random.default_rng(9).uniform(
         0, 50, bk.state_shape).astype(np.float32)).to(device)
-    plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args,
-                                     b6.CUBE_KIND)
+    plan, blocks = b6.tile_occupancy(v.reshape(bk.NW, bk.NE), bk.args)
     assert plan.wide == ("w_min_deg" in kw) and blocks >= 1
     assert plan.cube_body == (case == "extrapolate" and "w_min_deg" not in kw)
     before = b6.backup6d_cuda.launches
@@ -573,16 +573,15 @@ def test_backup6d_tiles_bitwise(device, case):
     else:
         args, t = bk.args, v
     t = t.contiguous()
-    fn = b6.backup6d_cuda if case in ("lanes-cut", "ties") \
-        else b6.backup6d_block_cuda
-    plan, blocks = b6.tile_occupancy(
-        t, args, b6.CUBE_KIND if fn is b6.backup6d_cuda else b6.SWEEP_KIND)
+    plan, blocks = b6.tile_occupancy(t, args)
+    # a block of no halo rows is a table of its own: the cube body
+    assert plan.cube_body == (case in ("edges", "lanes-cut"))
     assert plan.smem_bytes > 0 and blocks >= 1
     if case == "edges":
         assert plan.stage_rows(0).min() < 0 and plan.stage_rows(0).max() >= 10
     if case == "lanes-cut":
         assert bk.NE % plan.lanes != 0
-    got = fn(t, args)
+    got = b6.backup6d_cuda(t, args)
     torch.cuda.synchronize()
     _bitwise(got, b6.backup6d_plain(t, args))
     if case == "ties":
@@ -614,7 +613,7 @@ def test_backup6d_past_2_31_cells_is_not_refused(device):
                                 dict(WIDE_6D, n_mesh_q=4)],
                          ids=["7x5", "wide-36"])
 def test_solve_full_kernel_equals_plain(device, kw):
-    """``solve_full`` (auto) through B.3's wrapper, one launch a sweep
+    """``solve_full`` (auto) through B.3, one launch a sweep
     (``backup6d_sweep_cube`` at the full tap cube, counted in
     ``cube_launches``; ``backup6d_wide`` at 36 combos, not counted there),
     equals ``impl='plain'``."""
@@ -651,15 +650,16 @@ def _twin_actions(args):
 
 
 @pytest.mark.parametrize("case", ["11x10", "7x5", "twins", "rowact-rowlane",
-                                  "tile-edges"])
+                                  "tile-edges", "uint8"])
 def test_backup6d_cube_body_bitwise(device, case):
-    """``backup6d_sweep_cube``, B.3's body for the full (-1, 0, 1) tap cube
-    at digit base 3, equal to ``backup6d_plain`` bit for bit: the reference
-    shape; 7^3 x 5^3; exact ties (every action with a digit 2 has a twin,
-    digit 0 there, with the same total: the argmin never holds a 2); row-
-    action and row-lane costs present; the tile edges at 11^3 x 10^3 (row
-    tiles clipped at both table edges, a cut lane tile, an odd row count:
-    the last chunk's second cell past the table)."""
+    """``backup6d_sweep_cube``, the cube body on a stored lane plan for the
+    full (-1, 0, 1) tap cube at digit base 3, equal to ``backup6d_plain``
+    bit for bit: the reference shape; 7^3 x 5^3; exact ties (every action
+    with a digit 2 has a twin, digit 0 there, with the same total: the
+    argmin never holds a 2); row-action and row-lane costs present; the
+    tile edges at 11^3 x 10^3 (row tiles clipped at both table edges, a cut
+    lane tile, an odd row count: the last chunk's second cell past the
+    table); a uint8 argmin (B.4's)."""
     kw = dict(n_mesh_w=7, n_mesh_q=5) if case == "7x5" else \
         dict(n_mesh_w=11, n_mesh_q=10)
     bk = _attitude_backup(device, "extrapolate", **kw)
@@ -675,8 +675,10 @@ def test_backup6d_cube_body_bitwise(device, case):
                                       .astype(np.float32)).to(device),
             c_rowlane=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, bk.NE))
                                        .astype(np.float32)).to(device))
+    elif case == "uint8":
+        args = args._replace(argmin_dtype=torch.uint8)
     assert b6.cube_body(args)
-    plan, blocks = b6.tile_occupancy(v, args, b6.CUBE_KIND)
+    plan, blocks = b6.tile_occupancy(v, args)
     assert plan.cube_body and blocks >= 1
     if case == "tile-edges":
         assert plan.stage_rows(0).min() < 0
@@ -686,6 +688,7 @@ def test_backup6d_cube_body_bitwise(device, case):
     got = b6.backup6d_cuda(v, args)
     torch.cuda.synchronize()
     assert b6.backup6d_cuda.cube_launches == before + 1
+    assert got.argmin.dtype == args.argmin_dtype
     _bitwise(got, b6.backup6d_plain(v, args))
     if case == "twins":
         a = got.argmin
@@ -704,8 +707,9 @@ def _recompute_backup(device, n_w=7, n_q=5, edge="extrapolate",
 @pytest.mark.parametrize("case", ["uint8", "int32", "twins", "clamp",
                                   "tile-edges", "rowact-rowlane"])
 def test_backup6d_recompute_cube_body_bitwise(device, case):
-    """``backup6d_sweep_recompute_cube``, B.5's body for the full (-1, 0,
-    1) tap cube at digit base 3, equal to ``backup6d_plain`` with the plain
+    """``backup6d_sweep_recompute_cube``, the cube body with the lanes
+    recomputed (B.5) for the full (-1, 0, 1) tap cube at digit base 3,
+    equal to ``backup6d_plain`` with the plain
     recompute bit for bit: uint8 and int32 argmin at 7^3 x 5^3 (an odd row
     count: the last chunk's second cell past the table); exact ties (every
     action with a digit 2 has a twin, digit 0 there, with the same total:
@@ -728,19 +732,19 @@ def test_backup6d_recompute_cube_body_bitwise(device, case):
                                       .astype(np.float32)).to(device),
             c_rowlane=torch.from_numpy(rng.uniform(-1, 1, (bk.NW, bk.NE))
                                        .astype(np.float32)).to(device))
-    assert b6.recompute_cube_body(args) and bk.NW % b6.CUBE_CELLS == 1
-    plan, blocks = b6.tile_occupancy(v, args, b6.RECOMPUTE_CUBE_KIND)
-    assert plan.recompute_cube_body and blocks >= 1
+    assert b6.cube_body(args) and bk.NW % b6.CUBE_CELLS == 1
+    plan, blocks = b6.tile_occupancy(v, args)
+    assert plan.cube_body and blocks >= 1
     if case == "tile-edges":
         assert plan.stage_rows(0).min() < 0
         assert plan.stage_rows(plan.grid[0] - 1).max() >= bk.NW
         assert bk.NE % plan.lanes != 0
-    before = b6.backup6d_recompute_cuda.launches
-    cube_before = b6.backup6d_recompute_cuda.cube_launches
-    got = b6.backup6d_recompute_cuda(v, args)
+    before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
+    got = b6.backup6d_cuda(v, args)
     torch.cuda.synchronize()
-    assert b6.backup6d_recompute_cuda.launches == before + 1
-    assert b6.backup6d_recompute_cuda.cube_launches == cube_before + 1
+    assert b6.backup6d_cuda.launches == before + 1
+    assert b6.backup6d_cuda.cube_launches == cube_before + 1
     assert got.argmin.dtype == args.argmin_dtype
     _bitwise(got, b6.backup6d_plain(v, args))
     if case == "twins":
@@ -751,8 +755,10 @@ def test_backup6d_recompute_cube_body_bitwise(device, case):
 
 def test_backup6d_recompute_cube_equals_b4_on_filled_plan(device):
     """B.5 through ``backup6d_sweep_recompute_cube`` equals one B.4 sweep
-    (``backup6d_sweep``) of the same table on a lane plan filled from the
-    plain recompute, at 11^3 x 10^3: bitwise, values and argmin."""
+    of the same table on a lane plan filled from the plain recompute, at
+    11^3 x 10^3, through ``backup6d_sweep_cube`` and through
+    ``backup6d_sweep`` (the same sweep as a range of every action):
+    bitwise, values and argmin."""
     bk = _recompute_backup(device, 11, 10)
     a5 = bk.args
     offs, fracs = a5.lanes.lane_block(0, bk.NW)
@@ -761,15 +767,18 @@ def test_backup6d_recompute_cube_equals_b4_on_filled_plan(device):
                      lanes=None)
     v = torch.from_numpy(np.random.default_rng(41).uniform(
         0, 50, (bk.NW, bk.NE)).astype(np.float32)).to(device)
-    assert b6.tile_occupancy(v, a4)[0].kind == b6.SWEEP_KIND
-    assert b6.tile_occupancy(
-        v, a5, b6.RECOMPUTE_CUBE_KIND)[0].recompute_cube_body
-    cube_before = b6.backup6d_recompute_cuda.cube_launches
-    got4 = b6.backup6d_flat_cuda(v, a4)
-    got5 = b6.backup6d_recompute_cuda(v, a5)
+    a4s = b6.slice_args(a4, 0, 27)
+    assert b6.tile_occupancy(v, a4)[0].cube_body
+    assert b6.tile_occupancy(v, a4s)[0].kind == b6.SWEEP_KIND
+    assert b6.tile_occupancy(v, a5)[0].cube_body
+    cube_before = b6.backup6d_cuda.cube_launches
+    got4 = b6.backup6d_cuda(v, a4)
+    got4s = b6.backup6d_cuda(v, a4s)
+    got5 = b6.backup6d_cuda(v, a5)
     torch.cuda.synchronize()
-    assert b6.backup6d_recompute_cuda.cube_launches == cube_before + 1
+    assert b6.backup6d_cuda.cube_launches == cube_before + 2
     _bitwise(got5, got4)
+    _bitwise(got5, got4s)
 
 
 ENVELOPE_MODES = [
@@ -787,22 +796,24 @@ ENVELOPE_MODES = [
 def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge,
                                     size):
     """B.4 (flat stored plan) and B.5 (lane recompute) vs their plain
-    versions, one sweep: values and argmin bitwise, through
-    ``backup6d_sweep`` (B.5's tracking sweeps at 7^3 x 5^3, the full tap
-    cube: ``backup6d_sweep_recompute_cube``) and, at 36 row combos,
-    ``backup6d_wide``."""
+    versions, one sweep: values and argmin bitwise, through the cube body
+    (the tracking sweeps of the full tap cube: ``backup6d_sweep_cube`` or
+    ``backup6d_sweep_recompute_cube``), ``backup6d_sweep`` (the min-only
+    ones) and, at 36 row combos, ``backup6d_wide``."""
     kw = dict(flat=True) if lane_mode == "plan" else dict(lane_mode=lane_mode)
     _, plan, cost = attitude.build_full(
         attitude.AttitudeConfig(**size, n_mesh_q=5), edge=edge, **kw)
     bk = b6.Backup6D(plan, cost, argmin_dtype=adt, track_argmin=track)
-    fn = b6.backup6d_recompute_cuda if lane_mode == "recompute" \
-        else b6.backup6d_flat_cuda
     v = torch.from_numpy(np.random.default_rng(11).uniform(
         0, 50, (bk.NW, bk.NE)).astype(np.float32)).to(device)
-    before = fn.launches
-    got = fn(v, bk.args)
+    cube = b6.tile_occupancy(v, bk.args)[0].cube_body
+    assert cube == (track and "w_min_deg" not in size)
+    before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
+    got = b6.backup6d_cuda(v, bk.args)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    assert b6.backup6d_cuda.launches == before + 1
+    assert b6.backup6d_cuda.cube_launches == cube_before + cube
     assert got.argmin.dtype == adt
     _bitwise(got, b6.backup6d_plain(v, bk.args))
     if not track:
@@ -811,15 +822,16 @@ def test_envelope_one_sweep_bitwise(device, lane_mode, adt, track, edge,
 
 @pytest.mark.parametrize("lane_mode", ["plan", "recompute"])
 def test_envelope_carry_solve_equals_plain(device, lane_mode):
-    """A forced flat, carry-mode solve through B.4 or B.5 equals the plain
-    version's solve; its tables stay flat."""
+    """A forced flat, carry-mode solve through B.4 or B.5 (the cube body,
+    one launch a sweep) equals the plain version's solve; its tables stay
+    flat."""
     cfg = attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5)
-    fn = b6.backup6d_recompute_cuda if lane_mode == "recompute" \
-        else b6.backup6d_flat_cuda
-    before = fn.launches
+    before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
     sk = attitude.solve_full(cfg, num_sweeps=10, flat=True,
                              carry_padded=True, lane_mode=lane_mode)
-    assert fn.launches == before + 10 and sk.is_flat
+    assert b6.backup6d_cuda.launches == before + 10 and sk.is_flat
+    assert b6.backup6d_cuda.cube_launches == cube_before + 10
     sp = attitude.solve_full(cfg, num_sweeps=10, flat=True,
                              lane_mode=lane_mode, impl="plain",
                              device=device)
@@ -1176,7 +1188,7 @@ def test_rowlane_kernel_refuses_a_plan_that_misses_a_read(device, fault,
 
 @pytest.mark.parametrize("kind", ["broadcast", "flat", "recompute"])
 def test_backup6d_wide_block_and_slices_bitwise(device, kind):
-    """backup6d_wide through B.7's wrappers: row blocks of the 36-combo
+    """backup6d_wide in B.7's modes: row blocks of the 36-combo
     configuration (its halo rows reach 2 t0 steps down) and their digit
     slices equal the plain version bitwise, and the slices combined by the
     first minimum equal the block's sweep."""
@@ -1195,12 +1207,12 @@ def test_backup6d_wide_block_and_slices_bitwise(device, kind):
         args = b6.block_args(bk.args, r0, r1, lo, hi)
         local = vp[r0:r1 + lo + hi].contiguous()
         assert b6.tile_occupancy(local, args)[0].wide
-        whole = b6.backup6d_block_cuda(local, args)
+        whole = b6.backup6d_cuda(local, args)
         _bitwise(whole, b6.backup6d_plain(local, args))
         vals, argm = [], []
         for g in range(3):
             sa = b6.slice_args(args, 9 * g, 9 * g + 9)
-            got = b6.backup6d_slice_cuda(local, sa)
+            got = b6.backup6d_cuda(local, sa)
             _bitwise(got, b6.backup6d_plain(local, sa))
             vals.append(got.values)
             argm.append(got.argmin)
@@ -1229,18 +1241,19 @@ def test_b7_block_and_slices_bitwise(device, kind, mode):
     v = _seeded((bk.NW, bk.NE), device)
     lo, hi = bk.row_reach()
     vp = torch.nn.functional.pad(v, (0, 0, lo, hi))
-    before = b6.backup6d_block_cuda.launches
+    before = b6.backup6d_cuda.launches
+    cube_before = b6.backup6d_cuda.cube_launches
     for r0, r1 in ((0, 172), (172, 343), (100, 200)):
         args = b6.block_args(bk.args, r0, r1, lo, hi)
         local = vp[r0:r1 + lo + hi].contiguous()
-        whole = b6.backup6d_block_cuda(local, args)
+        whole = b6.backup6d_cuda(local, args)
         _bitwise(whole, b6.backup6d_plain(local, args))
         # the block's digit slices, as a rows x 3 mesh runs them
         vals, argm = [], []
         for g in range(3):
             sa = b6.slice_args(args, 9 * g, 9 * g + 9)
             assert sa.action_digits == 3
-            got = b6.backup6d_slice_cuda(local, sa)
+            got = b6.backup6d_cuda(local, sa)
             _bitwise(got, b6.backup6d_plain(local, sa))
             vals.append(got.values)
             argm.append(got.argmin)
@@ -1248,12 +1261,14 @@ def test_b7_block_and_slices_bitwise(device, kind, mode):
         assert torch.equal(vmin, whole.values)
         if mode[1]:
             assert torch.equal(arg, whole.argmin.to(torch.int32))
-    assert b6.backup6d_block_cuda.launches == before + 3
+    # 3 blocks and their 9 slices, none through the cube body
+    assert b6.backup6d_cuda.launches == before + 12
+    assert b6.backup6d_cuda.cube_launches == cube_before
     full = b6.backup6d_plain(v, bk.args)
     vals, argm = [], []
     for g in range(3):
         sa = b6.slice_args(bk.args, 9 * g, 9 * g + 9)
-        got = b6.backup6d_slice_cuda(v, sa)
+        got = b6.backup6d_cuda(v, sa)
         _bitwise(got, b6.backup6d_plain(v, sa))
         vals.append(got.values)
         argm.append(got.argmin)
@@ -1271,7 +1286,7 @@ def test_b7_output_may_not_overlap_the_table(device):
     t = torch.zeros((lo + 60 + hi, bk.NE), device=device)
     args = b6.block_args(bk.args, 0, 60, lo, hi)
     with pytest.raises(ValueError, match="overlap"):
-        b6.backup6d_block_cuda(t, args, out_v=t[lo:lo + 60])
+        b6.backup6d_cuda(t, args, out_v=t[lo:lo + 60])
 
 
 @pytest.mark.parametrize("sizes", [(2,), (4,), (2, 3)],
@@ -1286,16 +1301,15 @@ def test_halo6_on_the_card_equals_one_device(device, sizes):
     ref = value_iteration_finite(plan, cost, 30, backup=b6.Backup6D(plan,
                                                                     cost))
     mesh = LocalMesh(("s", "a")[:len(sizes)], sizes)
-    before = (b6.backup6d_block_cuda.launches,
-              b6.backup6d_slice_cuda.launches)
+    before = (b6.backup6d_cuda.launches, b6.backup6d_cuda.cube_launches)
     got = value_iteration_finite_halo6(
         plan, cost, 30, mesh,
         action_axis_name="a" if len(sizes) == 2 else None)
+    # a B.7 launch a rank (and action group) a sweep; rank blocks and digit
+    # slices never take the cube body
     n = 30 * int(np.prod(sizes))
-    want = (before[0], before[1] + n) if len(sizes) == 2 else \
-        (before[0] + n, before[1])
-    assert (b6.backup6d_block_cuda.launches,
-            b6.backup6d_slice_cuda.launches) == want
+    assert (b6.backup6d_cuda.launches,
+            b6.backup6d_cuda.cube_launches) == (before[0] + n, before[1])
     _bitwise(got, ref)
 
 

@@ -295,12 +295,11 @@ def test_rejections():
     _, plan, cost = _build()
     with pytest.raises(ValueError, match="argmin_dtype"):
         b6.Backup6D(plan, cost, argmin_dtype=torch.int16)
-    bk = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8)
-    v = torch.zeros((bk.NW, bk.NE))
-    with pytest.raises(ValueError, match="backup6d_flat_cuda"):
-        b6.backup6d_cuda(v, bk.args)
-    with pytest.raises(ValueError, match="args.lanes"):
-        b6.backup6d_recompute_cuda(v, bk.args)
+    rbk = b6.Backup6D(*_build("recompute")[1:], argmin_dtype=torch.uint8)
+    lanes = rbk.args.lanes._replace(axis_sizes=(4, 4, 5))
+    with pytest.raises(ValueError, match="lane axes"):
+        b6.backup6d_cuda(torch.zeros((rbk.NW, rbk.NE)),
+                         rbk.args._replace(lanes=lanes))
     shape = PlanShape.of(plan)
     assert shape.grid_shape == plan.grid_shape and shape.ndim == 6
     assert shape.query_shape == (125, 64, 27) and shape.device == plan.device

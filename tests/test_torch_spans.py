@@ -288,20 +288,22 @@ def test_segmented_engine_checks_are_spanned():
 
 @pytest.mark.cuda
 def test_card_recompute_launches_one_a_sweep():
-    """On a card: a segmented solve on the recompute plan counts one B.5
-    launch a sweep in ``backup6d_recompute_cuda.launches``, a solve on the
-    broadcast plan none (the stand-in library's count of each wrapper:
+    """On a card: a segmented solve on the recompute plan and a solve on
+    the broadcast plan each count one launch a sweep in
+    ``backup6d_cuda.launches``, every one through the cube body
+    (``.cube_launches``; the planner's choice of each launch:
     ``tests/test_torch_backup6d_tiles.py``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     cfg = attitude.AttitudeConfig(n_mesh_w=5, n_mesh_q=4, T_final=0.05)
-    for kw, want in ((dict(lane_mode="recompute", segment_size=4,
-                           tol=1e-6, tol_mode="rel"), 9), ({}, 0)):
-        before = b6.backup6d_recompute_cuda.launches
+    for kw in (dict(lane_mode="recompute", segment_size=4, tol=1e-6,
+                    tol_mode="rel"), {}):
+        before = (b6.backup6d_cuda.launches, b6.backup6d_cuda.cube_launches)
         sol = attitude.solve_full(cfg, device="cuda", **kw)
         torch.cuda.synchronize()
         assert sol.result.num_sweeps == 9
-        assert b6.backup6d_recompute_cuda.launches - before == want
+        assert (b6.backup6d_cuda.launches - before[0],
+                b6.backup6d_cuda.cube_launches - before[1]) == (9, 9)
 
 
 @pytest.mark.cuda
