@@ -53,7 +53,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from .io import save_values
+from .io import CheckpointWriter, save_values
 from .ops.backup import bellman_backup
 from .ops.interp import InterpPlan
 from .profiling import span
@@ -627,7 +627,11 @@ def value_iteration_segmented(
       done, *state_shape)``;
     * **checkpoints**: with ``checkpoint_path``, the value table, the sweep
       index and the stop rule's last checksum ``prev_f`` are written
-      (:func:`~ocdp_tpu_torch.io.save_values`) after every segment;
+      (:func:`~ocdp_tpu_torch.io.save_values`) after every segment: the
+      table is copied into a :class:`~ocdp_tpu_torch.io.CheckpointWriter`'s
+      staging buffer and the file written on its thread while the next
+      segment sweeps; the last segment's is complete when the call
+      returns, and so is every one started when it raises;
     * **resume**: pass ``init_values``, ``start_sweep`` and ``prev_f`` from
       :func:`~ocdp_tpu_torch.io.load_values` to continue a solve; the result
       is bitwise the uninterrupted one;
@@ -674,41 +678,46 @@ def value_iteration_segmented(
     host_policies = [] if store_policies else None
     sweep = start_sweep
     converged = False
-    while sweep < num_sweeps and not converged:
-        n = min(segment_size, num_sweeps - sweep)
-        if tol is not None:
-            # end the segment at the converged engine's next check sweep
-            # (it checks after sweep s when (num_sweeps - s + 1) is a
-            # multiple of segment_size)
-            r = (num_sweeps + 1) % segment_size
-            n = min(((r - sweep - 1) % segment_size) + 1, num_sweeps - sweep)
-        if carry:
-            v, spare = _carry_sweeps(backup, v, spare, argmin, n)
-        else:
-            res = value_iteration_finite(
-                plan, stage_cost, n, init_values=v,
-                store_policies=store_policies, policy_dtype=pdt,
-                backup=backup, narrow_argmin_result=narrow_argmin_result)
-            v, argmin = res.values, res.argmin
-            if store_policies:
-                host_policies.append(res.policies.cpu().numpy())
-        sweep += n
-        if tol is not None and _is_check_sweep(sweep, num_sweeps,
-                                               segment_size):
-            with span("ocdp.engine.check"):
-                fsum = v.sum(dtype=torch.float32).cpu()
-                err_f = fsum - torch.tensor(prev_f or 0.0,
-                                            dtype=torch.float32)
-                converged = convergence_stop(float(err_f), float(fsum), tol,
-                                             tol_mode)
-                prev_f = float(fsum)
-        table = _carry_view(plan, v) if carry else v
-        if checkpoint_path is not None:
-            save_values(checkpoint_path, table, sweep,
-                        checkpoint_axes if checkpoint_axes is not None
-                        else (), prev_f=prev_f)
-        if on_segment is not None:
-            on_segment(sweep, table)
+    with CheckpointWriter() as writer:
+        while sweep < num_sweeps and not converged:
+            n = min(segment_size, num_sweeps - sweep)
+            if tol is not None:
+                # end the segment at the converged engine's next check sweep
+                # (it checks after sweep s when (num_sweeps - s + 1) is a
+                # multiple of segment_size)
+                r = (num_sweeps + 1) % segment_size
+                n = min(((r - sweep - 1) % segment_size) + 1,
+                        num_sweeps - sweep)
+            if carry:
+                v, spare = _carry_sweeps(backup, v, spare, argmin, n)
+            else:
+                res = value_iteration_finite(
+                    plan, stage_cost, n, init_values=v,
+                    store_policies=store_policies, policy_dtype=pdt,
+                    backup=backup, narrow_argmin_result=narrow_argmin_result)
+                v, argmin = res.values, res.argmin
+                if store_policies:
+                    host_policies.append(res.policies.cpu().numpy())
+            sweep += n
+            if tol is not None and _is_check_sweep(sweep, num_sweeps,
+                                                   segment_size):
+                with span("ocdp.engine.check"):
+                    fsum = v.sum(dtype=torch.float32).cpu()
+                    err_f = fsum - torch.tensor(prev_f or 0.0,
+                                                dtype=torch.float32)
+                    converged = convergence_stop(float(err_f), float(fsum),
+                                                 tol, tol_mode)
+                    prev_f = float(fsum)
+            table = _carry_view(plan, v) if carry else v
+            if checkpoint_path is not None:
+                # written on the writer's thread while the next segment
+                # sweeps; the solve's last one is waited for at once
+                save_values(checkpoint_path, table, sweep,
+                            checkpoint_axes if checkpoint_axes is not None
+                            else (), prev_f=prev_f, writer=writer,
+                            wait=sweep >= num_sweeps or converged)
+            if on_segment is not None:
+                on_segment(sweep, table)
 
     if carry:
         del spare

@@ -16,8 +16,9 @@ exact ties, ``edge='clamp'``, its tile edges, and against B.4 on a lane
 plan filled from the plain recompute); the
 row-sharded engines over an in-process mesh; the banded 2-D backup with its
 channel batch, factorized cost and CUDA graph replay) vs their plain
-PyTorch versions, on a card; and the surface's step through B.1
-(``graft_entry.entry``) and its trace (``profiling.trace``).
+PyTorch versions, on a card; the surface's step through B.1
+(``graft_entry.entry``) and its trace (``profiling.trace``); and the
+segmented envelope solve's checkpoints, staged in a pinned buffer.
 
 Each kernel and its plain version round every multiply and add separately
 and take the first minimum, so on one device they must agree bitwise:
@@ -1352,3 +1353,72 @@ def test_trace_holds_each_b1_launch(device, tmp_path):
     assert launches == cfg.N - 1 == len(affine)
     assert not any("combine_splits" in n or "backup_partial" in n
                    for n in names)
+
+
+def test_segmented_checkpoints_through_a_pinned_buffer(device, tmp_path,
+                                                       monkeypatch):
+    """The envelope path (flat recompute plan, uint8 argmin, carry mode)
+    at 11^3 x 10^3 in segments of 4: the checkpoints are staged in one
+    pinned buffer and written on the writer's thread while the next
+    segment sweeps; each is bitwise its segment's table; the resume from
+    the first is bitwise the uninterrupted solve; a warm solve allocates
+    no pinned memory and copies the table into pinned memory."""
+    from ocdp_tpu_torch import engine
+    from ocdp_tpu_torch import io as tio
+    from ocdp_tpu_torch.engine import (value_iteration_finite,
+                                       value_iteration_segmented)
+
+    grid, plan, cost = attitude.build_full(
+        attitude.AttitudeConfig(n_mesh_w=11, n_mesh_q=10), device=device,
+        lane_mode="recompute")
+    carry = b6.Backup6D(plan, cost, argmin_dtype=torch.uint8,
+                        carry_padded=True)
+    shape = PlanShape.of(plan)
+    staged, written = [], []
+    real_save, real_write = engine.save_values, tio._write_npz
+
+    def save(*a, **kw):
+        real_save(*a, **kw)
+        h = kw["writer"]._host
+        staged.append((h.is_pinned(), h.data_ptr()))
+
+    def write(path, values, arrays):
+        written.append((int(arrays["sweep_index"]), values.copy()))
+        real_write(path, values, arrays)
+        if len(written) == 1:
+            real_write(str(tmp_path / "first.npz"), values, arrays)
+
+    monkeypatch.setattr(engine, "save_values", save)
+    monkeypatch.setattr(tio, "_write_npz", write)
+
+    def solve(**kw):
+        return value_iteration_segmented(
+            shape, None, 9, segment_size=4, backup=carry,
+            checkpoint_path=str(tmp_path / "c.npz"),
+            checkpoint_axes=grid.axes, narrow_argmin_result=True, **kw)
+
+    got = solve()
+    assert [s for s, _ in written] == [4, 8, 9]
+    assert [p for p, _ in staged] == [True] * 3
+    assert len({ptr for _, ptr in staged}) == 1     # one buffer, reused
+    for sweep, values in written:
+        ref = value_iteration_finite(shape, None, sweep, backup=carry,
+                                     narrow_argmin_result=True)
+        assert np.array_equal(values, ref.values.cpu().numpy())
+    assert torch.equal(got.values, ref.values)
+    ck = tio.load_values(str(tmp_path / "first.npz"), device=device)
+    assert ck.sweep_index == 4
+    resumed = solve(init_values=ck.values, start_sweep=ck.sweep_index)
+    assert resumed.num_sweeps == 5
+    _bitwise(resumed, ref)
+
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        warm = solve()
+        torch.cuda.synchronize()
+    _bitwise(warm, ref)
+    names = {e.name for e in prof.events()}
+    assert any(n.startswith("cuda") for n in names)     # runtime calls seen
+    assert not names & {"cudaHostAlloc", "cudaMallocHost", "cudaHostRegister"}
+    assert any("DtoH" in n and "Pinned" in n for n in names), sorted(names)
