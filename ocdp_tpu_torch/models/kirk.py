@@ -24,7 +24,7 @@ from ..engine import SolveResult, value_iteration_finite
 from ..grids import Grid, linspace_axis
 from ..ops.fused_backup2d import AffineBackup2D
 from ..ops.interp import InterpPlan, PlanShape, build_plan, interp_eval
-from ..profiling import solve_span, sweep_callback
+from ..profiling import solve_span, span, sweep_callback
 from ..utils.device import resolve_device
 
 __all__ = ["KirkConfig", "KirkProblem", "KirkSolution", "affine_backup",
@@ -171,6 +171,8 @@ def solve(
     gather oracle, any device), or ``"auto"``: the kernel on a CUDA device,
     the gather oracle otherwise. The two agree bitwise on a CUDA device.
     The kernel writes each sweep's argmin straight into its policy slot.
+    The set-up before the sweeps (meshes, cost, plan or kernel arguments)
+    runs in an ``ocdp.build`` span.
 
     ``verbose``: per-stage 'step %d - %f seconds' prints (the reference's
     default console output) via :class:`~ocdp_tpu_torch.profiling.SweepTimer`.
@@ -185,16 +187,17 @@ def solve(
         if impl == "kernel" and device.type != "cuda":
             raise ValueError(
                 f"impl='kernel' needs a CUDA device, got {device}")
-        if impl == "kernel":
-            s_r, u_mesh = _meshes(config)
-            shape = PlanShape((config.dx, config.dx),
-                              (config.dx, config.dx, config.du), device)
-            problem = KirkProblem(config, Grid((s_r, s_r)), u_mesh, shape,
-                                  None)
-            backup = affine_backup(problem)
-        else:
-            problem = build(config, device=device)
-            backup = None
+        with span("ocdp.build"):
+            if impl == "kernel":
+                s_r, u_mesh = _meshes(config)
+                shape = PlanShape((config.dx, config.dx),
+                                  (config.dx, config.dx, config.du), device)
+                problem = KirkProblem(config, Grid((s_r, s_r)), u_mesh,
+                                      shape, None)
+                backup = affine_backup(problem)
+            else:
+                problem = build(config, device=device)
+                backup = None
         result = value_iteration_finite(
             problem.plan, problem.stage_cost, config.N - 1,
             store_policies=store_policies, backup=backup,

@@ -191,7 +191,8 @@ CHUNK_ACTIONS = 32              # actions a split stages at a time (chunked)
 def _affine_query(x0, x1, u, a_row, b):
     """One next-state coordinate, ``a_row[0] * x0 + a_row[1] * x1 + b * u``
     with Python-float coefficients: the torch ops, and so the rounding, of
-    ``models/kirk.py::build`` (the kernel pins each step)."""
+    ``models/kirk.py::build`` (the kernel pins each step); on numpy float32
+    arrays the same float32 steps."""
     return a_row[0] * x0 + a_row[1] * x1 + b * u
 
 
@@ -293,28 +294,32 @@ def plan_rows(axes, u, A, B, cells_per_block: int):
     ``[b * cells_per_block, (b + 1) * cells_per_block)`` of the row-major
     grid. A cell's axis-0 query is monotone in the control (each rounded
     step is), so its cell indices over all actions run between those at
-    ``min(u)`` and ``max(u)``: the planner locates those two queries per
-    cell, with the torch ops the plain version uses, and a block stages
-    rows ``row0 .. row0 + n_rows - 1``, the least and the greatest ``lo``
-    of its cells and the row after the greatest."""
-    g0 = torch.as_tensor(np.asarray(axes[0], np.float32))
-    g1 = torch.as_tensor(np.asarray(axes[1], np.float32))
-    ut = torch.as_tensor(np.asarray(u, np.float32))
-    ends = torch.stack([ut.min(), ut.max()])
+    ``min(u)`` and ``max(u)``: the planner forms those two queries per
+    cell in float32, step for step as the plain version does, and locates
+    them as ``interp.axis_locate`` does, and a block stages rows ``row0 ..
+    row0 + n_rows - 1``, the least and the greatest ``lo`` of its cells
+    and the row after the greatest. It runs in numpy, on one host thread:
+    torch's CPU ``searchsorted`` spreads even these few queries over the
+    intra-op threads, whose wake-ups on a busy host made a solve's set-up
+    take up to tens of milliseconds."""
+    g0 = np.asarray(axes[0], np.float32)
+    g1 = np.asarray(axes[1], np.float32)
+    ut = np.asarray(u, np.float32)
+    ends = np.stack([ut.min(), ut.max()])
     q = _affine_query(g0[:, None, None], g1[None, :, None],
                       ends[None, None, :], A[0], B[0])
-    lo, _ = axis_locate(axes[0], q)
-    lo = lo.reshape(-1, 2).to(torch.int64)
-    n_blocks = math.ceil(lo.shape[0] / cells_per_block)
-    pad = n_blocks * cells_per_block - lo.shape[0]
-    first = lo.min(1).values
-    last = lo.max(1).values
+    lo = np.searchsorted(g0, q.reshape(-1), side="right") - 1
+    lo = np.clip(lo, 0, g0.size - 2).astype(np.int64).reshape(-1, 2)
+    first = np.minimum(lo[:, 0], lo[:, 1])
+    last = np.maximum(lo[:, 0], lo[:, 1])
+    n_blocks = math.ceil(first.size / cells_per_block)
+    pad = n_blocks * cells_per_block - first.size
     # the last block's missing cells repeat its last cell
-    first = torch.cat([first, first[-1:].expand(pad)])
-    last = torch.cat([last, last[-1:].expand(pad)])
-    row0 = first.reshape(n_blocks, cells_per_block).min(1).values
-    n_rows = last.reshape(n_blocks, cells_per_block).max(1).values + 2 - row0
-    return row0, n_rows
+    first = np.concatenate([first, np.repeat(first[-1:], pad)])
+    last = np.concatenate([last, np.repeat(last[-1:], pad)])
+    row0 = first.reshape(n_blocks, cells_per_block).min(1)
+    n_rows = last.reshape(n_blocks, cells_per_block).max(1) + 2 - row0
+    return torch.from_numpy(row0), torch.from_numpy(n_rows)
 
 
 def _axis(name, a) -> np.ndarray:
