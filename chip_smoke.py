@@ -311,6 +311,7 @@ from ocdp_tpu_torch.models import attitude, kirk, pos_att, position
 from ocdp_tpu_torch.ops import backup6d as b6
 from ocdp_tpu_torch.ops import band_backup2d as bb
 from ocdp_tpu_torch.ops import fused_backup2d as fb
+from ocdp_tpu_torch.ops import liveness
 from ocdp_tpu_torch.ops import rowlane as rl
 from ocdp_tpu_torch.ops.rowband import RowBandBackup2D
 from ocdp_tpu_torch.ops.interp import InterpPlan, PlanShape, build_plan
@@ -1784,7 +1785,7 @@ def recompute_vs_filled_plan(bk5, v) -> None:
             fracs[k][r0:r0 + n] = f[k]
     torch.cuda.synchronize()
     fill_s = time.perf_counter() - t0
-    _, live = b6._lane_live_device(offs, fracs)
+    [(_, live)] = liveness.live_sets((offs, fracs))
     outside = sorted(set(live) - set(bk5.lane_combos))
     a4 = a5._replace(lane_off=tuple(offs), lane_frac=tuple(fracs), lanes=None)
     cube0 = b6.backup6d_cuda.cube_launches

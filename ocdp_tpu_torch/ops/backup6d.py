@@ -79,9 +79,10 @@ sweep's, bit for bit.
 * :class:`Backup6D` analyses a plan once (live taps, action digits, the
   cost split) and is the engines' ``values -> BackupResult`` callable, with
   :meth:`Backup6D.sweep_into` for the engines' carry mode: the kernel on a
-  CUDA tensor, the plain version on a CPU tensor. Non-flat plans are
-  analysed on the host, flat and recompute plans where they lie: only bin
-  counts of the lane taps, a few KB, come to the host.
+  CUDA tensor, the plain version on a CPU tensor. Every plan is analysed
+  where it lies (:func:`~.liveness.live_sets`): only the bounds and
+  present codes of its taps, the digit flag and the action costs, a few
+  KB, come to the host.
 """
 
 from __future__ import annotations
@@ -98,8 +99,10 @@ from ..profiling import span
 from .backup import BackupResult
 from .interp import InterpPlan
 from .kernelmath import asin_f32, atan2_f32, quat_step_readback
-from .rowlane import (_as_numpy, _corner_live_sets, _decode_live, _row_plan,
-                      _shift_lanes, _split_cost, _tap_weight, _upload)
+from . import liveness
+from .liveness import live_sets, to_host
+from .rowlane import (_cost_parts, _listed, _row_plan, _shift_lanes,
+                      _tap_weight)
 
 __all__ = ["Backup6DArgs", "Backup6D", "LaneRecompute", "RecomputePlan",
            "affine_locate", "plan_is_flat", "backup6d_cuda", "backup6d_plain",
@@ -116,9 +119,6 @@ MAX_TAPS = 3
 MAX_COMBOS = 40
 MAX_ACTIONS = 64
 MAX_DIGITS = 3
-# past this many (row, lane) elements the tap-liveness encode runs over row
-# blocks of about half of it (ocdp_tpu/ops/pallas_backup6.py:320-350)
-_LIVE_BLOCK_ELEMS = 200_000_000
 
 
 def affine_locate(coord: torch.Tensor, start: float, inv_step: float, n: int,
@@ -1026,122 +1026,47 @@ def backup6d_block(values: torch.Tensor, args: Backup6DArgs,
 def _detect_action_digits(w_off, w_frac, nr: int) -> Optional[int]:
     """The digit base m when ``A = m**nr`` and row axis k's (off, frac)
     columns depend only on digit k of the C-order action index, else None
-    (``pallas_backup6.py:950-965``)."""
+    (``pallas_backup6.py:950-965``): every column compared with its digit's
+    canonical column (the other digits 0) where the row plan lies, and one
+    flag read."""
     n_act = w_off[0].shape[1]
     m = round(n_act ** (1.0 / nr))
     if m**nr != n_act or m < 2:
         return None
+    same = []
     for k in range(nr):
-        stride = m ** (nr - 1 - k)
-        for a in range(n_act):
-            rep = (a // stride) % m * stride   # canonical column per digit
-            if not (np.array_equal(w_off[k][:, a], w_off[k][:, rep])
-                    and np.array_equal(w_frac[k][:, a], w_frac[k][:, rep])):
-                return None
-    return m
+        canon = (slice(None),) + tuple(slice(None) if j == k else slice(0, 1)
+                                       for j in range(nr))
+        for t in (w_off[k], w_frac[k]):
+            t = torch.as_tensor(t).reshape((-1,) + (m,) * nr)
+            same.append((t == t[canon]).all())
+    return m if to_host(torch.stack(same).all()).item() else None
 
 
-def _encode_count(offs, fracs, base, span, both_corners: bool):
-    """Bin counts of the per-element tap encode (``pallas_backup6.py:
-    307-318``): the offsets in mixed radix ``span`` from ``base``, then 2
-    liveness bits per axis (bit 0: the lo corner has weight, bit 1: the hi
-    corner), or both bits set under ``both_corners``."""
-    k = len(offs)
-    enc = None
-    for o, b, s in zip(offs, base, span):
-        t = o.to(torch.int64) - b
-        enc = t if enc is None else enc * s + t
-    if both_corners:
-        enc = (enc << (2 * k)) | ((1 << (2 * k)) - 1)
-    else:
-        for fr in fracs:
-            bits = (fr != 1.0).to(torch.int64) | ((fr != 0.0).to(torch.int64)
-                                                  << 1)
-            enc = (enc << 2) | bits
-    nbins = int(np.prod(span)) << (2 * k)
-    return torch.bincount(enc.reshape(-1), minlength=nbins)
-
-
-def _encode_layout(mins, maxs, k: int):
-    base = [int(v) for v in mins]
-    span = [int(hi) - b + 1 for hi, b in zip(maxs, base)]
-    bits = int(np.sum(np.ceil(np.log2(np.maximum(span, 2))))) + 2 * k
-    nbins = int(np.prod(span)) << (2 * k)
-    if bits >= 31 or nbins > (1 << 24):
-        raise ValueError(
-            f"lane tap encode needs {bits} bits / {nbins} bins: offsets reach "
-            "too far for the 6-D kernel; use the gather backup")
-    return base, span
-
-
-def _row_blocks(nw: int, ne: int) -> tuple:
-    """Row blocks of the liveness passes: one block up to
-    ``_LIVE_BLOCK_ELEMS`` elements, else blocks of about half of it, the
-    last one overlapping backward (counted twice: only which bins are
-    nonzero is decoded)."""
-    if nw * ne <= _LIVE_BLOCK_ELEMS:
-        return nw, [0]
-    rows = max(1, (_LIVE_BLOCK_ELEMS // 2) // ne)
-    r0s = list(range(0, nw - rows + 1, rows))
-    if r0s[-1] + rows < nw:
-        r0s.append(nw - rows)
-    return rows, r0s
-
-
-def _lane_live_device(offs, fracs):
-    """Live lane taps of a stored flat lane plan, ``(NW, NE)`` offsets and
-    fracs on their device (``pallas_backup6.py:286``): the encode and its
-    bincount run there, and only the bin counts come to the host."""
-    k = len(offs)
-    mins = torch.stack([o.min() for o in offs]).cpu().tolist()
-    maxs = torch.stack([o.max() for o in offs]).cpu().tolist()
-    base, span = _encode_layout(mins, maxs, k)
-    nw, ne = offs[0].shape
-    rows, r0s = _row_blocks(nw, ne)
-    counts = None
-    for r0 in r0s:
-        c = _encode_count([o[r0:r0 + rows] for o in offs],
-                          [f[r0:r0 + rows] for f in fracs], base, span,
-                          both_corners=False)
-        counts = c if counts is None else counts + c
-    vals = torch.nonzero(counts).flatten().cpu().tolist()
-    return _decode_live(vals, base, span, k)
-
-
-def _lane_live_recompute(rec: LaneRecompute, nw: int, ne: int):
-    """Live lane taps of a recompute plan (``pallas_backup6.py:355``): the
-    encode of :func:`_lane_live_device`, with the lanes regenerated one row
+def _lane_recompute_blocks(rec: LaneRecompute, nw: int, ne: int):
+    """The lane offsets of a recompute plan as :func:`~.liveness.live_sets`
+    takes a generated group (``pallas_backup6.py:355``): regenerated one row
     block at a time by :meth:`LaneRecompute.lane_block` (the function the
-    plain B.5 version calls) and both corners of every touched cell
-    admitted, so nothing table-sized is kept."""
-    k = len(rec.axis_sizes)
-    rows = max(1, min(nw, (_LIVE_BLOCK_ELEMS // 2) // max(ne, 1)))
+    plain B.5 version calls) on each pass, both corners of every touched
+    cell admitted, so nothing table-sized is kept."""
+    rows = max(1, min(nw, (liveness._LIVE_BLOCK_ELEMS // 2) // max(ne, 1)))
     r0s = [min(r0, nw - rows) for r0 in range(0, nw, rows)]
-    mins = maxs = None
-    for r0 in r0s:
-        offs, _ = rec.lane_block(r0, rows)
-        lo_ = torch.stack([o.min() for o in offs])
-        hi_ = torch.stack([o.max() for o in offs])
-        mins = lo_ if mins is None else torch.minimum(mins, lo_)
-        maxs = hi_ if maxs is None else torch.maximum(maxs, hi_)
-    base, span = _encode_layout(mins.cpu().tolist(), maxs.cpu().tolist(), k)
-    counts = None
-    for r0 in r0s:
-        offs, _ = rec.lane_block(r0, rows)
-        c = _encode_count(offs, None, base, span, both_corners=True)
-        counts = c if counts is None else counts + c
-    vals = torch.nonzero(counts).flatten().cpu().tolist()
-    return _decode_live(vals, base, span, k)
+
+    def blocks():
+        for r0 in r0s:
+            yield rec.lane_block(r0, rows)[0], None
+
+    return blocks
 
 
-def _broadcast_term(t, shape, nr: int) -> np.ndarray:
+def _broadcast_term(t, shape, nr: int) -> torch.Tensor:
     """A flat cost term ``(NW|1, NE|1, A|1)`` in the broadcast layout
     ``(*row_shape|1s, *lane_shape|1s, A|1)`` that ``_split_cost`` takes."""
-    t = _as_numpy(t).astype(np.float32, copy=False)
-    t = t.reshape((1,) * (3 - t.ndim) + t.shape)
+    t = torch.as_tensor(t)
+    t = t.reshape((1,) * (3 - t.dim()) + tuple(t.shape))
     rows = shape[:nr] if t.shape[0] > 1 else (1,) * nr
     lanes = shape[nr:] if t.shape[1] > 1 else (1,) * (len(shape) - nr)
-    return t.reshape(rows + lanes + t.shape[2:])
+    return t.reshape(rows + lanes + tuple(t.shape[2:]))
 
 
 ARGMIN_DTYPES = (torch.int32, torch.uint8)
@@ -1169,8 +1094,9 @@ class Backup6D:
     plan is invalid afterwards) and its fracs are used as views, so no
     second copy of the 24 B/cell lane plan exists.
 
-    Non-flat plans are analysed on the host, flat and recompute plans on
-    their device. Raises ``ValueError`` for a
+    Every plan is analysed on its device (:func:`~.liveness.live_sets`):
+    only the live sets' bounds and codes, the digit flag and the action
+    costs come to the host. Raises ``ValueError`` for a
     plan that is not 6-D or in neither layout, a row axis whose query
     varies along the lanes, a lane axis whose query varies with the action,
     a cost term coupling lanes and actions, and a tap structure beyond the
@@ -1217,7 +1143,10 @@ class Backup6D:
                 f"{MAX_DIGITS}; use impl='gather'")
 
     def _analyse(self, plan: InterpPlan, cost_terms) -> Backup6DArgs:
-        """A non-flat plan, analysed on the host."""
+        """A non-flat plan, analysed on its device: the kernel's row and
+        lane tables are formed from the plan's tensors there, and only the
+        live sets' bounds and codes, the digit flag and the action costs
+        come to the host."""
         d, nr = plan.ndim, self.ROW_AXES
         q_shape = plan.query_shape
         if d != 6 or len(q_shape) != d + 1:
@@ -1230,13 +1159,13 @@ class Backup6D:
         self.NW = int(np.prod(shape[:nr]))
         self.NE = int(np.prod(shape[nr:]))
 
-        def full_rank(a, dtype):
-            a = _as_numpy(a).astype(dtype, copy=False)
-            return a.reshape((1,) * (d + 1 - a.ndim) + a.shape)
+        def full_rank(a, dtype=None):
+            a = torch.as_tensor(a)
+            a = a if dtype is None else a.to(dtype)
+            return a.reshape((1,) * (d + 1 - a.dim()) + tuple(a.shape))
 
-        with span("ocdp.backup6d.read"):
-            lo = [full_rank(x, np.int32) for x in plan.lo]
-            fr = [full_rank(x, np.float32) for x in plan.frac]
+        lo = [full_rank(x, torch.int32) for x in plan.lo]
+        fr = [full_rank(x, torch.float32) for x in plan.frac]
         w_off, w_frac = _row_plan(lo, fr, shape, nr, n_act)
 
         # lane axes: offsets and fracs as broadcast views over the state
@@ -1247,42 +1176,31 @@ class Backup6D:
                 raise ValueError(
                     f"lane axis {k} query varies with the action — "
                     "not row/lane separable; use the gather backup")
-            iota = np.arange(shape[k], dtype=np.int32).reshape(
+            iota = torch.arange(shape[k], dtype=torch.int32,
+                                device=lo[k].device).reshape(
                 (1,) * k + (-1,) + (1,) * (d - 1 - k))
             e_off.append(lo[k][..., 0] - iota)
             e_frac.append(fr[k][..., 0])
 
-        w_taps, row_combos = _corner_live_sets(w_off, w_frac)
-        e_taps, lane_combos = _corner_live_sets(e_off, e_frac)
-        self._set_taps(w_taps, row_combos, e_taps, lane_combos,
-                       _detect_action_digits(w_off, w_frac, nr))
+        with span("ocdp.backup6d.read"):
+            (w_taps, row_combos), (e_taps, lane_combos) = live_sets(
+                (list(w_off), list(w_frac)), (e_off, e_frac))
+            digits = _detect_action_digits(w_off, w_frac, nr)
+        self._set_taps(w_taps, row_combos, e_taps, lane_combos, digits)
 
-        terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
-                 else [cost_terms])
-        c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
-            [full_rank(t, np.float32) for t in terms], shape, nr, n_act)
-        self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
-
-        def up(a, dtype):
-            return _upload(a, dtype, plan.device)
-
-        def lane_table(a, dtype):
-            return up(np.broadcast_to(a, shape).reshape(self.NW, self.NE),
-                      dtype)
+        def lane_table(a):
+            return a.expand(shape).reshape(self.NW, self.NE).contiguous()
 
         return Backup6DArgs(
             row_shape=shape[:nr], lane_shape=shape[nr:],
-            row_off=up(np.stack(w_off), torch.int32),
-            row_frac=up(np.stack(w_frac), torch.float32),
-            lane_off=tuple(lane_table(a, torch.int32) for a in e_off),
-            lane_frac=tuple(lane_table(a, torch.float32) for a in e_frac),
+            row_off=w_off, row_frac=w_frac,
+            lane_off=tuple(lane_table(a) for a in e_off),
+            lane_frac=tuple(lane_table(a) for a in e_frac),
             row_combos=self.row_combos, lane_combos=self.lane_combos,
             w_taps=self.w_taps, action_digits=self.action_digits,
-            c_row=up(c_row, torch.float32), c_lane=up(c_lane, torch.float32),
-            c_act=tuple(float(x) for x in c_act),
-            c_rowact=up(c_rowact, torch.float32),
-            c_rowlane=up(c_rowlane, torch.float32),
-            argmin_dtype=self.argmin_dtype, track_argmin=self.track_argmin)
+            argmin_dtype=self.argmin_dtype, track_argmin=self.track_argmin,
+            **self._costs([full_rank(t) for t in _listed(cost_terms)],
+                          shape, n_act, plan.device))
 
     def _analyse_flat(self, plan, cost_terms, consume: bool) -> Backup6DArgs:
         """A flat or recompute plan, analysed on its device
@@ -1317,12 +1235,6 @@ class Backup6D:
             w_frac.append(fr[:, 0, :].to(torch.float32).expand(nw, n_act))
         row_off = torch.stack(w_off).contiguous()
         row_frac = torch.stack(w_frac).contiguous()
-        # the row analysis is (3, NW, A): small, on the host
-        with span("ocdp.backup6d.read"):
-            w_off_h, w_frac_h = list(row_off.cpu().numpy()), \
-                list(row_frac.cpu().numpy())
-        w_taps, row_combos = _corner_live_sets(w_off_h, w_frac_h)
-        digits = _detect_action_digits(w_off_h, w_frac_h, nr)
 
         lanes = None
         lane_off, lane_frac = (), ()
@@ -1332,7 +1244,7 @@ class Backup6D:
                     len(lanes.row_feats) != 3 or len(lanes.lane_feats) != 4:
                 raise ValueError("the lane recompute spec does not match the "
                                  f"grid {shape}")
-            e_taps, lane_combos = _lane_live_recompute(lanes, nw, ne)
+            lane_group = _lane_recompute_blocks(lanes, nw, ne)
         else:
             own = _lane_own_index(shape[nr:], dev)
             for k in range(nr, 6):
@@ -1351,26 +1263,31 @@ class Backup6D:
                 lane_off += (off,)
                 lane_frac += (fr[..., 0].to(torch.float32).expand(nw, ne)
                               .contiguous(),)
-            e_taps, lane_combos = _lane_live_device(lane_off, lane_frac)
+            lane_group = (lane_off, lane_frac)
+        with span("ocdp.backup6d.read"):
+            (w_taps, row_combos), (e_taps, lane_combos) = live_sets(
+                (list(row_off), list(row_frac)), lane_group)
+            digits = _detect_action_digits(row_off, row_frac, nr)
         self._set_taps(w_taps, row_combos, e_taps, lane_combos, digits)
-
-        terms = (list(cost_terms) if isinstance(cost_terms, (tuple, list))
-                 else [cost_terms])
-        c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
-            [_broadcast_term(t, shape, nr) for t in terms], shape, nr, n_act)
-        self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
         return Backup6DArgs(
             row_shape=shape[:nr], lane_shape=shape[nr:], row_off=row_off,
             row_frac=row_frac, lane_off=lane_off, lane_frac=lane_frac,
             row_combos=self.row_combos, lane_combos=self.lane_combos,
             w_taps=self.w_taps, action_digits=self.action_digits,
-            c_row=_upload(c_row, torch.float32, dev),
-            c_lane=_upload(c_lane, torch.float32, dev),
-            c_act=tuple(float(x) for x in c_act),
-            c_rowact=_upload(c_rowact, torch.float32, dev),
-            c_rowlane=_upload(c_rowlane, torch.float32, dev),
             argmin_dtype=self.argmin_dtype, track_argmin=self.track_argmin,
-            lanes=lanes)
+            lanes=lanes,
+            **self._costs([_broadcast_term(t, shape, nr)
+                           for t in _listed(cost_terms)], shape, n_act, dev))
+
+    def _costs(self, terms, shape, n_act, device) -> dict:
+        """The split stage cost as :class:`Backup6DArgs` fields (on
+        ``device``; ``c_act`` host floats), kept on the backup too."""
+        c_row, c_lane, c_rowact, c_rowlane, c_act = _cost_parts(
+            terms, shape, self.ROW_AXES, n_act, device)
+        self.c_row, self.c_lane = c_row, c_lane
+        self.c_act = np.asarray(c_act, np.float32)
+        return dict(c_row=c_row, c_lane=c_lane, c_act=c_act,
+                    c_rowact=c_rowact, c_rowlane=c_rowlane)
 
     def _set_taps(self, w_taps, row_combos, e_taps, lane_combos, digits):
         self.w_taps = tuple(tuple(t) for t in w_taps)

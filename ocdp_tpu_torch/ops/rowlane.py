@@ -28,15 +28,15 @@ reads 0.0 and always carries an exactly zero weight.
 * :func:`rowlane_backup_plain` is the same function in plain PyTorch on the
   same inputs, in the same order of operations. On a CUDA device the two
   agree bitwise.
-* :class:`RowLaneBackup` analyses a plan once on the host (live taps, the
-  cost split) and is the engines' ``values -> BackupResult`` callable: the
-  kernel on a CUDA tensor, the plain version on a CPU tensor.
+* :class:`RowLaneBackup` analyses a plan once where it lies (live taps
+  through :func:`~.liveness.live_sets`, the cost split) and is the engines'
+  ``values -> BackupResult`` callable: the kernel on a CUDA tensor, the
+  plain version on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import functools
-import itertools
 import math
 from typing import NamedTuple, Optional
 
@@ -46,6 +46,7 @@ import torch
 from ..profiling import span
 from .backup import BackupResult
 from .interp import InterpPlan
+from .liveness import live_sets, to_host
 
 __all__ = ["RowLaneArgs", "RowLaneBackup", "RowLaneBatch", "RowLaneTiles",
            "plan_tiles", "rowlane_backup_cuda", "rowlane_backup_plain"]
@@ -60,56 +61,6 @@ MAX_LANE_TAPS = 40
 MAX_ROW_COMBOS = 40
 MAX_LANE_COMBOS = 40
 MAX_ACTIONS = 64
-
-
-def _corner_live_sets(axis_offs, axis_fracs):
-    """Exact jointly-live tap combinations across a group of axes.
-
-    A combo (t_0..t_{k-1}) is live iff some query element's multilinear
-    corner reaches it with nonzero weight on EVERY axis (weight 1-frac at
-    the lo corner, frac at the hi corner). One encode pass + one
-    ``np.unique`` over the elements. Returns ``(per_axis_taps, combos)``,
-    both sorted, as ``ocdp_tpu/ops/pallas_backup6.py:225`` does.
-    """
-    k = len(axis_offs)
-    base = [int(o.min()) for o in axis_offs]
-    span = [int(o.max()) - b + 1 for o, b in zip(axis_offs, base)]
-    bits_needed = int(np.sum(np.ceil(np.log2(np.maximum(span, 2))))) + 2 * k
-    dtype = np.int32 if bits_needed < 31 else np.int64
-    enc = np.zeros(np.broadcast_shapes(*(a.shape for a in
-                                         (*axis_offs, *axis_fracs))), dtype)
-    for o, b, s in zip(axis_offs, base, span):
-        np.multiply(enc, s, out=enc)
-        enc += o
-        enc -= b
-    # 2 liveness bits per axis: bit0 = lo corner has weight, bit1 = hi
-    for fr in axis_fracs:
-        np.left_shift(enc, 2, out=enc)
-        enc |= np.not_equal(fr, np.float32(1.0))
-        hi = np.not_equal(fr, np.float32(0.0)).astype(np.int8)
-        np.left_shift(hi, 1, out=hi)
-        enc |= hi
-    return _decode_live(np.unique(enc).tolist(), base, span, k)
-
-
-def _decode_live(enc_values, base, span, k):
-    """Expand present encode values into the live corner-combo set."""
-    combos = set()
-    for e in enc_values:
-        bits = [(e >> (2 * (k - 1 - i))) & 3 for i in range(k)]
-        rest = e >> (2 * k)
-        offs = []
-        for s in reversed(span):
-            rest, o = divmod(rest, s)
-            offs.append(o)
-        offs = offs[::-1]
-        for corner in itertools.product((0, 1), repeat=k):
-            if all((b >> c) & 1 for c, b in zip(corner, bits)):
-                combos.add(tuple(o + b + c for o, b, c
-                                 in zip(offs, base, corner)))
-    combos = sorted(combos)
-    taps = [sorted({c[i] for c in combos}) for i in range(k)]
-    return taps, combos
 
 
 class RowLaneArgs(NamedTuple):
@@ -658,17 +609,11 @@ rowlane_backup_cuda.launches = 0
 rowlane_backup_cuda.channel_sweeps = 0
 
 
-def _as_numpy(a, dtype=None):
-    if isinstance(a, torch.Tensor):
-        a = a.detach().cpu().numpy()
-    return np.asarray(a, dtype)
-
-
 def _row_plan(lo, fr, shape, nr, n_act):
     """Per-(row, action) offsets (lo minus the row's own index) and fracs of
-    the ``nr`` row axes, each ``(NW, n_act)``, from ``(d+1)``-dim broadcast
-    arrays ``lo``/``fr`` over ``(*shape, n_act)``. Raises for a row axis
-    whose query varies along the lanes."""
+    the ``nr`` row axes, ``(nr, NW, n_act)`` tensors on the plan's device,
+    from ``(d+1)``-dim broadcast tensors ``lo``/``fr`` over ``(*shape,
+    n_act)``. Raises for a row axis whose query varies along the lanes."""
     d = len(shape)
     nw = int(np.prod(shape[:nr]))
     target = shape[:nr] + (1,) * (d - nr) + (n_act,)
@@ -679,31 +624,42 @@ def _row_plan(lo, fr, shape, nr, n_act):
             raise ValueError(
                 f"row axis {k} query varies along lane axes — "
                 "not row/lane separable; use the gather backup")
-        idx = np.arange(shape[k], dtype=np.int32).reshape(
+        idx = torch.arange(shape[k], dtype=torch.int32,
+                           device=lo[k].device).reshape(
             (1,) * k + (-1,) + (1,) * (d - k))
-        w_off.append(np.broadcast_to(lo[k] - idx, target).reshape(nw, n_act))
-        w_frac.append(np.broadcast_to(fr[k], target).reshape(nw, n_act))
-    return w_off, w_frac
+        w_off.append((lo[k] - idx).expand(target))
+        w_frac.append(fr[k].expand(target))
+    return (torch.stack(w_off).reshape(nr, nw, n_act),
+            torch.stack(w_frac).reshape(nr, nw, n_act))
+
+
+def _listed(cost_terms) -> list:
+    return (list(cost_terms) if isinstance(cost_terms, (tuple, list))
+            else [cost_terms])
 
 
 def _split_cost(terms, shape, nr, n_act):
-    """Split broadcast-shaped ``(d+1)``-dim cost terms (numpy, in the row/lane
-    axis order) into row ``(NW,)``, lane ``(NE,)``, action ``(A,)``, row x
-    action ``(NW, A)`` and row x lane ``(NW, NE)`` parts (the last two None
-    when no term has them), each accumulated in term order as
-    ``ocdp_tpu/ops/pallas_backup6.py:840-902`` does. Raises for a term that
-    couples lanes and actions."""
+    """Split broadcast-shaped ``(d+1)``-dim cost terms (tensors or arrays,
+    in the row/lane axis order) into float32 row ``(NW,)``, lane ``(NE,)``,
+    action ``(A,)``, row x action ``(NW, A)`` and row x lane ``(NW, NE)``
+    parts (the last two None when no term has them), each accumulated in
+    term order as ``ocdp_tpu/ops/pallas_backup6.py:840-902`` does, on the
+    device of the terms that are not on the host (the host when none is).
+    Raises for a term that couples lanes and actions."""
     d = len(shape)
     nc = d - nr
     nw, ne = int(np.prod(shape[:nr])), int(np.prod(shape[nr:]))
-    c_row = np.zeros(nw, np.float32)
-    c_lane = np.zeros(ne, np.float32)
-    c_act = np.zeros(n_act, np.float32)
+    terms = [torch.as_tensor(t) for t in terms]
+    dev = next((t.device for t in terms if t.device.type != "cpu"),
+               torch.device("cpu"))
+    c_row = torch.zeros(nw, dtype=torch.float32, device=dev)
+    c_lane = torch.zeros(ne, dtype=torch.float32, device=dev)
+    c_act = torch.zeros(n_act, dtype=torch.float32, device=dev)
     c_rowact = c_rowlane = None
     for t in terms:
-        t = np.asarray(t, np.float32)
-        if t.ndim != d + 1:
-            t = t.reshape((1,) * (d + 1 - t.ndim) + t.shape)
+        t = t.to(dev, torch.float32)
+        if t.dim() != d + 1:
+            t = t.reshape((1,) * (d + 1 - t.dim()) + tuple(t.shape))
         row_dep = any(s > 1 for s in t.shape[:nr])
         lane_dep = any(s > 1 for s in t.shape[nr:d])
         act_dep = t.shape[-1] > 1
@@ -712,39 +668,75 @@ def _split_cost(terms, shape, nr, n_act):
                 "cost term couples the lane and action groups — "
                 "not factorizable for the row/lane kernels")
         if act_dep and row_dep:
-            add = np.broadcast_to(
-                t, shape[:nr] + (1,) * nc + (n_act,)).reshape(nw, n_act)
-            c_rowact = add.copy() if c_rowact is None else c_rowact + add
+            add = t.expand(shape[:nr] + (1,) * nc + (n_act,)) \
+                .reshape(nw, n_act)
+            c_rowact = add.clone() if c_rowact is None else c_rowact + add
         elif row_dep and lane_dep:
-            add = np.broadcast_to(t[..., 0], shape).reshape(nw, ne)
-            c_rowlane = add.copy() if c_rowlane is None else c_rowlane + add
+            add = t[..., 0].expand(shape).reshape(nw, ne)
+            c_rowlane = add.clone() if c_rowlane is None \
+                else c_rowlane + add
         elif act_dep:
-            c_act += np.broadcast_to(t, (1,) * d + (n_act,)).reshape(n_act)
+            c_act += t.expand((1,) * d + (n_act,)).reshape(n_act)
         elif lane_dep:
-            c_lane += np.broadcast_to(
-                t, (1,) * nr + shape[nr:] + (1,)).reshape(ne)
+            c_lane += t.expand((1,) * nr + shape[nr:] + (1,)).reshape(ne)
         else:
-            c_row += np.broadcast_to(
-                t, shape[:nr] + (1,) * (nc + 1)).reshape(nw)
+            c_row += t.expand(shape[:nr] + (1,) * (nc + 1)).reshape(nw)
     return c_row, c_lane, c_act, c_rowact, c_rowlane
+
+
+# a part's offset in a packed copy, in floats (256 B, a fresh allocation's
+# alignment)
+_PACK_ALIGN = 64
+
+
+def _to_device(parts, device) -> list:
+    """The tensors ``parts`` (None kept) contiguous on ``device``: those on
+    another device moved in one packed copy, each at a 256-byte aligned
+    offset of it."""
+    move = [i for i, p in enumerate(parts)
+            if p is not None and p.device != device]
+    out = [None if p is None else p.contiguous() for p in parts]
+    if not move:
+        return out
+    sizes = [-(-parts[i].numel() // _PACK_ALIGN) * _PACK_ALIGN for i in move]
+    buf = torch.zeros(sum(sizes), dtype=torch.float32,
+                      device=parts[move[0]].device)
+    at = 0
+    for i, n in zip(move, sizes):
+        buf[at:at + parts[i].numel()] = parts[i].reshape(-1)
+        at += n
+    buf = buf.to(device)
+    at = 0
+    for i, n in zip(move, sizes):
+        out[i] = buf[at:at + parts[i].numel()].view(parts[i].shape)
+        at += n
+    return out
+
+
+def _cost_parts(terms, shape, nr, n_act, device) -> tuple:
+    """:func:`_split_cost`'s parts as the kernels take them: ``c_row``,
+    ``c_lane``, ``c_rowact``, ``c_rowlane`` contiguous on ``device`` (one
+    packed copy where they were split on the host) and ``c_act`` as host
+    floats (one read where they were split on the device)."""
+    c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
+        terms, shape, nr, n_act)
+    c_act = tuple(float(x) for x in to_host(c_act))
+    return (*_to_device([c_row, c_lane, c_rowact, c_rowlane], device),
+            c_act)
 
 
 def _with_unit_axis(lo, fr, terms, shape, p):
     """Insert a size-1 state axis at position ``p`` into the permuted plan
-    arrays, the cost terms and the shape; the new axis's queries stay on its
-    one point (lo 0, frac 0)."""
+    tensors, the cost terms and the shape; the new axis's queries stay on
+    its one point (lo 0, frac 0)."""
     unit = (1,) * (len(shape) + 2)
-    lo = [np.expand_dims(a, p) for a in lo]
-    fr = [np.expand_dims(a, p) for a in fr]
-    lo.insert(p, np.zeros(unit, np.int32))
-    fr.insert(p, np.zeros(unit, np.float32))
-    terms = [np.expand_dims(t, p) for t in terms]
+    dev = lo[0].device
+    lo = [a.unsqueeze(p) for a in lo]
+    fr = [a.unsqueeze(p) for a in fr]
+    lo.insert(p, torch.zeros(unit, dtype=torch.int32, device=dev))
+    fr.insert(p, torch.zeros(unit, dtype=torch.float32, device=dev))
+    terms = [t.unsqueeze(p) for t in terms]
     return lo, fr, terms, shape[:p] + (1,) + shape[p:]
-
-
-def _upload(a, dtype, device):
-    return None if a is None else torch.tensor(
-        np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
 class RowLaneBackup:
@@ -777,8 +769,9 @@ class RowLaneBackup:
             self._analyse(plan, cost_terms, perm, row_axes)
 
     def _analyse(self, plan: InterpPlan, cost_terms, perm, row_axes: int):
-        """The host analysis of the taps, the cost split and the upload of
-        the kernel's arguments (``self.args``)."""
+        """The analysis of the taps, the cost split and the kernel's
+        arguments (``self.args``), on the plan's device: only the live sets'
+        bounds and codes come to the host."""
         d = plan.ndim
         if sorted(perm) != list(range(d)):
             raise ValueError(f"perm {perm} is not a permutation of 0..{d-1}")
@@ -787,16 +780,14 @@ class RowLaneBackup:
         ap = self.perm + (d,)          # the action axis stays last
 
         def permuted(a):
-            a = _as_numpy(a)
-            if a.ndim != d + 1:
-                a = a.reshape((1,) * (d + 1 - a.ndim) + a.shape)
-            return np.transpose(a, ap)
+            a = torch.as_tensor(a)
+            if a.dim() != d + 1:
+                a = a.reshape((1,) * (d + 1 - a.dim()) + tuple(a.shape))
+            return a.permute(ap)
 
-        lo = [permuted(plan.lo[k]).astype(np.int32) for k in self.perm]
-        fr = [permuted(plan.frac[k]).astype(np.float32) for k in self.perm]
-        terms = [permuted(t) for t in
-                 (cost_terms if isinstance(cost_terms, (tuple, list))
-                  else [cost_terms])]
+        lo = [permuted(plan.lo[k]).to(torch.int32) for k in self.perm]
+        fr = [permuted(plan.frac[k]).to(torch.float32) for k in self.perm]
+        terms = [permuted(t) for t in _listed(cost_terms)]
         shape = tuple(plan.grid_shape[k] for k in self.perm)
         self.state_shape = shape
         n_act = plan.query_shape[-1]
@@ -827,19 +818,20 @@ class RowLaneBackup:
                         "lanes couple, and the rowlane kernel takes "
                         "separable lanes only; use ops.backup6d.Backup6D or "
                         "the gather backup")
-            iota = np.arange(shape[k], dtype=np.int32).reshape(
+            iota = torch.arange(shape[k], dtype=torch.int32,
+                                device=lo[k].device).reshape(
                 (1,) * k + (-1,) + (1,) * (d - 1 - k))
             e_off.append(lo[k][..., 0] - iota)
             e_frac.append(fr[k][..., 0])
             own = shape[:nr] + tuple(shape[k] if j == k else 1
                                      for j in range(nr, d))
-            lane_off.append(np.broadcast_to(e_off[-1], own)
-                            .reshape(nw, shape[k]))
-            lane_frac.append(np.broadcast_to(e_frac[-1], own)
-                             .reshape(nw, shape[k]))
+            lane_off.append(e_off[-1].expand(own).reshape(nw, shape[k])
+                            .contiguous())
+            lane_frac.append(e_frac[-1].expand(own).reshape(nw, shape[k])
+                             .contiguous())
 
-        w_taps, row_combos = _corner_live_sets(w_off, w_frac)
-        e_taps, lane_combos = _corner_live_sets(e_off, e_frac)
+        (w_taps, row_combos), (e_taps, lane_combos) = live_sets(
+            (list(w_off), list(w_frac)), (e_off, e_frac))
         self.w_taps = tuple(tuple(t) for t in w_taps)
         self.row_combos = tuple(row_combos)
         self.e_taps = tuple(tuple(t) for t in e_taps)
@@ -858,24 +850,17 @@ class RowLaneBackup:
                 "impl='gather'")
 
         # the factorized stage cost
-        c_row, c_lane, c_act, c_rowact, c_rowlane = _split_cost(
-            terms, shape, nr, n_act)
-        self.c_row, self.c_lane, self.c_act = c_row, c_lane, c_act
-
-        def up(a, dtype):
-            return _upload(a, dtype, plan.device)
-
+        c_row, c_lane, c_rowact, c_rowlane, c_act = _cost_parts(
+            terms, shape, nr, n_act, plan.device)
+        self.c_row, self.c_lane = c_row, c_lane
+        self.c_act = np.asarray(c_act, np.float32)
         self.args = RowLaneArgs(
             row_shape=shape[:nr], lane_shape=shape[nr:],
-            row_off=up(np.stack(w_off), torch.int32),
-            row_frac=up(np.stack(w_frac), torch.float32),
-            lane_off=tuple(up(a, torch.int32) for a in lane_off),
-            lane_frac=tuple(up(a, torch.float32) for a in lane_frac),
-            row_combos=self.row_combos, lane_taps=self.e_taps,
-            c_row=up(c_row, torch.float32), c_lane=up(c_lane, torch.float32),
-            c_act=tuple(float(x) for x in c_act),
-            c_rowact=up(c_rowact, torch.float32),
-            c_rowlane=up(c_rowlane, torch.float32))
+            row_off=w_off, row_frac=w_frac, lane_off=tuple(lane_off),
+            lane_frac=tuple(lane_frac), row_combos=self.row_combos,
+            lane_taps=self.e_taps,
+            c_row=c_row, c_lane=c_lane, c_act=c_act, c_rowact=c_rowact,
+            c_rowlane=c_rowlane)
         _check_args(self.args)
 
     def to_table(self, values: torch.Tensor) -> torch.Tensor:

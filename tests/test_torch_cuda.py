@@ -1422,3 +1422,60 @@ def test_segmented_checkpoints_through_a_pinned_buffer(device, tmp_path,
     assert any(n.startswith("cuda") for n in names)     # runtime calls seen
     assert not names & {"cudaHostAlloc", "cudaMallocHost", "cudaHostRegister"}
     assert any("DtoH" in n and "Pinned" in n for n in names), sorted(names)
+
+
+def _plan_on(plan, dev):
+    return InterpPlan(tuple(t.to(dev) for t in plan.lo),
+                      tuple(t.to(dev) for t in plan.frac), plan.grid_shape)
+
+
+def _args_bitwise(got, want):
+    """Two backups' argument tensors equal bit for bit (floats as their
+    bits), their host fields equal."""
+    for field, g in got._asdict().items():
+        w = getattr(want, field)
+        pairs = list(zip(g, w)) if field in ("lane_off", "lane_frac") \
+            else [(g, w)]
+        for gi, wi in pairs:
+            if isinstance(gi, torch.Tensor):
+                gi, wi = gi.cpu(), wi.cpu()
+                if gi.dtype == torch.float32:
+                    gi, wi = gi.view(torch.int32), wi.view(torch.int32)
+                assert gi.dtype == wi.dtype and torch.equal(gi, wi), field
+            else:
+                assert gi == wi, field
+
+
+@pytest.mark.parametrize("case", ["attitude6d", "flat", "pos_att"])
+def test_tap_analysis_on_the_card(device, case):
+    """A plan on the card is analysed there: its argument tensors are the
+    analysis of the same plan on the host, bit for bit, and the analysis
+    reads back under 64 KB (the 11^3 x 10^3 plan's lane arrays alone are
+    32 MB)."""
+    from ocdp_tpu_torch.ops import liveness
+
+    if case == "pos_att":
+        cfg = pos_att.PosAttConfig()
+        p = pos_att.build_channel(cfg, "x", with_cost=False, device=device)
+
+        def analyse(dev):
+            q = p._replace(plan=_plan_on(p.plan, dev))
+            return pos_att.build_channel_rowlane_backup(cfg, q)
+    else:
+        cfg = (attitude.AttitudeConfig(n_mesh_w=11, n_mesh_q=10)
+               if case == "attitude6d"
+               else attitude.AttitudeConfig(n_mesh_w=7, n_mesh_q=5))
+        _, plan, cost = attitude.build_full(cfg, flat=case == "flat",
+                                            device=device)
+
+        def analyse(dev):
+            return b6.Backup6D(_plan_on(plan, dev),
+                               [t.to(dev) for t in cost])
+    calls, read = liveness.live_sets.calls, liveness.live_sets.read_bytes
+    got = analyse(device)
+    torch.cuda.synchronize()
+    assert liveness.live_sets.calls == calls + 1
+    assert liveness.live_sets.read_bytes - read < 64 * 1024
+    assert all(t.is_cuda for t in (got.args.row_off, got.args.c_row,
+                                   *got.args.lane_off))
+    _args_bitwise(got.args, analyse(torch.device("cpu")).args)

@@ -38,6 +38,7 @@ from ocdp_tpu.ops.pallas_backup6 import PallasBackup6D
 from ocdp_tpu_torch import convert
 from ocdp_tpu_torch.models import attitude as tatt
 from ocdp_tpu_torch.ops import backup6d as b6
+from ocdp_tpu_torch.ops import liveness
 
 torch.set_num_threads(2)
 
@@ -106,8 +107,8 @@ def test_flat_liveness_in_row_blocks(monkeypatch):
     overlapping backward) finds the one-shot encode's taps."""
     _, plan, cost = _cpu_build(MID, flat=True)
     one = b6.Backup6D(plan, cost)
-    monkeypatch.setattr(b6, "_LIVE_BLOCK_ELEMS", 2 * 125 * 40)
-    rows, r0s = b6._row_blocks(one.NW, one.NE)
+    monkeypatch.setattr(liveness, "_LIVE_BLOCK_ELEMS", 2 * 125 * 40)
+    rows, r0s = liveness._row_blocks(one.NW, one.NE)
     assert rows == 40 and len(r0s) == 9 and r0s[-1] == one.NW - 40
     assert _taps(b6.Backup6D(plan, cost)) == _taps(one)
 
